@@ -1,0 +1,66 @@
+"""The F-engine: coarse delay -> PFB -> fine delay/fringe -> requantise.
+
+PyTorch counterpart of :func:`dc_sand_tpu.models.fengine.f_engine`
+(golden semantics: :func:`dc_sand_tpu.golden.chain.f_engine`).  The whole
+chain after the coarse delay runs in the fused F-engine
+(:mod:`dc_sand_tpu_torch.ops.fengine_fused`): one CUDA kernel launch on a
+CUDA tensor, the plain per-stage ops on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+
+__all__ = ["f_engine", "coarse_delay"]
+
+
+def coarse_delay(x: torch.Tensor, delays, max_delay: int) -> torch.Tensor:
+    """Integer-sample delay via read-pointer offset (C2).
+
+    ``x: (..., T)`` with ``max_delay`` lead-in samples; ``delays``
+    broadcastable over the leading axes.  Output length ``T - max_delay``;
+    a stream delayed by d reads from ``max_delay - d``.  Out-of-range
+    delays CLAMP to ``[0, max_delay]``, as the JAX version's
+    ``dynamic_slice`` does (the golden model raises instead).
+    """
+    lead = tuple(x.shape[:-1])
+    n_out = x.shape[-1] - max_delay
+    ds = np.broadcast_to(np.asarray(
+        delays.cpu() if isinstance(delays, torch.Tensor) else delays,
+        np.int64), lead)
+    out = torch.empty(lead + (n_out,), dtype=x.dtype, device=x.device)
+    for idx in np.ndindex(*lead):
+        start = max_delay - int(np.clip(ds[idx], 0, max_delay))
+        out[idx] = x[idx][start:start + n_out]
+    return out
+
+
+def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
+             history: Optional[torch.Tensor] = None,
+             coarse_delays=None, max_delay: int = 0,
+             frac_delay=None, phase=None, gains=None,
+             impl: str = "auto") -> torch.Tensor:
+    """Full F-engine on ``x: (..., t)`` int8 real streams.
+
+    ``history`` (streaming split-I/O mode): ``x`` is the new chunk as
+    frames ``(..., B, M)`` and ``history`` the carried overlap-save tail
+    ``(..., taps_pad, M)``; coarse delay then rides the host feed
+    (``coarse_delays`` must be None).
+
+    Returns the wire format: int8 ``(..., b, k, 2)`` with ``gains``
+    (``(k, 2)`` float32 re/im), float32 ``(..., b, k, 2)`` without (plain
+    version only).
+    """
+    if history is not None and coarse_delays is not None:
+        raise ValueError("split-I/O mode keeps coarse delay on the "
+                         "host/ingest path (coarse_delays must be None)")
+    if coarse_delays is not None:
+        x = coarse_delay(x, coarse_delays, max_delay)
+    return fengine_fused(x, window, taps, n_chans, history=history,
+                         frac_delay=frac_delay, phase=phase, gains=gains,
+                         impl=impl)

@@ -1,0 +1,9 @@
+"""Per-stage ops.  Two modules hold CUDA kernels beside their plain
+versions: :mod:`.fengine_fused` (K1) and :mod:`.xcorr` (K2/K3)."""
+
+from .pfb import pfb_fir  # noqa: F401
+from .fft import channelize  # noqa: F401
+from .phase import fine_delay_fringe  # noqa: F401
+from .quant import requantize, dequantize  # noqa: F401
+from .xcorr import (acc_shape, extract_vis, xcorr_accumulate,  # noqa: F401
+                    xcorr_accumulate_a2, xcorr_full, extract_baselines)

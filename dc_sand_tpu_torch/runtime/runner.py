@@ -1,0 +1,185 @@
+"""Chunked streaming runner (C21), fx mode, one device.
+
+PyTorch counterpart of :class:`dc_sand_tpu.runtime.runner.FXRunner`:
+feed a chunk to the device, advance the delay polynomials on the host,
+apply the coarse delay as a read-pointer offset on the device, run the
+fx step (F-engine + corner-turn + CMAC), and dump the integration at the
+accumulation cadence.  The FIR history and the packed accumulator live
+on the device and are updated in place.
+
+Fault semantics as in the JAX runner: a dropped chunk is replaced by
+zeros — stream timing advances, the FIR history stays continuous, and
+the dump metadata records how many spectra actually integrated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from dc_sand_tpu.config import ChainConfig
+from dc_sand_tpu_torch.models.pipeline import (history_shape, make_step,
+                                               zero_vis_acc)
+from dc_sand_tpu_torch.ops.xcorr import extract_vis
+from dc_sand_tpu_torch.runtime.delays import DelayModel
+
+logger = logging.getLogger("dc_sand_tpu_torch.runner")
+
+__all__ = ["FXRunner", "RunnerCounters", "Dump", "MAX_SPECTRA_PER_ACC"]
+
+# int32 CMAC headroom: |V| <= 2 * 127**2 * n_spectra
+MAX_SPECTRA_PER_ACC = (2 ** 31 - 1) // (2 * 127 * 127)
+
+
+@dataclasses.dataclass
+class RunnerCounters:
+    chunks_in: int = 0
+    chunks_dropped: int = 0
+    samples_in: int = 0
+    spectra_out: int = 0
+    dumps: int = 0
+
+
+@dataclasses.dataclass
+class Dump:
+    """One accumulator dump: visibilities + integration bookkeeping."""
+    vis: np.ndarray            # (n_bl, P, P, K, 2) int32
+    n_spectra: int             # spectra actually integrated (drops excluded)
+    n_spectra_nominal: int     # window length in spectra
+    first_chunk: int
+
+
+class FXRunner:
+    """Streaming fx runner on one device.
+
+    ``source(chunk_idx)`` returns the chunk's int8 samples, ``(A, P,
+    chunk_samples)`` or the same bytes as frames ``(A*P, B, M)``: a numpy
+    array, or a tensor (already on ``device`` or not).  ``gains``:
+    ``(K, 2)`` float32 re/im (default ``cfg.quant_scale`` real).
+    """
+
+    def __init__(self, cfg: ChainConfig, window: np.ndarray,
+                 delay_model: Optional[DelayModel] = None,
+                 gains: Optional[np.ndarray] = None, *, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.delay_model = delay_model or DelayModel.zeros(
+            cfg.n_ants, cfg.n_pols)
+        self.max_delay = self.delay_model.max_delay
+        if cfg.n_spectra_per_acc > MAX_SPECTRA_PER_ACC:
+            raise ValueError(
+                f"n_spectra_per_acc={cfg.n_spectra_per_acc} overflows the "
+                f"int32 visibility accumulator (max {MAX_SPECTRA_PER_ACC})")
+        self._step = make_step(cfg, window, device=self.device)
+        a, p, k = cfg.n_ants, cfg.n_pols, cfg.n_chans
+        self.gains = torch.as_tensor(
+            gains if gains is not None
+            else np.stack([np.full((k,), cfg.quant_scale, np.float32),
+                           np.zeros((k,), np.float32)], -1),
+            dtype=torch.float32, device=self.device).contiguous()
+        self.history = torch.zeros(history_shape(cfg), dtype=torch.int8,
+                                   device=self.device)
+        # integer-sample (coarse) delay is a read-pointer offset applied in
+        # the feed; the tail carries the previous chunk's last max_delay
+        # samples (zeros at stream start)
+        self._tail = (torch.zeros((a, p, self.max_delay),
+                                       dtype=torch.int8, device=self.device)
+                           if cfg.apply_delay and self.max_delay else None)
+        self.vis_acc = zero_vis_acc(cfg, self.device)
+        self.counters = RunnerCounters()
+        self.t0 = 0          # absolute sample index of next new sample
+        self.chunk_idx = 0
+        self._acc_spectra = 0       # spectra in current window (nominal)
+        self._acc_integrated = 0    # spectra actually integrated
+        self._acc_first_chunk = 0
+
+    # ------------------------------------------------------------------
+    def run(self, source: Callable[[int], np.ndarray], n_chunks: int,
+            drop_chunks: Iterable[int] = ()):
+        """Process ``n_chunks``; returns ``(dumps, counters)``.
+
+        ``drop_chunks``: chunk indices to fault-inject as zeros.
+        """
+        cfg = self.cfg
+        b = cfg.spectra_per_chunk
+        drop = frozenset(drop_chunks)
+        dumps = []
+        for _ in range(n_chunks):
+            i = self.chunk_idx
+            chunk, frac, phase, dropped = self._feed_chunk(i, drop, source)
+            reset = self._acc_spectra == 0
+            if reset:
+                self._acc_first_chunk = i
+            self._step(self.history, self.vis_acc, chunk, frac, phase,
+                       self.gains, reset)
+            self._acc_spectra += b
+            if not dropped:
+                self._acc_integrated += b
+            if self._acc_spectra >= cfg.n_spectra_per_acc:
+                vis = extract_vis(self.vis_acc, cfg.n_ants, cfg.n_pols)
+                dumps.append(Dump(vis=vis.contiguous().cpu().numpy(),
+                                  n_spectra=self._acc_integrated,
+                                  n_spectra_nominal=self._acc_spectra,
+                                  first_chunk=self._acc_first_chunk))
+                self.counters.dumps += 1
+                self._acc_spectra = 0
+                self._acc_integrated = 0
+        return dumps, self.counters
+
+    # ------------------------------------------------------------------
+    def _feed_chunk(self, i: int, drop: frozenset, source):
+        """Per-chunk feed: fault injection, the chunk's transfer to the
+        device, delay-model evaluation, the coarse delay, the frame view,
+        counter/clock bookkeeping."""
+        cfg = self.cfg
+        b = cfg.spectra_per_chunk
+        a, p = cfg.n_ants, cfg.n_pols
+        dropped = i in drop
+        if dropped:
+            chunk = torch.zeros((a, p, cfg.chunk_samples), dtype=torch.int8,
+                                device=self.device)
+            self.counters.chunks_dropped += 1
+            logger.warning("chunk %d dropped (fault-injected)", i)
+        else:
+            chunk = source(i)
+        if not isinstance(chunk, torch.Tensor):
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+        if chunk.dtype != torch.int8:
+            raise ValueError(f"source chunks must be int8, got {chunk.dtype}")
+        chunk = chunk.to(self.device)
+        coarse, frac, phase = self.delay_model.evaluate_chunk(
+            self.t0, b, cfg.fft_size)
+        if self._tail is not None:
+            chunk = self._coarse_shift(chunk, coarse)
+        # (A, P, T) -> (A*P, B, M): a free row-major view, the layout the
+        # F-engine kernel reads
+        chunk = chunk.reshape(a * p, b, cfg.fft_size)
+        frac_t = torch.from_numpy(frac.reshape(a * p, b)).to(self.device)
+        phase_t = torch.from_numpy(phase.reshape(a * p, b)).to(self.device)
+        self.counters.chunks_in += 1
+        self.counters.samples_in += chunk.numel()
+        self.counters.spectra_out += b
+        self.t0 += cfg.chunk_samples
+        self.chunk_idx += 1
+        return chunk.contiguous(), frac_t, phase_t, dropped
+
+    def _coarse_shift(self, chunk: torch.Tensor, coarse: np.ndarray):
+        """Coarse delay: a read-pointer offset into ``[tail | chunk]``,
+        coarse frozen at the chunk start (host-side delay values), one
+        slice per stream on the runner's device."""
+        cfg = self.cfg
+        md = self.max_delay
+        c = cfg.chunk_samples
+        chunk = chunk.reshape(cfg.n_ants, cfg.n_pols, c)
+        buf = torch.cat([self._tail, chunk], dim=-1)
+        out = torch.empty_like(chunk)
+        for idx in np.ndindex(cfg.n_ants, cfg.n_pols):
+            off = md - int(coarse[idx])
+            out[idx] = buf[idx][off:off + c]
+        # .clone(): a view would pin the whole concat buffer between steps
+        self._tail = buf[..., -md:].clone()
+        return out

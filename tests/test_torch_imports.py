@@ -1,0 +1,138 @@
+"""The port stands without jax, and its kernels' wrappers never fall back.
+
+Tests marked ``cuda`` hold each CUDA kernel to its plain version on the
+card; on a machine without one they skip (``python3 chip_smoke.py``
+covers the same ground at the production shapes)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dc_sand_tpu.windows import pfb_window
+from dc_sand_tpu_torch.ops._dispatch import resolve_impl
+from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused, taps_pad_for
+from dc_sand_tpu_torch.ops.xcorr import xcorr_accumulate_a2
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_NO_JAX_IMPORT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any "import jax..." now fails
+sys.path.insert(0, sys.argv[1])
+import dc_sand_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dc_sand_tpu_torch.__path__,
+                                               "dc_sand_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    res = subprocess.run([sys.executable, "-c", _NO_JAX_IMPORT, REPO],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 15
+
+
+def test_cuda_impl_on_cpu_tensors_raises():
+    x = torch.zeros((2, 8, 64), dtype=torch.int8)
+    h = torch.zeros((2, 8, 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        resolve_impl("cuda", x)
+    with pytest.raises(ValueError, match="unknown impl"):
+        resolve_impl("pallas", x)
+    assert resolve_impl("auto", x) == "torch"
+    with pytest.raises(ValueError, match="CUDA"):
+        fengine_fused(x, pfb_window(4, 64), 4, 32, history=h,
+                      gains=torch.ones((32, 2)), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        xcorr_accumulate_a2(torch.zeros((3, 4, 4), dtype=torch.int32),
+                            torch.zeros((3, 8, 16), dtype=torch.int8),
+                            impl="cuda")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (kernel vs plain version)")
+    return torch.device("cuda")
+
+
+def _noise(gen, shape, dev):
+    return torch.clamp(torch.round(torch.randn(shape, generator=gen,
+                                               device=dev) * 20),
+                       -127, 127).to(torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,nch,b", [(4, 64, 16), (16, 1024, 24)])
+def test_fengine_kernel_matches_plain(cuda, taps, nch, b):
+    """Kernel vs plain version: only single-LSB boundary flips, at most
+    1e-3 of the values (the two FFTs sum in different orders)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(taps)
+    s, m = 6, 2 * nch
+    hist = _noise(gen, (s, taps_pad_for(taps), m), cuda)
+    chunk = _noise(gen, (s, b, m), cuda)
+    fd = torch.rand((s, b), generator=gen, device=cuda) - 0.5
+    ph = (torch.rand((s, b), generator=gen, device=cuda) - 0.5) * 6
+    gains = torch.tensor([[0.05, 0.01]], device=cuda).expand(nch, 2)
+    w = torch.as_tensor(pfb_window(taps, m), dtype=torch.float32,
+                        device=cuda)
+    kw = dict(history=hist, frac_delay=fd, phase=ph, gains=gains)
+    got = fengine_fused(chunk, w, taps, nch, impl="cuda", **kw)
+    want = fengine_fused(chunk, w, taps, nch, impl="torch", **kw)
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [0, 1])
+@pytest.mark.parametrize("k,ap,b", [(3, 8, 16), (5, 72, 80), (4, 128, 256)])
+def test_cmac_kernel_bitwise_equals_plain(cuda, k, ap, b, keep):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k * ap + b)
+    a2 = torch.randint(-127, 128, (k, 2 * ap, b), generator=gen,
+                       device=cuda, dtype=torch.int8)
+    acc = torch.randint(-2**20, 2**20, (k, ap, ap), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    got, want = acc.clone(), acc.clone()
+    xcorr_accumulate_a2(got, a2, keep=keep, impl="cuda")
+    xcorr_accumulate_a2(want, a2, keep=keep, impl="torch")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_runner_on_card_matches_cpu(cuda):
+    from dc_sand_tpu.config import get_config, scaled_for_test
+    from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
+    from dc_sand_tpu_torch.utils import snr_db
+    from dc_sand_tpu import golden
+    cfg = scaled_for_test(get_config("fx4"), n_chans=256,
+                          spectra_per_chunk=16).replace(n_spectra_per_acc=32)
+    stream = golden.gaussian_noise_int8(
+        (cfg.n_ants, cfg.n_pols, 4 * cfg.chunk_samples), 20.0, 3)
+    c = cfg.chunk_samples
+    w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
+    dumps = []
+    for dev in ("cpu", cuda):
+        dm = DelayModel.zeros(cfg.n_ants, cfg.n_pols, max_delay=8)
+        dm.d0 += 3.0
+        dm.p1 += 1e-6
+        d, _ = FXRunner(cfg, w, delay_model=dm, device=dev).run(
+            lambda i: stream[..., i * c:(i + 1) * c], 4)
+        dumps.append(d)
+    for a, b in zip(*dumps):
+        assert (a.n_spectra, a.first_chunk) == (b.n_spectra, b.first_chunk)
+        va = a.vis[..., 0] + 1j * a.vis[..., 1]
+        vb = b.vis[..., 0] + 1j * b.vis[..., 1]
+        assert snr_db(va, vb) > 60
+    assert np.isfinite(dumps[1][0].vis).all()

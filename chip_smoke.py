@@ -5,7 +5,8 @@ Run from the repository root with ``python3 chip_smoke.py`` (no
 arguments, one card).  It imports no jax.  Phases, each of which fails
 the run (non-zero exit) when it fails:
 
-1. build both CUDA kernels with nvcc from ``dc_sand_tpu_torch/csrc``;
+1. build the three CUDA kernels from ``dc_sand_tpu_torch/csrc``, one
+   nvcc per source, all started together;
 2. F-engine kernel (K1) vs its plain version at the fx64 chunk shape
    (128 streams x 2048 spectra x 8192 samples): every difference a
    single LSB, at most 1e-4 of the values, and each flip of the stream
@@ -23,10 +24,26 @@ the run (non-zero exit) when it fails:
    8192-spectra dump; both kernels' launch counters, zeroed just
    before, must each read 4.  The ``run()`` rate it prints is with the
    chunks already on the card (no host-to-device copy);
-   ``python -m dc_sand_tpu_torch.profile_step`` measures the numpy feed.
+   ``python -m dc_sand_tpu_torch.profile_step`` measures the numpy feed;
+7. beam kernel (K4/K4p/K5) vs its plain version at the beam64 shape
+   (64 ants x 2 pols, 256 spectra, 4096 channels, 16 beams): float beams
+   >= 100 dB apart, the incoherent beam bitwise equal, and int8 beams at
+   a scale that puts the rms of y*s near 30 LSB within 1 LSB with at
+   most 1e-4 of the values flipped;
+8. ``verify beam64`` at full width with verify's short cadence (16-spectra
+   chunks, 4 chunks): beams and incoherent beam each >50 dB against the
+   float64 golden chain;
+9. beam64 at its own cadence: 8 chunks of 256 spectra made on the card
+   from a seed, coarse + fractional delay and fringe on, 16 beams
+   steered with the port's ``steering_weights``, outputs kept on the
+   card; the F-engine and beam kernels' launch counters, zeroed just
+   before, must each read 8.  It prints the device step, ``run()`` per
+   chunk with device-resident chunks, and the device-to-host copy of
+   one chunk's outputs.
 
-The second-to-last line is ``{"kernels": [...]}`` (launches from phase
-6, times from phases 2-3); the last is
+The second-to-last line is ``{"kernels": [...]}`` (launches from phase 6
+for the F-engine and the CMAC and from phase 9 for the beam kernel,
+times from phases 2, 3 and 7); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when no CUDA device is present.
 """
@@ -43,6 +60,9 @@ FX64_STREAMS, FX64_SPECTRA, FX64_M, TAPS = 128, 2048, 8192, 16
 PLAIN_BLOCK_STREAMS = 16   # bounds the plain F-engine's float32 copies
 MAX_FLIP_FRACTION = 1e-4   # measured on the H100: about 1e-5
 FLIP_BOUNDARY_TOL = 1e-3   # a flip's float64 pre-round value to a .5
+BEAMS, BEAM_SPECTRA = 16, 256
+BEAM_SNR_DB = 100.0        # two float32 beamformers, summed in other orders
+BEAM_QUANT_RMS = 30.0      # rms of y*s in LSB for the int8 epilogue check
 
 
 def _card() -> str:
@@ -68,6 +88,12 @@ def _events_ms(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
+def _snr_db(ref, got) -> float:
+    """10 log10(sum |ref|^2 / sum |ref - got|^2), in float64 on the card."""
+    ref, got = ref.double(), got.double()
+    return float(10 * ((ref * ref).sum() / ((ref - got) ** 2).sum()).log10())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -80,9 +106,11 @@ def main() -> int:
     from dc_sand_tpu.config import get_config
     from dc_sand_tpu.windows import pfb_window
     from dc_sand_tpu_torch import _build
+    from dc_sand_tpu_torch.ops.beamform import beamform
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused, taps_pad_for
     from dc_sand_tpu_torch.ops.xcorr import wire_to_a2, xcorr_accumulate_a2
-    from dc_sand_tpu_torch.profile_step import noise_int8, production_runner
+    from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, noise_int8,
+                                                production_runner)
     from dc_sand_tpu_torch.verify import SNR_BOUND, verify_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -259,7 +287,8 @@ def main() -> int:
     zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
     dev_step_ms = _events_ms(
         torch, lambda: runner._step(runner.history, runner.vis_acc, frames,
-                                    zeros, zeros, runner.gains, False), 4)
+                                    zeros, zeros, runner.gains,
+                                    runner.weights, False), 4)
     samples = a * p * cfg.chunk_samples
     print(f"[6 fx64 production] {n_chunks} chunks -> 1 dump of "
           f"{dumps[0].n_spectra} spectra; launches {launches}; first run "
@@ -268,6 +297,107 @@ def main() -> int:
           f"coarse shift on the card and dump included, host-to-device copy "
           f"excluded); device step {dev_step_ms:.3f} ms = "
           f"{samples / dev_step_ms / 1e6:.2f} Gsamp/s ({card})", flush=True)
+    del runner, chunks, frames, zeros, dumps, vis
+    torch.cuda.empty_cache()
+
+    # ---- 7. beam kernel vs plain at the beam64 shape ----------------------
+    q = noise_int8(gen, (FX64_STREAMS // 2, 2, BEAM_SPECTRA, nch, 2), dev)
+    bw = torch.randn((BEAMS, FX64_STREAMS // 2, nch, 2), generator=gen,
+                     device=dev)
+    got, inc = beamform(q, bw, incoherent=True, impl="cuda")
+    want, inc_w = beamform(q, bw, incoherent=True, impl="torch")
+    beam_snr = _snr_db(want, got)
+    beam_err = float((got - want).abs().max())
+    inc_equal = torch.equal(inc, inc_w)
+    qs = BEAM_QUANT_RMS / float(want.double().pow(2).mean().sqrt())
+    got_q, _ = beamform(q, bw, quant_scale=qs, impl="cuda")
+    want_q, _ = beamform(q, bw, quant_scale=qs, impl="torch")
+    dq = (got_q.to(torch.int16) - want_q.to(torch.int16)).abs()
+    q_max, q_flips = int(dq.max()), float((dq > 0).double().mean())
+    beam_ms = _events_ms(
+        torch, lambda: beamform(q, bw, incoherent=True, impl="cuda"), 10)
+    beam_plain_ms = _events_ms(
+        torch, lambda: beamform(q, bw, incoherent=True, impl="torch"), 2)
+    tflops = 8 * BEAMS * 2 * BEAM_SPECTRA * nch * (FX64_STREAMS // 2) \
+        / beam_ms / 1e9                   # 8 flops per complex MAC
+    print(f"[7 beamform] float beams {beam_snr:.2f} dB vs plain (max |diff| "
+          f"{beam_err:.3e}), incoherent bitwise {inc_equal}; int8 at "
+          f"scale {qs:.5f}: max |diff| {q_max} LSB, flip fraction "
+          f"{q_flips:.3e}; kernel {beam_ms:.3f} ms ({tflops:.2f} fp32 "
+          f"TFLOP/s), plain {beam_plain_ms:.3f} ms ({card})", flush=True)
+    if not (beam_snr >= BEAM_SNR_DB and inc_equal and q_max <= 1
+            and q_flips <= MAX_FLIP_FRACTION):
+        raise RuntimeError("beam kernel disagrees with its plain version")
+    del q, bw, got, inc, want, inc_w, got_q, want_q, dq
+    torch.cuda.empty_cache()
+
+    # ---- 8. verify beam64 at full width against golden --------------------
+    t = time.perf_counter()
+    snrs, counters = verify_config("beam64", device=dev)
+    print(f"[8 verify beam64] beams {snrs['beams']:.2f} dB, incoherent "
+          f"{snrs['incoherent']:.2f} dB vs golden over {counters.chunks_in} "
+          f"chunks ({time.perf_counter() - t:.1f} s)", flush=True)
+    if not (snrs["beams"] > SNR_BOUND and snrs["incoherent"] > SNR_BOUND):
+        raise RuntimeError(f"verify beam64: {snrs} not all > {SNR_BOUND}")
+
+    # ---- 9. beam64 at its own cadence -------------------------------------
+    cfg = get_config("beam64")
+    runner, chunks = production_runner(cfg, gen, dev)
+    n_chunks = len(chunks)
+    outs = []
+    torch.cuda.synchronize()
+    fengine_fused.launches = 0
+    beamform.launches = 0
+    t = time.perf_counter()
+    runner.run(lambda i: chunks[i % n_chunks], n_chunks,
+               on_output=lambda i, o: outs.append(o))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    beam_launches = {"fengine": fengine_fused.launches,
+                     "beamform": beamform.launches}
+    if beam_launches != {"fengine": BEAM_CHUNKS, "beamform": BEAM_CHUNKS}:
+        raise RuntimeError(f"launch counts {beam_launches}, want "
+                           f"{BEAM_CHUNKS} each")
+    b = cfg.spectra_per_chunk
+    for o in outs:
+        beams, inc = o["beams"], o["incoherent"]
+        if (beams.shape != (BEAMS, 2, b, nch, 2) or inc.shape != (2, b, nch)
+                or beams.dtype != torch.float32 or not beams.is_cuda):
+            raise RuntimeError(f"beam outputs {beams.shape} {beams.dtype} "
+                               f"{beams.device}, incoherent {inc.shape}")
+        if (not torch.isfinite(beams).all() or (inc < 0).any()
+                or not torch.equal(inc, torch.round(inc))):
+            raise RuntimeError("beams not finite, or an incoherent value "
+                               "is not a non-negative integer")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(lambda i: chunks[i % n_chunks], n_chunks)
+    torch.cuda.synchronize()
+    beam_run_ms = (time.perf_counter() - t) / n_chunks * 1e3
+    frames = chunks[0].reshape(FX64_STREAMS, b, FX64_M)
+    zeros = torch.zeros((FX64_STREAMS, b), device=dev)
+    beam_step_ms = _events_ms(
+        torch, lambda: runner._step(runner.history, runner.vis_acc, frames,
+                                    zeros, zeros, runner.gains,
+                                    runner.weights, False), 8)
+    d2h_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        {k: v.cpu() for k, v in outs[-1].items()}
+        d2h_ms.append((time.perf_counter() - t) * 1e3)
+    samples = FX64_STREAMS * cfg.chunk_samples
+    print(f"[9 beam64 production] {n_chunks} chunks of {b} spectra; "
+          f"launches {beam_launches}; first run {first_s:.2f} s; device "
+          f"step {beam_step_ms:.3f} ms = {samples / beam_step_ms / 1e6:.2f} "
+          f"Gsamp/s; steady run() per chunk {beam_run_ms:.3f} ms = "
+          f"{samples / beam_run_ms / 1e6:.2f} Gsamp/s (device-resident "
+          f"chunks, outputs left on the card) ({card})", flush=True)
+    out_mb = sum(v.numel() * v.element_size() for v in outs[-1].values()) / 1e6
+    print(f"[9 beam64 outputs to host] one chunk's {out_mb:.1f} MB of beams "
+          f"and incoherent beam, device-to-host copy into pageable memory: "
+          + ", ".join(f"{x:.3f}" for x in d2h_ms) + f" ms ({card})",
+          flush=True)
 
     assert "jax" not in sys.modules, "the port must not import jax"
     kernels = [
@@ -281,6 +411,11 @@ def main() -> int:
          "replaces": "dc_sand_tpu/ops/xcorr.py:371",
          "launches": launches["cmac"], "max_abs_err": cmac_err,
          "ms": cmac_ms, "plain_ms": cmac_plain_ms},
+        {"name": "beamform", "route": "cuda",
+         "source": "dc_sand_tpu_torch/csrc/beamform.cu",
+         "replaces": "dc_sand_tpu/ops/beamform.py:147",
+         "launches": beam_launches["beamform"], "max_abs_err": beam_err,
+         "ms": beam_ms, "plain_ms": beam_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,16 +11,18 @@ modules of the JAX package are reused by import:
 
 Layout
 ------
-``ops/``      per-stage ops; ``fengine_fused`` and ``xcorr`` hold the two
-              hand-written CUDA kernels (``csrc/*.cu``) beside their
-              plain PyTorch versions.
-``models/``   the F-engine composition and the fx streaming step.
+``ops/``      per-stage ops; ``fengine_fused``, ``xcorr`` and ``beamform``
+              hold the three hand-written CUDA kernels (``csrc/*.cu``)
+              beside their plain PyTorch versions.
+``models/``   the F-engine composition, the fx and beam streaming step,
+              beam-steering weights.
 ``runtime/``  delay model, the streaming runner, and loading of the JAX
               package's checkpoints.
 ``verify``    end-to-end grading against the golden chain.
 ``_build``    nvcc build of ``csrc/`` at first use, bound with ctypes.
 
-Only the fx (FX correlator) mode on one device exists so far.
+The fx (FX correlator) and beam (beamformer) modes on one device exist
+so far.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source in ``csrc/`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with :mod:`ctypes`.  The build
-runs at first use, into ``build/torch_kernels/`` beside the package, keyed
-by a hash of the sources and flags, so an edited source rebuilds and an
+``nvcc`` compiles each source in ``csrc/`` for ``sm_90a`` into a shared
+library of its own with a plain C interface, loaded with :mod:`ctypes`.
+The builds run at first use, all started together (one ``nvcc`` process
+per source), into ``build/torch_kernels/`` beside the package, each keyed
+by a hash of its source and the flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.  It compiles only the sources in this
 repository.  ``--use_fast_math`` is deliberately absent: it would turn
 ``sincosf`` into the approximate ``__sinf``/``__cosf`` and allow FMA
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 __all__ = ["library", "build_log", "check", "build_dir", "NVCC_FLAGS"]
@@ -31,11 +33,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argument types (pointers and the stream as c_void_p)
+_F = ctypes.c_float
+# source stem -> its C entry points -> argument types (pointers and the
+# stream as c_void_p)
 _SIGNATURES = {
-    "dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    ctypes.c_float, _P],
-    "dcs_cmac": [_P, _P, _I, _I, _I, _I, _P],
+    "fengine": {"dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _P]},
+    "cmac": {"dcs_cmac": [_P, _P, _I, _I, _I, _I, _P]},
+    "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _P]},
 }
 
 
@@ -54,41 +60,60 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; bind its entry points."""
-    sources = sorted(_CSRC.glob("*.cu"))
+def _lib_path(src: Path) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(src.read_bytes())
+    return build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> types.SimpleNamespace:
+    """Build what is missing (one ``nvcc`` per source, in parallel), load
+    every library and bind its entry points; returns them as attributes
+    (``library().dcs_cmac``)."""
+    sources = [_CSRC / f"{stem}.cu" for stem in _SIGNATURES]
+    missing = [(src, _lib_path(src)) for src in sources
+               if not _lib_path(src).exists()]
+    if missing:
+        build_dir().mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src, so in missing:
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            jobs.append((cmd, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, so, tmp, proc in jobs:
+            out, err = proc.communicate()
+            so.with_suffix(".log").write_text(out + err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{err}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    ns = types.SimpleNamespace(_libs=[])
     for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out_dir = build_dir()
-    so = out_dir / f"libdcs_kernels_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+        lib = ctypes.CDLL(str(_lib_path(src)))
+        ns._libs.append(lib)
+        for name, argtypes in _SIGNATURES[src.stem].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(ns, name, fn)
+    return ns
 
 
 def build_log() -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of
-    the build :func:`library` loaded."""
+    each library :func:`library` loaded."""
     library()
-    logs = sorted(build_dir().glob("libdcs_kernels_*.log"),
-                  key=lambda p: p.stat().st_mtime)
-    return logs[-1].read_text() if logs else ""
+    logs = [_lib_path(_CSRC / f"{stem}.cu").with_suffix(".log")
+            for stem in _SIGNATURES]
+    return "".join(log.read_text() for log in logs if log.exists())
 
 
 def check(err: int, what: str) -> None:

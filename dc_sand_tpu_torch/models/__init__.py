@@ -1,2 +1,2 @@
-"""Engine compositions: the F-engine (``fengine``) and the fx streaming
-step (``pipeline``)."""
+"""Engine compositions: the F-engine (``fengine``), the fx and beam
+streaming step (``pipeline``) and beam-steering weights (``steering``)."""

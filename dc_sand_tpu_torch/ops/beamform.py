@@ -1,0 +1,115 @@
+"""B-engine: coherent multi-beam weighted sum (C10) + incoherent sum (C11).
+
+Golden semantics: :func:`dc_sand_tpu.golden.chain.beamform` /
+:func:`~dc_sand_tpu.golden.chain.incoherent_sum`.  Per channel k,
+
+    y[e, p, b, k] = sum_a w[e, a, k] * x[a, p, b, k]
+
+and the incoherent beam is ``sum_a |x[a, p, b, k]|^2``.  On CUDA tensors
+:func:`beamform` launches the hand-written kernel ``csrc/beamform.cu``,
+which replaces the TPU kernels of ``dc_sand_tpu/ops/beamform.py``
+(``_beam_native_kernel``, ``_beam_native_kernel_pmerge`` and
+``_bf_kernel``): it reads the F-engine's wire spectra as they are, forms
+both outputs in one pass with fp32 FMAs, and can quantise the beams to
+int8 in its epilogue.  On CPU tensors it runs the plain versions below.
+
+The plain versions cast int8 samples to float32 before any product:
+PyTorch's int8 ``einsum`` returns int8 and wraps.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from dc_sand_tpu_torch import _build
+from dc_sand_tpu_torch.ops._dispatch import resolve_impl
+
+__all__ = ["beamform", "beamform_torch", "incoherent_sum_torch"]
+
+
+def _split_ri(x: torch.Tensor):
+    """Wire-format ``(..., 2)`` re/im -> two float32 tensors."""
+    return x[..., 0].to(torch.float32), x[..., 1].to(torch.float32)
+
+
+def beamform_torch(q: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``q (a, p, b, k, 2)`` int8 or float32, ``weights
+    (nb, a, k, 2)`` float32 -> float32 beams ``(nb, p, b, k, 2)``, as four
+    real float32 contractions (the JAX package's jnp arm)."""
+    xr, xi = _split_ri(q)
+    wr, wi = _split_ri(weights)
+
+    def mm(w_, x_):
+        return torch.einsum("eak,apbk->epbk", w_, x_)
+
+    return torch.stack([mm(wr, xr) - mm(wi, xi), mm(wr, xi) + mm(wi, xr)],
+                       dim=-1)
+
+
+def incoherent_sum_torch(q: torch.Tensor) -> torch.Tensor:
+    """Plain version of the incoherent beam: ``sum_a (xr^2 + xi^2)`` ->
+    float32 ``(p, b, k)``; exact for int8 samples (every partial sum is
+    an integer below 2**24 up to 520 antennas)."""
+    xr, xi = _split_ri(q)
+    return (xr * xr + xi * xi).sum(dim=0)
+
+
+def beamform(q: torch.Tensor, weights: torch.Tensor, *,
+             quant_scale: float = 0.0, incoherent: bool = False,
+             impl: str = "auto") -> Tuple[torch.Tensor,
+                                          Optional[torch.Tensor]]:
+    """Coherent beams and, with ``incoherent``, the incoherent beam.
+
+    ``q: (a, p, b, k, 2)`` wire spectra (int8; the plain version also
+    takes float32), ``weights: (nb, a, k, 2)`` float32 re/im.  Returns
+    ``(beams, inc)``: ``beams (nb, p, b, k, 2)`` float32, or when
+    ``quant_scale > 0`` the int8 beam product ``clip(rint(y *
+    quant_scale), -127, 127)`` of the float beams (round half to even);
+    ``inc (p, b, k)`` float32, or None without ``incoherent``.
+
+    ``impl="auto"`` launches the CUDA kernel on CUDA tensors (each launch
+    adds one to ``beamform.launches``) and runs the plain versions on CPU
+    tensors; ``"torch"`` names the plain versions on either device.
+    """
+    if q.dim() != 5 or q.shape[-1] != 2:
+        raise ValueError(f"q must be (a, p, b, k, 2), got {tuple(q.shape)}")
+    n_ants, n_pols, n_b, n_k, _ = q.shape
+    if (weights.dim() != 4 or weights.shape[1:] != (n_ants, n_k, 2)
+            or weights.shape[0] < 1):
+        raise ValueError(f"weights must be (nb, {n_ants}, {n_k}, 2), got "
+                         f"{tuple(weights.shape)}")
+    if not quant_scale >= 0.0:
+        raise ValueError(f"quant_scale must be >= 0, got {quant_scale}")
+    if resolve_impl(impl, q) == "torch":
+        y = beamform_torch(q, weights)
+        if quant_scale:
+            y = torch.clamp(torch.round(y * quant_scale), -127, 127).to(
+                torch.int8)
+        return y, (incoherent_sum_torch(q) if incoherent else None)
+    dev = q.device
+    if q.dtype != torch.int8 or not q.is_contiguous() or q.data_ptr() % 2:
+        raise ValueError(f"q must be contiguous, 2-byte aligned int8, got "
+                         f"{q.dtype}")
+    if (weights.dtype != torch.float32 or weights.device != dev
+            or not weights.is_contiguous() or weights.data_ptr() % 8):
+        raise ValueError(f"weights must be contiguous, 8-byte aligned "
+                         f"float32 on {dev}, got {weights.dtype} on "
+                         f"{weights.device}")
+    n_beams = weights.shape[0]
+    beams = torch.empty((n_beams, n_pols, n_b, n_k, 2),
+                        dtype=torch.int8 if quant_scale else torch.float32,
+                        device=dev)
+    inc = (torch.empty((n_pols, n_b, n_k), dtype=torch.float32, device=dev)
+           if incoherent else None)
+    err = _build.library().dcs_beamform(
+        q.data_ptr(), weights.data_ptr(), beams.data_ptr(),
+        None if inc is None else inc.data_ptr(), n_ants, n_pols, n_b, n_k,
+        n_beams, float(quant_scale), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "dcs_beamform")
+    beamform.launches += 1
+    return beams, inc
+
+
+beamform.launches = 0

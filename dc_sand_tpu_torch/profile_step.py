@@ -1,25 +1,30 @@
-"""Where the time of the fx64 production step goes, on one CUDA card.
+"""Where the time of the fx64 and beam64 production steps goes, on one
+CUDA card.
 
 Run from the repository root::
 
     python -m dc_sand_tpu_torch.profile_step [--out DIR]
 
-It builds the fx64 production runner (64 ants x 2 pols, 4096 channels,
-2048-spectra chunks, one 8192-spectra dump per 4 chunks, coarse and
-fractional delay and fringe on, seeded int8 noise made on the card),
-warms it with one dump, then prints:
+For each of fx64 and beam64 it builds the production runner
+(:func:`production_runner`: 64 ants x 2 pols, 4096 channels, the
+config's own chunk length, coarse and fractional delay and fringe on,
+seeded int8 noise made on the card; fx64 dumps 8192 spectra per 4
+2048-spectra chunks, beam64 forms 16 steered beams and the incoherent
+beam per 256-spectra chunk over :data:`BEAM_CHUNKS` chunks), warms it
+over one window of chunks, then prints:
 
-1. a ``torch.profiler`` trace of one dump window (4 chunks) with
-   device-resident chunks: device time per kernel or copy name, and the
-   device's idle share, ``1 - busy / wall``.  ``busy`` is the union of
-   the device intervals in the trace (kernels, copies, memsets), so
-   nested host-side ops are not counted twice;
-2. the dump alone (``extract_vis`` and the device-to-host copy), host
-   clock, three times;
+1. a ``torch.profiler`` trace of one window with device-resident chunks
+   (beam outputs stay on the card): device time per kernel or copy name,
+   and the device's idle share, ``1 - busy / wall``.  ``busy`` is the
+   union of the device intervals in the trace (kernels, copies,
+   memsets), so nested host-side ops are not counted twice;
+2. fx64 only: the dump alone (``extract_vis`` and the device-to-host
+   copy), host clock, three times;
 3. ``run()`` fed with numpy chunks, so the pageable host-to-device copy
-   of each 2.15 GB chunk is paid, and that copy of one chunk alone.
+   of each chunk (2.15 GB for fx64, 268 MB for beam64) is paid, and that
+   copy of one chunk alone.
 
-The trace is written to ``DIR/trace.json`` (default
+The traces are written to ``DIR/<config>_trace.json`` (default
 ``build/profile_step``).
 """
 
@@ -36,11 +41,16 @@ import torch
 
 from dc_sand_tpu.config import ChainConfig, get_config
 from dc_sand_tpu.windows import pfb_window
+from dc_sand_tpu_torch.models.steering import steering_weights
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
 
-__all__ = ["noise_int8", "production_runner", "device_busy_us", "main"]
+__all__ = ["noise_int8", "production_runner", "device_busy_us", "main",
+           "BEAM_CHUNKS"]
+
+# beam mode has no dump cadence: its window is a fixed count of chunks
+BEAM_CHUNKS = 8
 
 # trace categories of work that occupies the device
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -60,9 +70,11 @@ def noise_int8(gen: torch.Generator, shape, device) -> torch.Tensor:
 
 
 def production_runner(cfg: ChainConfig, gen: torch.Generator, device):
-    """The fx runner at ``cfg``'s own cadence with a seeded delay model
+    """The runner at ``cfg``'s own cadence with a seeded delay model
     (coarse up to 31 samples, fractional delay and fringe on) and one
-    dump window of chunks made with ``gen`` on ``device``:
+    window of chunks made with ``gen`` on ``device``: one dump's worth in
+    fx mode, :data:`BEAM_CHUNKS` in beam mode, whose beams are steered
+    toward seeded pointings (geometric delays up to 0.25 us):
     ``(runner, chunks)``."""
     rng = np.random.default_rng(6)
     a, p = cfg.n_ants, cfg.n_pols
@@ -71,11 +83,18 @@ def production_runner(cfg: ChainConfig, gen: torch.Generator, device):
     dm.d1 = rng.uniform(-1e-9, 1e-9, (a, p))
     dm.p0 = rng.uniform(-np.pi, np.pi, (a, p))
     dm.p1 = rng.uniform(-1e-6, 1e-6, (a, p))
-    n_chunks = cfg.n_spectra_per_acc // cfg.spectra_per_chunk
+    weights = None
+    if cfg.n_beams:
+        n_chunks = BEAM_CHUNKS
+        weights = steering_weights(
+            rng.uniform(-2.5e-7, 2.5e-7, (cfg.n_beams, a)), cfg.n_chans,
+            cfg.sample_rate_hz)
+    else:
+        n_chunks = cfg.n_spectra_per_acc // cfg.spectra_per_chunk
     chunks = [noise_int8(gen, (a, p, cfg.chunk_samples), device)
               for _ in range(n_chunks)]
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
-                      delay_model=dm, device=device)
+                      delay_model=dm, weights=weights, device=device)
     return runner, chunks
 
 
@@ -101,31 +120,19 @@ def _timed(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="build/profile_step",
-                    help="directory for trace.json")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step needs a CUDA card")
-    from torch.profiler import ProfilerActivity, profile
-
-    dev = torch.device("cuda")
-    cfg = get_config("fx64")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
+def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
+    cfg = get_config(name)
     runner, chunks = production_runner(cfg, gen, dev)
     n = len(chunks)
     samples = cfg.n_ants * cfg.n_pols * cfg.chunk_samples
-    runner.run(lambda i: chunks[i % n], n)            # warm, one dump
+    runner.run(lambda i: chunks[i % n], n)            # warm, one window
 
-    # 1. one dump window under the profiler, device-resident chunks
+    # 1. one window under the profiler, device-resident chunks
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = _timed(lambda: runner.run(lambda i: chunks[i % n], n))
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    trace = out / "trace.json"
+    trace = out / f"{name}_trace.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     busy_ms = device_busy_us(events) / 1e3
@@ -134,28 +141,46 @@ def main(argv=None) -> int:
         if e.get("cat") in DEVICE_CATS and "dur" in e:
             per_name[e["name"]][0] += e["dur"] / 1e3
             per_name[e["name"]][1] += 1
-    print(f"[trace] {n} chunks, device-resident: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms (union of intervals), idle share "
-          f"{1 - busy_ms / wall_ms:.4f}")
+    print(f"[{name} trace] {n} chunks, device-resident: wall {wall_ms:.3f} "
+          f"ms, device busy {busy_ms:.3f} ms (union of intervals), idle "
+          f"share {1 - busy_ms / wall_ms:.4f}")
     print(f"{'device ms per chunk':>20} {'share of wall':>14} "
           f"{'count':>6}  name")
-    for name, (ms, cnt) in sorted(per_name.items(), key=lambda x: -x[1][0]):
-        print(f"{ms / n:20.3f} {ms / wall_ms:14.4f} {cnt:6d}  {name[:90]}")
+    for item, (ms, cnt) in sorted(per_name.items(), key=lambda x: -x[1][0]):
+        print(f"{ms / n:20.3f} {ms / wall_ms:14.4f} {cnt:6d}  {item[:90]}")
 
     # 2. the dump alone
-    dump_ms = [_timed(lambda: extract_vis(runner.vis_acc, cfg.n_ants,
-                                          cfg.n_pols).contiguous().cpu())
-               for _ in range(3)]
-    print("[dump] extract_vis + device-to-host copy ms: "
-          + ", ".join(f"{t:.3f}" for t in dump_ms))
+    if runner.mode == "fx":
+        dump_ms = [_timed(lambda: extract_vis(runner.vis_acc, cfg.n_ants,
+                                              cfg.n_pols).contiguous().cpu())
+                   for _ in range(3)]
+        print(f"[{name} dump] extract_vis + device-to-host copy ms: "
+              + ", ".join(f"{t:.3f}" for t in dump_ms))
 
     # 3. run() fed from numpy: a pageable host-to-device copy per chunk
     host = [c.cpu().numpy() for c in chunks]
     h2d_ms = _timed(lambda: torch.from_numpy(host[0]).to(dev))
     fed_ms = _timed(lambda: runner.run(lambda i: host[i % n], n)) / n
-    print(f"[numpy feed] run() per chunk {fed_ms:.3f} ms = "
+    print(f"[{name} numpy feed] run() per chunk {fed_ms:.3f} ms = "
           f"{samples / fed_ms / 1e6:.3f} Gsamp/s; host-to-device copy of "
-          f"one {host[0].nbytes / 1e9:.2f} GB chunk alone {h2d_ms:.3f} ms")
+          f"one {host[0].nbytes / 1e9:.3f} GB chunk alone {h2d_ms:.3f} ms")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile_step",
+                    help="directory for the traces")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+    dev = torch.device("cuda")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    for name in ("fx64", "beam64"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(6)
+        _profile(name, gen, dev, out)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -47,7 +47,9 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     ``channel_perm``: when the JAX run used the fused native fx path, its
     accumulator's channel axis is in native (k2-major) order; pass
     ``dc_sand_tpu.ops.fengine_fused.native_channel_perm(n_chans)`` to put
-    it back in natural order (``acc_natural = acc_native[perm]``).
+    it back in natural order (``acc_natural = acc_native[perm]``).  The
+    beam weights are restored too; in beam mode the accumulator is the
+    rank-1 dummy that both packages carry.
     """
     z = np.load(path, allow_pickle=False)
     if "process_shape" in z.files:
@@ -69,6 +71,11 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
                          f"{tuple(runner.vis_acc.shape)}")
     if channel_perm is not None:
         acc = acc[np.asarray(channel_perm)]
+    weights = z["weights"]
+    if weights.shape != tuple(runner.weights.shape):
+        raise ValueError(f"checkpoint weights shape {weights.shape} != "
+                         f"{tuple(runner.weights.shape)}")
+    runner.weights = weights
     runner.history.copy_(torch.from_numpy(np.ascontiguousarray(hist)))
     runner.vis_acc.copy_(torch.from_numpy(np.ascontiguousarray(acc)))
     runner.t0 = int(z["t0"])

@@ -1,11 +1,12 @@
-"""Chunked streaming runner (C21), fx mode, one device.
+"""Chunked streaming runner (C21), fx and beam mode, one device.
 
 PyTorch counterpart of :class:`dc_sand_tpu.runtime.runner.FXRunner`:
 feed a chunk to the device, advance the delay polynomials on the host,
-apply the coarse delay as a read-pointer offset on the device, run the
-fx step (F-engine + corner-turn + CMAC), and dump the integration at the
-accumulation cadence.  The FIR history and the packed accumulator live
-on the device and are updated in place.
+apply the coarse delay as a read-pointer offset on the device, and run
+the step — in fx mode F-engine + corner-turn + CMAC, dumping the
+integration at the accumulation cadence; in beam mode F-engine + beam
+kernel, handing each chunk's beams to ``on_output``.  The FIR history
+and the packed accumulator live on the device and are updated in place.
 
 Fault semantics as in the JAX runner: a dropped chunk is replaced by
 zeros — stream timing advances, the FIR history stays continuous, and
@@ -23,7 +24,7 @@ import torch
 
 from dc_sand_tpu.config import ChainConfig
 from dc_sand_tpu_torch.models.pipeline import (history_shape, make_step,
-                                               zero_vis_acc)
+                                               mode_for, zero_vis_acc)
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 
@@ -54,23 +55,29 @@ class Dump:
 
 
 class FXRunner:
-    """Streaming fx runner on one device.
+    """Streaming runner on one device, fx or beam mode (from ``cfg``).
 
     ``source(chunk_idx)`` returns the chunk's int8 samples, ``(A, P,
     chunk_samples)`` or the same bytes as frames ``(A*P, B, M)``: a numpy
     array, or a tensor (already on ``device`` or not).  ``gains``:
     ``(K, 2)`` float32 re/im (default ``cfg.quant_scale`` real).
+    ``weights``: beam weights ``(n_beams, A, K, 2)`` float32 re/im
+    (default zeros); :attr:`weights` is read at every chunk, so assigning
+    it between chunks re-points the beams.
     """
 
     def __init__(self, cfg: ChainConfig, window: np.ndarray,
                  delay_model: Optional[DelayModel] = None,
-                 gains: Optional[np.ndarray] = None, *, device):
+                 gains: Optional[np.ndarray] = None,
+                 weights: Optional[np.ndarray] = None, *, device):
         self.cfg = cfg
+        self.mode = mode_for(cfg)
         self.device = torch.device(device)
         self.delay_model = delay_model or DelayModel.zeros(
             cfg.n_ants, cfg.n_pols)
         self.max_delay = self.delay_model.max_delay
-        if cfg.n_spectra_per_acc > MAX_SPECTRA_PER_ACC:
+        if (self.mode == "fx"
+                and cfg.n_spectra_per_acc > MAX_SPECTRA_PER_ACC):
             raise ValueError(
                 f"n_spectra_per_acc={cfg.n_spectra_per_acc} overflows the "
                 f"int32 visibility accumulator (max {MAX_SPECTRA_PER_ACC})")
@@ -81,6 +88,9 @@ class FXRunner:
             else np.stack([np.full((k,), cfg.quant_scale, np.float32),
                            np.zeros((k,), np.float32)], -1),
             dtype=torch.float32, device=self.device).contiguous()
+        self.weights = (weights if weights is not None
+                        else np.zeros((max(cfg.n_beams, 1), a, k, 2),
+                                      np.float32))
         self.history = torch.zeros(history_shape(cfg), dtype=torch.int8,
                                    device=self.device)
         # integer-sample (coarse) delay is a read-pointer offset applied in
@@ -97,11 +107,30 @@ class FXRunner:
         self._acc_integrated = 0    # spectra actually integrated
         self._acc_first_chunk = 0
 
+    @property
+    def weights(self) -> torch.Tensor:
+        """Beam weights ``(n_beams, A, K, 2)`` float32 on the device."""
+        return self._weights
+
+    @weights.setter
+    def weights(self, w) -> None:
+        self._weights = torch.as_tensor(w, dtype=torch.float32,
+                                        device=self.device).contiguous()
+
     # ------------------------------------------------------------------
     def run(self, source: Callable[[int], np.ndarray], n_chunks: int,
+            on_output: Optional[Callable[[int, dict], None]] = None,
             drop_chunks: Iterable[int] = ()):
-        """Process ``n_chunks``; returns ``(dumps, counters)``.
+        """Process ``n_chunks``; returns ``(dumps, counters)`` (dumps in
+        fx mode only).
 
+        ``on_output(chunk_idx, outputs)`` receives each chunk's outputs
+        (beam mode: ``"beams"`` and ``"incoherent"``) as tensors ON THE
+        RUNNER'S DEVICE; the consumer copies what it needs.  The JAX
+        runner hands over numpy arrays, but here that copy would set the
+        pace: beam64 makes 268 MB of float32 beams per 256-spectra chunk,
+        about 120 ms through pageable memory at the 2.2 GB/s measured for
+        the fx dump on the H100, for 1.2 ms of stream.
         ``drop_chunks``: chunk indices to fault-inject as zeros.
         """
         cfg = self.cfg
@@ -114,8 +143,12 @@ class FXRunner:
             reset = self._acc_spectra == 0
             if reset:
                 self._acc_first_chunk = i
-            self._step(self.history, self.vis_acc, chunk, frac, phase,
-                       self.gains, reset)
+            outputs = self._step(self.history, self.vis_acc, chunk, frac,
+                                 phase, self.gains, self._weights, reset)
+            if on_output is not None and outputs:
+                on_output(i, outputs)
+            if self.mode != "fx":
+                continue
             self._acc_spectra += b
             if not dropped:
                 self._acc_integrated += b

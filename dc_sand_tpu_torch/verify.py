@@ -1,9 +1,11 @@
-"""End-to-end verification of the fx configs against the golden chain.
+"""End-to-end verification of the fx and beam configs against the golden
+chain.
 
-PyTorch counterpart of :func:`dc_sand_tpu.verify.verify_config`, fx mode
-only: the config runs through this package's streaming runner and the
-dumps are graded against the float64 golden chain at the contract bound
-of >50 dB SNR.  The golden oracle helpers are copies of the JAX package's
+PyTorch counterpart of :func:`dc_sand_tpu.verify.verify_config` on one
+device: the config runs through this package's streaming runner and its
+outputs (fx: the dumps; beam: the beams and the incoherent beam) are
+graded against the float64 golden chain at the contract bound of >50 dB
+SNR.  The golden oracle helpers are copies of the JAX package's
 (``verify.py`` there imports jax); a CPU test holds them equal.
 """
 
@@ -16,6 +18,7 @@ import numpy as np
 from dc_sand_tpu import golden
 from dc_sand_tpu.config import get_config, scaled_for_test
 from dc_sand_tpu.windows import pfb_window
+from dc_sand_tpu_torch.models.pipeline import mode_for
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.utils.snr import snr_db
@@ -67,19 +70,23 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
                   scale: Optional[int] = None, seed: int = 0,
                   spectra_per_chunk: Optional[int] = 16,
                   n_spectra_per_acc: Optional[int] = 32):
-    """Run fx config ``name`` end-to-end on ``device``; returns
-    ``(snrs, counters)`` — ``{"visibilities": min SNR over dumps}`` (dB vs
-    golden) and the runner's counters.
+    """Run fx or beam config ``name`` end-to-end on ``device``; returns
+    ``(snrs, counters)`` — per-output SNRs in dB vs golden (fx:
+    ``{"visibilities": min over dumps}``; beam: ``{"beams": ...,
+    "incoherent": ...}`` over all chunks) and the runner's counters.
 
     ``scale``: optionally reduce n_chans; None = full size.
     ``spectra_per_chunk`` / ``n_spectra_per_acc``: clamp the streaming
     cadence (defaults); None runs the config's own cadence.  Every
-    baseline is graded.  The stream, delay model and gains come from
-    ``seed`` exactly as the JAX verify draws them.
+    baseline and every beam is graded.  The stream, delay model, gains
+    and beam weights come from ``seed`` exactly as the JAX verify draws
+    them.
     """
     cfg = get_config(name)
-    if not cfg.run_xengine or cfg.n_beams:
-        raise NotImplementedError(f"only fx configs are ported, not {name!r}")
+    mode = mode_for(cfg)
+    if mode == "fengine":
+        raise NotImplementedError(f"fengine configs are not ported, not "
+                                  f"{name!r}")
     if scale is not None:
         cfg = scaled_for_test(cfg, n_chans=scale)
     if spectra_per_chunk is not None:
@@ -88,7 +95,7 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
     if n_spectra_per_acc is not None:
         cfg = cfg.replace(n_spectra_per_acc=min(cfg.n_spectra_per_acc,
                                                 n_spectra_per_acc))
-    if cfg.n_spectra_per_acc % cfg.spectra_per_chunk:
+    if mode == "fx" and cfg.n_spectra_per_acc % cfg.spectra_per_chunk:
         # the runner dumps at chunk-aligned boundaries (>=), while the
         # golden oracle slices exact n_spectra_per_acc windows
         raise ValueError(
@@ -109,18 +116,33 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
         (a, p, n_chunks * cfg.chunk_samples), 20.0, seed)
     gains = np.full(k, 0.05) + 0j
     gains_ri = np.stack([gains.real, gains.imag], -1).astype(np.float32)
+    weights = None
+    if mode == "beam":
+        weights = rng.normal(size=(cfg.n_beams, a, k, 2)).astype(np.float32)
 
     runner = FXRunner(cfg, window, delay_model=dm, gains=gains_ri,
-                      device=device)
+                      weights=weights, device=device)
+    outputs = []
     dumps, counters = runner.run(
         lambda i: stream[..., i * cfg.chunk_samples:
-                         (i + 1) * cfg.chunk_samples], n_chunks)
+                         (i + 1) * cfg.chunk_samples], n_chunks,
+        on_output=lambda i, o: outputs.append(
+            {name_: v.cpu().numpy() for name_, v in o.items()}))
 
     spec_g = _golden_spectra(cfg, stream, dm, gains, n_chunks, window)
-    bpa = cfg.n_spectra_per_acc
-    vals = [snr_db(golden.xcorr(spec_g[:, :, i * bpa:(i + 1) * bpa]),
-                   d.vis[..., 0] + 1j * d.vis[..., 1])
-            for i, d in enumerate(dumps)]
-    snrs: Dict[str, float] = {
-        "visibilities": min(vals) if vals else float("nan")}
+    snrs: Dict[str, float] = {}
+    if mode == "fx":
+        bpa = cfg.n_spectra_per_acc
+        vals = [snr_db(golden.xcorr(spec_g[:, :, i * bpa:(i + 1) * bpa]),
+                       d.vis[..., 0] + 1j * d.vis[..., 1])
+                for i, d in enumerate(dumps)]
+        snrs["visibilities"] = min(vals) if vals else float("nan")
+        return snrs, counters
+    beams = np.concatenate([o["beams"] for o in outputs], axis=2)
+    beams_g = golden.beamform(spec_g, weights[..., 0] + 1j * weights[..., 1])
+    snrs["beams"] = snr_db(beams_g, beams[..., 0] + 1j * beams[..., 1])
+    if cfg.incoherent_beam:
+        snrs["incoherent"] = snr_db(
+            golden.incoherent_sum(spec_g),
+            np.concatenate([o["incoherent"] for o in outputs], axis=1))
     return snrs, counters

@@ -104,7 +104,7 @@ def test_step_carries_history_as_the_stream_tail(b):
     acc = torch.zeros((nch, s, s), dtype=torch.int32)
     zero = torch.zeros((s, b))
     step = make_step(cfg, w, device="cpu")
-    step(history, acc, c0, zero, zero, gains, True)
+    assert step(history, acc, c0, zero, zero, gains, None, True) == {}
     full = np.concatenate([np.zeros((s, tp, m), np.int8), frames], 1)
     np.testing.assert_array_equal(history.numpy(), full[:, b:b + tp])
     got = f_engine(c1, w, taps, nch, history=history, gains=gains).numpy()

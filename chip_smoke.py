@@ -5,7 +5,7 @@ Run from the repository root with ``python3 chip_smoke.py`` (no
 arguments, one card).  It imports no jax.  Phases, each of which fails
 the run (non-zero exit) when it fails:
 
-1. build the three CUDA kernels from ``dc_sand_tpu_torch/csrc``, one
+1. build the four CUDA kernels from ``dc_sand_tpu_torch/csrc``, one
    nvcc per source, all started together;
 2. F-engine kernel (K1) vs its plain version at the fx64 chunk shape
    (128 streams x 2048 spectra x 8192 samples): every difference a
@@ -20,11 +20,12 @@ the run (non-zero exit) when it fails:
    verify's short cadence (16-spectra chunks, 32-spectra dumps, every
    baseline graded): >50 dB;
 6. fx64 at production cadence: 4 chunks of 2048 spectra, made on the
-   card from a seed, coarse + fractional delay and fringe on, make one
-   8192-spectra dump; both kernels' launch counters, zeroed just
-   before, must each read 4.  The ``run()`` rate it prints is with the
-   chunks already on the card (no host-to-device copy);
-   ``python -m dc_sand_tpu_torch.profile_step`` measures the numpy feed;
+   card from a fixed seed, coarse + fractional delay and fringe on, make
+   one 8192-spectra dump; the launch counters, zeroed just before, must
+   read 4 for K1 and the CMAC and 0 for the others.  The ``run()`` rate
+   it prints is with the chunks already on the card (no host-to-device
+   copy); ``python -m dc_sand_tpu_torch.profile_step`` measures the
+   numpy feed;
 7. beam kernel (K4/K4p/K5) vs its plain version at the beam64 shape
    (64 ants x 2 pols, 256 spectra, 4096 channels, 16 beams): float beams
    >= 100 dB apart, the incoherent beam bitwise equal, and int8 beams at
@@ -36,33 +37,65 @@ the run (non-zero exit) when it fails:
 9. beam64 at its own cadence: 8 chunks of 256 spectra made on the card
    from a seed, coarse + fractional delay and fringe on, 16 beams
    steered with the port's ``steering_weights``, outputs kept on the
-   card; the F-engine and beam kernels' launch counters, zeroed just
-   before, must each read 8.  It prints the device step, ``run()`` per
-   chunk with device-resident chunks, and the device-to-host copy of
-   one chunk's outputs.
+   card; the launch counters, zeroed just before, must read 8 for K1 and
+   the beam kernel and 0 for the others.  It prints the device step,
+   ``run()`` per chunk with device-resident chunks, and the
+   device-to-host copy of one chunk's outputs;
+10. PFB-FIR kernel (K6) vs its plain version at the fx64 chunk shape
+    (128 streams, 16 + 2048 frames split I/O, M = 8192): bitwise equal;
+11. K1's float-output variant vs its plain version at the JAX package's
+    F-engine bench shape (16 streams x 512 spectra, 1024 channels), with
+    and without the phasor: >= 100 dB apart (both float32, their FFTs
+    summed in other orders);
+12. ``verify pfb1k`` and ``verify pfb4k`` at full width, each through the
+    fused and the unfused F-engine: >50 dB against the float64 golden
+    chain, and the launch counters show K1-float (pfb1k fused), K1-int8
+    (pfb4k fused) or K6 (unfused) and no other kernel;
+13. fx64 at production cadence through the unfused F-engine (K6, then
+    ``torch.fft.rfft``, the phasor and the requant as PyTorch ops): the
+    chunks of phase 6 again, one 8192-spectra dump; launch counters K6 4,
+    CMAC 4, all others 0; the dump >= 60 dB from phase 6's (two FFTs,
+    1-LSB boundary flips).  It prints the device step, ``run()`` per chunk
+    and the peak device memory.
 
-The second-to-last line is ``{"kernels": [...]}`` (launches from phase 6
-for the F-engine and the CMAC and from phase 9 for the beam kernel,
-times from phases 2, 3 and 7); the last is
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-when no CUDA device is present.
+Each kernel's time is a CUDA-event mean over back-to-back launches;
+``bound_ms`` is the least time the card could take for the same work,
+the larger of the bytes it must move (each input read once, each output
+written once) at 3.35 TB/s and its operations at the data sheet's peak
+for their type (67 fp32 TFLOP/s without the tensor cores, 1979 int8
+TOP/s), from the shapes of the timed call; ``library_ms`` is one PyTorch
+call that computes the same function, where there is one, timed as a
+yardstick and never called by the port.
+
+The second-to-last line is ``{"kernels": [...]}``: launches from the
+main-path phases (6 for K1 and the CMAC, 9 for the beam kernel, 12's
+fused pfb1k for K1-float, 13 for K6), times from phases 2, 3, 7, 10 and
+11; the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
+printing no result, when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 FX64_STREAMS, FX64_SPECTRA, FX64_M, TAPS = 128, 2048, 8192, 16
+FX64_SEED = 6              # the chunks of phases 6 and 13
 PLAIN_BLOCK_STREAMS = 16   # bounds the plain F-engine's float32 copies
 MAX_FLIP_FRACTION = 1e-4   # measured on the H100: about 1e-5
 FLIP_BOUNDARY_TOL = 1e-3   # a flip's float64 pre-round value to a .5
 BEAMS, BEAM_SPECTRA = 16, 256
 BEAM_SNR_DB = 100.0        # two float32 beamformers, summed in other orders
 BEAM_QUANT_RMS = 30.0      # rms of y*s in LSB for the int8 epilogue check
+BENCH_STREAMS, BENCH_SPECTRA, BENCH_CHANS = 16, 512, 1024
+FLOAT_SNR_DB = 100.0       # two float32 F-engines, FFTs in other orders
+UNFUSED_SNR_DB = 60.0      # fused vs unfused fx64 dump: 1-LSB flips
+# NVIDIA H100 SXM data sheet: HBM rate, fp32 (no tensor cores), int8 peak
+HBM_BYTES_S, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 
 
 def _card() -> str:
@@ -88,6 +121,28 @@ def _events_ms(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
+def _bound(nbytes, ops, peak):
+    """``(bound_ms, bound_by)``: the larger of ``nbytes`` at the HBM rate
+    and ``ops`` at ``peak`` per second."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fengine_flops(spectra, m, taps, rotate, quant):
+    """fp32 operations of the F-engine for ``spectra`` spectra of M
+    samples: FIR mul+add per tap, 5 N log2 N for the N = M/2 radix-2
+    complex FFT, 16 per channel for the real split, 9 for the phasor
+    (theta and a complex product; sincos is not counted), 6 for the
+    complex gain."""
+    n = m // 2
+    per = 2 * taps * m + 5 * n * int(math.log2(n)) + 16 * n
+    return spectra * (per + (9 * n if rotate else 0) + (6 * n if quant else 0))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _snr_db(ref, got) -> float:
     """10 log10(sum |ref|^2 / sum |ref - got|^2), in float64 on the card."""
     ref, got = ref.double(), got.double()
@@ -102,16 +157,34 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
-    from dc_sand_tpu import golden
-    from dc_sand_tpu.config import get_config
-    from dc_sand_tpu.windows import pfb_window
-    from dc_sand_tpu_torch import _build
+    from dc_sand_tpu_torch import _build, golden
+    from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.ops.beamform import beamform
-    from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused, taps_pad_for
+    from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+    from dc_sand_tpu_torch.ops.pfb import pfb_fir, taps_pad_for
     from dc_sand_tpu_torch.ops.xcorr import wire_to_a2, xcorr_accumulate_a2
     from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, noise_int8,
                                                 production_runner)
+    from dc_sand_tpu_torch.utils.snr import snr_db
     from dc_sand_tpu_torch.verify import SNR_BOUND, verify_config
+    from dc_sand_tpu_torch.windows import pfb_window
+
+    def zero_counts():
+        fengine_fused.launches = fengine_fused.float_launches = 0
+        pfb_fir.launches = xcorr_accumulate_a2.launches = 0
+        beamform.launches = 0
+
+    def counts(**want):
+        """The launch counters, checked against ``want`` (every counter
+        not named must read 0)."""
+        got = {"fengine": fengine_fused.launches,
+               "fengine_float": fengine_fused.float_launches,
+               "pfb": pfb_fir.launches, "cmac": xcorr_accumulate_a2.launches,
+               "beamform": beamform.launches}
+        if got != {k: want.get(k, 0) for k in got}:
+            raise RuntimeError(f"launch counts {got}, want {want} and 0 "
+                               "for the others")
+        return got
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -168,9 +241,13 @@ def main() -> int:
     plain_blocks(compare)
     k1_plain_ms = _events_ms(torch, lambda: plain_blocks(None), 1)
     flip_frac = int(stats["flips"].sum()) / got.numel()
+    k1_bound = _bound(
+        _nbytes(chunk, hist, window, fd, ph, gains, got),
+        _fengine_flops(s * b, m, TAPS, rotate=True, quant=True), FP32_FLOPS)
     print(f"[2 fengine] kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
-          f"({PLAIN_BLOCK_STREAMS}-stream blocks), max |diff| {stats['max']} "
-          f"LSB, flip fraction {flip_frac:.3e} ({card})", flush=True)
+          f"({PLAIN_BLOCK_STREAMS}-stream blocks), bound {k1_bound[0]:.3f} "
+          f"ms ({k1_bound[1]}), max |diff| {stats['max']} LSB, flip "
+          f"fraction {flip_frac:.3e} ({card})", flush=True)
     if stats["max"] > 1 or flip_frac > MAX_FLIP_FRACTION:
         raise RuntimeError("F-engine kernel disagrees with its plain version")
     # certify the flips of the stream with the most: each must round a
@@ -219,17 +296,23 @@ def main() -> int:
         if not torch.equal(x, y):
             raise RuntimeError(f"CMAC kernel != plain version (keep={keep}): "
                                f"{int((x != y).sum())} elements differ")
+    # timed as the main path runs 3 of every 4 chunks: keep = 1, the
+    # accumulator read and written
     scratch = acc0.clone()
     cmac_ms = _events_ms(
-        torch, lambda: xcorr_accumulate_a2(scratch, a2, keep=0,
+        torch, lambda: xcorr_accumulate_a2(scratch, a2, keep=1,
                                            impl="cuda"), 5)
     cmac_plain_ms = _events_ms(
-        torch, lambda: xcorr_accumulate_a2(scratch, a2, keep=0,
+        torch, lambda: xcorr_accumulate_a2(scratch, a2, keep=1,
                                            impl="torch"), 1)
     ops = 12 * 2 * 64 * 64 * b * nch   # 12 of the 16 64x64 tile products
+    # needed: vr and vi of every (i, j), two length-B dot products each
+    cmac_bound = _bound(_nbytes(a2, acc0, acc0), 4 * ap * ap * b * nch,
+                        INT8_OPS)
     print(f"[3 cmac] bitwise equal (keep 1 and 0); kernel {cmac_ms:.3f} ms "
           f"({ops / cmac_ms / 1e9:.1f} int8 TOP/s executed), plain "
-          f"{cmac_plain_ms:.3f} ms ({card})", flush=True)
+          f"{cmac_plain_ms:.3f} ms, bound {cmac_bound[0]:.3f} ms "
+          f"({cmac_bound[1]}) ({card})", flush=True)
     del a2, acc0, x, y, scratch
     torch.cuda.empty_cache()
 
@@ -247,19 +330,16 @@ def main() -> int:
     # ---- 6. fx64 at production cadence ------------------------------------
     cfg = get_config("fx64")
     a, p = cfg.n_ants, cfg.n_pols
+    gen.manual_seed(FX64_SEED)
     runner, chunks = production_runner(cfg, gen, dev)
     n_chunks = len(chunks)
     torch.cuda.synchronize()
-    fengine_fused.launches = 0
-    xcorr_accumulate_a2.launches = 0
+    zero_counts()
     t = time.perf_counter()
     dumps, counters = runner.run(lambda i: chunks[i % n_chunks], n_chunks)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    launches = {"fengine": fengine_fused.launches,
-                "cmac": xcorr_accumulate_a2.launches}
-    if launches != {"fengine": n_chunks, "cmac": n_chunks}:
-        raise RuntimeError(f"launch counts {launches}, want {n_chunks} each")
+    launches = counts(fengine=n_chunks, cmac=n_chunks)
     if len(dumps) != 1 or dumps[0].n_spectra != cfg.n_spectra_per_acc:
         raise RuntimeError(f"expected one {cfg.n_spectra_per_acc}-spectra "
                            f"dump, got {[d.n_spectra for d in dumps]}")
@@ -297,6 +377,7 @@ def main() -> int:
           f"coarse shift on the card and dump included, host-to-device copy "
           f"excluded); device step {dev_step_ms:.3f} ms = "
           f"{samples / dev_step_ms / 1e6:.2f} Gsamp/s ({card})", flush=True)
+    vis_fused = vis               # held for phase 13
     del runner, chunks, frames, zeros, dumps, vis
     torch.cuda.empty_cache()
 
@@ -318,13 +399,26 @@ def main() -> int:
         torch, lambda: beamform(q, bw, incoherent=True, impl="cuda"), 10)
     beam_plain_ms = _events_ms(
         torch, lambda: beamform(q, bw, incoherent=True, impl="torch"), 2)
-    tflops = 8 * BEAMS * 2 * BEAM_SPECTRA * nch * (FX64_STREAMS // 2) \
-        / beam_ms / 1e9                   # 8 flops per complex MAC
+    # the library yardstick: the coherent beams as one complex64 matmul
+    # batched over channels, (K, nb, a) @ (K, a, p*B), on inputs already
+    # converted to complex64 (the conversion is not timed)
+    na = FX64_STREAMS // 2
+    xc = torch.complex(q[..., 0].float(), q[..., 1].float()).permute(
+        3, 0, 1, 2).reshape(nch, na, 2 * BEAM_SPECTRA).contiguous()
+    wc = torch.complex(bw[..., 0], bw[..., 1]).permute(2, 0, 1).contiguous()
+    beam_lib_ms = _events_ms(torch, lambda: torch.matmul(wc, xc), 5)
+    del xc, wc
+    flops = 8 * BEAMS * 2 * BEAM_SPECTRA * nch * na   # 8 per complex MAC
+    beam_bound = _bound(_nbytes(q, bw, got, inc),
+                        flops + 4 * 2 * BEAM_SPECTRA * nch * na, FP32_FLOPS)
     print(f"[7 beamform] float beams {beam_snr:.2f} dB vs plain (max |diff| "
           f"{beam_err:.3e}), incoherent bitwise {inc_equal}; int8 at "
           f"scale {qs:.5f}: max |diff| {q_max} LSB, flip fraction "
-          f"{q_flips:.3e}; kernel {beam_ms:.3f} ms ({tflops:.2f} fp32 "
-          f"TFLOP/s), plain {beam_plain_ms:.3f} ms ({card})", flush=True)
+          f"{q_flips:.3e}; kernel {beam_ms:.3f} ms "
+          f"({flops / beam_ms / 1e9:.2f} fp32 TFLOP/s), plain "
+          f"{beam_plain_ms:.3f} ms, complex64 matmul {beam_lib_ms:.3f} ms, "
+          f"bound {beam_bound[0]:.3f} ms "
+          f"({beam_bound[1]}) ({card})", flush=True)
     if not (beam_snr >= BEAM_SNR_DB and inc_equal and q_max <= 1
             and q_flips <= MAX_FLIP_FRACTION):
         raise RuntimeError("beam kernel disagrees with its plain version")
@@ -346,18 +440,13 @@ def main() -> int:
     n_chunks = len(chunks)
     outs = []
     torch.cuda.synchronize()
-    fengine_fused.launches = 0
-    beamform.launches = 0
+    zero_counts()
     t = time.perf_counter()
     runner.run(lambda i: chunks[i % n_chunks], n_chunks,
                on_output=lambda i, o: outs.append(o))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    beam_launches = {"fengine": fengine_fused.launches,
-                     "beamform": beamform.launches}
-    if beam_launches != {"fengine": BEAM_CHUNKS, "beamform": BEAM_CHUNKS}:
-        raise RuntimeError(f"launch counts {beam_launches}, want "
-                           f"{BEAM_CHUNKS} each")
+    beam_launches = counts(fengine=BEAM_CHUNKS, beamform=BEAM_CHUNKS)
     b = cfg.spectra_per_chunk
     for o in outs:
         beams, inc = o["beams"], o["incoherent"]
@@ -399,23 +488,193 @@ def main() -> int:
           + ", ".join(f"{x:.3f}" for x in d2h_ms) + f" ms ({card})",
           flush=True)
 
-    assert "jax" not in sys.modules, "the port must not import jax"
+    del runner, chunks, outs, frames, zeros
+    torch.cuda.empty_cache()
+
+    # ---- 10. PFB-FIR kernel (K6) vs plain at the fx64 chunk shape ---------
+    s, b, m = FX64_STREAMS, FX64_SPECTRA, FX64_M
+    hist = noise_int8(gen, (s, taps_pad_for(TAPS), m), dev)
+    chunk = noise_int8(gen, (s, b, m), dev)
+
+    def k6():
+        return pfb_fir(chunk, window, TAPS, m, history=hist, impl="cuda")
+
+    got = k6()
+    pfb_ms = _events_ms(torch, k6, 5)
+    pfb_errs = []
+
+    def plain_fir(compare):
+        for i in range(0, s, PLAIN_BLOCK_STREAMS):
+            sl = slice(i, i + PLAIN_BLOCK_STREAMS)
+            want = pfb_fir(chunk[sl], window, TAPS, m, history=hist[sl],
+                           impl="torch")
+            if compare:
+                pfb_errs.append(float((got[sl] - want).abs().max()))
+                if not torch.equal(got[sl], want):
+                    raise RuntimeError(f"PFB kernel != plain version in "
+                                       f"streams {sl.start}..{sl.stop - 1}")
+
+    plain_fir(True)
+    pfb_err = max(pfb_errs)
+    pfb_plain_ms = _events_ms(torch, lambda: plain_fir(False), 1)
+    pfb_bound = _bound(_nbytes(chunk, hist, window, got),
+                       2 * TAPS * s * b * m, FP32_FLOPS)
+    # the library yardstick: a depthwise conv1d over frames, (S, M, F)
+    # float32 with weights (M, 1, taps), TF32 off (set above)
+    pad0 = taps_pad_for(TAPS) - TAPS + 1
+    n_f = TAPS - 1 + b
+    xf = torch.empty((s, m, n_f), device=dev)
+    for i in range(0, s, PLAIN_BLOCK_STREAMS):
+        sl = slice(i, i + PLAIN_BLOCK_STREAMS)
+        xf[sl] = torch.cat([hist[sl, pad0:], chunk[sl]], 1).float().transpose(
+            1, 2)
+    wconv = window.reshape(TAPS, m).t().reshape(m, 1, TAPS).contiguous()
+    conv = torch.nn.functional.conv1d(xf, wconv, groups=m)
+    conv_diff = float((conv[:2].transpose(1, 2) - got[:2]).abs().max())
+    del conv
+    pfb_lib_ms = _events_ms(
+        torch, lambda: torch.nn.functional.conv1d(xf, wconv, groups=m), 3)
+    print(f"[10 pfb] bitwise equal to plain (split I/O, {s} streams x "
+          f"{TAPS}+{b} frames x {m}); kernel {pfb_ms:.3f} ms, plain "
+          f"{pfb_plain_ms:.3f} ms ({PLAIN_BLOCK_STREAMS}-stream blocks), "
+          f"conv1d(groups=M) {pfb_lib_ms:.3f} ms (max |diff| to the kernel "
+          f"{conv_diff:.3e}), bound {pfb_bound[0]:.3f} ms ({pfb_bound[1]}) "
+          f"({card})", flush=True)
+    del got, chunk, hist, xf, wconv
+    torch.cuda.empty_cache()
+
+    # ---- 11. K1 float output vs plain at the F-engine bench shape ---------
+    bs, bb, bm = BENCH_STREAMS, BENCH_SPECTRA, 2 * BENCH_CHANS
+    xs = noise_int8(gen, (bs, (bb + TAPS - 1) * bm), dev)
+    wb = torch.as_tensor(pfb_window(TAPS, bm, "hann"), dtype=torch.float32,
+                         device=dev)
+    fdb = torch.rand((bs, bb), generator=gen, device=dev) - 0.5
+    phb = (torch.rand((bs, bb), generator=gen, device=dev) - 0.5) * 2 * np.pi
+    float_snr, float_err = float("inf"), 0.0
+    for kw in ({}, {"frac_delay": fdb, "phase": phb}):
+        got = fengine_fused(xs, wb, TAPS, BENCH_CHANS, impl="cuda", **kw)
+        want = fengine_fused(xs, wb, TAPS, BENCH_CHANS, impl="torch", **kw)
+        if got.dtype != torch.float32 or got.shape != (bs, bb,
+                                                       BENCH_CHANS, 2):
+            raise RuntimeError(f"float F-engine output {got.dtype} "
+                               f"{tuple(got.shape)}")
+        float_snr = min(float_snr, _snr_db(want, got))
+        float_err = max(float_err, float((got - want).abs().max()))
+    float_ms = _events_ms(
+        torch, lambda: fengine_fused(xs, wb, TAPS, BENCH_CHANS,
+                                     impl="cuda"), 10)
+    float_plain_ms = _events_ms(
+        torch, lambda: fengine_fused(xs, wb, TAPS, BENCH_CHANS,
+                                     impl="torch"), 3)
+    float_bound = _bound(_nbytes(xs, wb, got),
+                         _fengine_flops(bs * bb, bm, TAPS, rotate=False,
+                                        quant=False), FP32_FLOPS)
+    print(f"[11 fengine float] {float_snr:.2f} dB vs plain, worst of "
+          f"without and with the phasor (max |diff| {float_err:.3e}); "
+          f"kernel {float_ms:.3f} ms, plain {float_plain_ms:.3f} ms, bound "
+          f"{float_bound[0]:.4f} ms ({float_bound[1]}) at {bs} streams x "
+          f"{bb} spectra x {BENCH_CHANS} channels, no phasor ({card})",
+          flush=True)
+    if not float_snr >= FLOAT_SNR_DB:
+        raise RuntimeError(f"float F-engine kernel {float_snr:.2f} dB from "
+                           f"its plain version, want >= {FLOAT_SNR_DB}")
+    del xs, wb, fdb, phb, got, want
+
+    # ---- 12. verify pfb1k and pfb4k on both F-engine paths ----------------
+    fengine_launches = {}
+    for name in ("pfb1k", "pfb4k"):
+        for fused in (True, False):
+            zero_counts()
+            t = time.perf_counter()
+            snrs, counters = verify_config(name, device=dev, fused=fused)
+            torch.cuda.synchronize()
+            n = counters.chunks_in
+            want = ({"fengine_float" if name == "pfb1k" else "fengine": n}
+                    if fused else {"pfb": n})
+            got_counts = counts(**want)
+            fengine_launches[(name, fused)] = got_counts
+            snr = snrs["spectra"]
+            print(f"[12 verify {name} {'fused' if fused else 'unfused'}] "
+                  f"spectra {snr:.2f} dB vs golden over {n} chunks; "
+                  f"launches {got_counts} ({time.perf_counter() - t:.1f} s)",
+                  flush=True)
+            if not snr > SNR_BOUND:
+                raise RuntimeError(f"verify {name} fused={fused}: "
+                                   f"{snr:.2f} dB <= {SNR_BOUND}")
+    torch.cuda.empty_cache()
+
+    # ---- 13. fx64 production cadence through the unfused F-engine --------
+    cfg = get_config("fx64")
+    gen.manual_seed(FX64_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, fused=False)
+    n_chunks = len(chunks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    dumps, _ = runner.run(lambda i: chunks[i % n_chunks], n_chunks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    unfused_launches = counts(pfb=n_chunks, cmac=n_chunks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(dumps) != 1 or dumps[0].vis.shape != vis_fused.shape:
+        raise RuntimeError("the unfused fx64 run made no dump of phase 6's "
+                           "shape")
+    vis_snr = snr_db(vis_fused[..., 0] + 1j * vis_fused[..., 1],
+                     dumps[0].vis[..., 0] + 1j * dumps[0].vis[..., 1])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(lambda i: chunks[i % n_chunks], n_chunks)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / n_chunks * 1e3
+    frames = chunks[0].reshape(a * p, cfg.spectra_per_chunk, cfg.fft_size)
+    zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
+    dev_step_ms = _events_ms(
+        torch, lambda: runner._step(runner.history, runner.vis_acc, frames,
+                                    zeros, zeros, runner.gains,
+                                    runner.weights, False), 4)
+    samples = a * p * cfg.chunk_samples
+    print(f"[13 fx64 unfused] {n_chunks} chunks -> 1 dump, {vis_snr:.2f} dB "
+          f"from phase 6's fused dump; launches {unfused_launches}; first "
+          f"run {first_s:.2f} s; steady run() per chunk {step_ms:.3f} ms = "
+          f"{samples / step_ms / 1e6:.2f} Gsamp/s (device-resident chunks); "
+          f"device step {dev_step_ms:.3f} ms = "
+          f"{samples / dev_step_ms / 1e6:.2f} Gsamp/s; peak device memory "
+          f"{peak_gb:.2f} GB ({card})", flush=True)
+    if not vis_snr >= UNFUSED_SNR_DB:
+        raise RuntimeError(f"unfused fx64 dump {vis_snr:.2f} dB from the "
+                           f"fused one, want >= {UNFUSED_SNR_DB}")
+
+    for banned in ("jax", "dc_sand_tpu"):
+        if banned in sys.modules:
+            raise RuntimeError(f"the port must not import {banned}")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"dc_sand_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
+
     kernels = [
-        {"name": "fengine", "route": "cuda",
-         "source": "dc_sand_tpu_torch/csrc/fengine.cu",
-         "replaces": "dc_sand_tpu/ops/fengine_fused.py:335",
-         "launches": launches["fengine"], "max_abs_err": stats["max"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "cmac", "route": "cuda",
-         "source": "dc_sand_tpu_torch/csrc/cmac.cu",
-         "replaces": "dc_sand_tpu/ops/xcorr.py:371",
-         "launches": launches["cmac"], "max_abs_err": cmac_err,
-         "ms": cmac_ms, "plain_ms": cmac_plain_ms},
-        {"name": "beamform", "route": "cuda",
-         "source": "dc_sand_tpu_torch/csrc/beamform.cu",
-         "replaces": "dc_sand_tpu/ops/beamform.py:147",
-         "launches": beam_launches["beamform"], "max_abs_err": beam_err,
-         "ms": beam_ms, "plain_ms": beam_plain_ms},
+        entry("fengine", "fengine.cu", "dc_sand_tpu/ops/fengine_fused.py:335",
+              launches["fengine"], stats["max"], k1_ms, k1_plain_ms,
+              k1_bound, None),
+        entry("cmac", "cmac.cu", "dc_sand_tpu/ops/xcorr.py:371",
+              launches["cmac"], cmac_err, cmac_ms, cmac_plain_ms, cmac_bound,
+              None),
+        entry("beamform", "beamform.cu", "dc_sand_tpu/ops/beamform.py:147",
+              beam_launches["beamform"], beam_err, beam_ms, beam_plain_ms,
+              beam_bound, beam_lib_ms),
+        entry("pfb", "pfb.cu", "dc_sand_tpu/ops/pfb.py:92",
+              unfused_launches["pfb"], pfb_err, pfb_ms, pfb_plain_ms,
+              pfb_bound, pfb_lib_ms),
+        entry("fengine_float", "fengine.cu",
+              "dc_sand_tpu/ops/fengine_fused.py:335",
+              fengine_launches[("pfb1k", True)]["fengine_float"], float_err,
+              float_ms, float_plain_ms, float_bound, None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

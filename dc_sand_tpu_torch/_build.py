@@ -42,6 +42,7 @@ _SIGNATURES = {
     "cmac": {"dcs_cmac": [_P, _P, _I, _I, _I, _I, _P]},
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},
+    "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 

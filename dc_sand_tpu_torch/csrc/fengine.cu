@@ -18,10 +18,12 @@
 //   3. Split: X[k] = E[k] + W_M^k O[k] for k < N = K (the Nyquist bin is
 //             dropped, as golden/chain.py:channelize does).
 //   4. Phase: theta = (-(2 pi / M) * k) * d_j - p_j in float32, accurate
-//             sincosf (no fast math), X *= (cos, sin); then X *= gain[k].
-//   5. Quant: rintf (round half to even), saturate to [-127, 127] (never
-//             -128: the X-engine negates int8 values), int8 wire layout
-//             (S, n_out, K, 2).
+//             sincosf (no fast math), X *= (cos, sin).
+//   5. Quant (kQuant, gains given): X *= gain[k], rintf (round half to
+//             even), saturate to [-127, 127] (never -128: the X-engine
+//             negates int8 values), int8 wire layout (S, n_out, K, 2).
+//             Without gains (the JAX package's float-output mode, config
+//             pfb1k) X is stored as float32 (S, n_out, K, 2) instead.
 //
 // Every float multiply and add is an explicit _rn intrinsic, so nvcc cannot
 // contract them into FMAs and the order of operations is the plain version's.
@@ -54,11 +56,12 @@ __device__ __forceinline__ int8_t quant(float v) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
 }
 
+template <bool kQuant, typename Out>
 __global__ void __launch_bounds__(kMaxThreads)
 fengine_kernel(const int8_t* __restrict__ hist, const int8_t* __restrict__ chunk,
                const float* __restrict__ window, const float2* __restrict__ tw,
                const float* __restrict__ frac, const float* __restrict__ phase,
-               const float2* __restrict__ gains, char2* __restrict__ out,
+               const float2* __restrict__ gains, Out* __restrict__ out,
                int n_hist, int n_chunk, int n_out, int m, int log2n, int taps,
                int pad0, float theta_scale) {
   extern __shared__ float2 z[];  // N complex values
@@ -113,7 +116,8 @@ fengine_kernel(const int8_t* __restrict__ hist, const int8_t* __restrict__ chunk
     __syncthreads();
   }
 
-  // 3-5. Real-FFT split, phasor, gain, requantisation, store.
+  // 3-5. Real-FFT split, phasor, then gain and requantisation or the
+  // float store.
   const size_t row = static_cast<size_t>(s) * n_out + j;
   const bool rotate = frac != nullptr;
   const float d = rotate ? frac[row] : 0.0f;
@@ -135,8 +139,12 @@ fengine_kernel(const int8_t* __restrict__ hist, const int8_t* __restrict__ chunk
       sincosf(theta, &sn, &cs);
       v = cmul(v, make_float2(cs, sn));
     }
-    v = cmul(v, __ldg(gains + k));
-    out[row * n_half + k] = make_char2(quant(v.x), quant(v.y));
+    if constexpr (kQuant) {
+      v = cmul(v, __ldg(gains + k));
+      out[row * n_half + k] = make_char2(quant(v.x), quant(v.y));
+    } else {
+      out[row * n_half + k] = v;
+    }
   }
 }
 
@@ -144,7 +152,8 @@ fengine_kernel(const int8_t* __restrict__ hist, const int8_t* __restrict__ chunk
 
 // Plain C entry point (bound with ctypes).  Pointers are device pointers;
 // `frac` and `phase` are both null (no rotation) or both valid, (S, n_out)
-// float32; `gains` is (K, 2) float32; `out` is (S, n_out, K, 2) int8.
+// float32; `gains` is (K, 2) float32 and `out` (S, n_out, K, 2) int8, or
+// `gains` is null and `out` (S, n_out, K, 2) float32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* window,
                            const void* twiddle, const void* frac, const void* phase,
@@ -161,11 +170,21 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
   const int threads = n_half / 2 < kMaxThreads ? n_half / 2 : kMaxThreads;
   const size_t smem = static_cast<size_t>(n_half) * sizeof(float2);
   const dim3 grid(n_out, n_streams);
-  fengine_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(hist), static_cast<const int8_t*>(chunk),
-      static_cast<const float*>(window), static_cast<const float2*>(twiddle),
-      static_cast<const float*>(frac), static_cast<const float*>(phase),
-      static_cast<const float2*>(gains), static_cast<char2*>(out), n_hist, n_chunk,
-      n_out, m, log2n, taps, pad0, theta_scale);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* h = static_cast<const int8_t*>(hist);
+  const int8_t* c = static_cast<const int8_t*>(chunk);
+  const float* w = static_cast<const float*>(window);
+  const float2* t = static_cast<const float2*>(twiddle);
+  const float* fd = static_cast<const float*>(frac);
+  const float* ph = static_cast<const float*>(phase);
+  const float2* g = static_cast<const float2*>(gains);
+  if (g != nullptr)
+    fengine_kernel<true><<<grid, threads, smem, st>>>(
+        h, c, w, t, fd, ph, g, static_cast<char2*>(out), n_hist, n_chunk, n_out, m,
+        log2n, taps, pad0, theta_scale);
+  else
+    fengine_kernel<false><<<grid, threads, smem, st>>>(
+        h, c, w, t, fd, ph, g, static_cast<float2*>(out), n_hist, n_chunk, n_out, m,
+        log2n, taps, pad0, theta_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,2 +1,3 @@
-"""Engine compositions: the F-engine (``fengine``), the fx and beam
-streaming step (``pipeline``) and beam-steering weights (``steering``)."""
+"""Engine compositions: the F-engine (``fengine``), the fengine, fx and
+beam streaming step (``pipeline``) and beam-steering weights
+(``steering``)."""

@@ -1,10 +1,20 @@
 """The F-engine: coarse delay -> PFB -> fine delay/fringe -> requantise.
 
 PyTorch counterpart of :func:`dc_sand_tpu.models.fengine.f_engine`
-(golden semantics: :func:`dc_sand_tpu.golden.chain.f_engine`).  The whole
-chain after the coarse delay runs in the fused F-engine
-(:mod:`dc_sand_tpu_torch.ops.fengine_fused`): one CUDA kernel launch on a
-CUDA tensor, the plain per-stage ops on a CPU tensor.
+(golden semantics: :func:`dc_sand_tpu_torch.golden.chain.f_engine`).  Two
+paths run the chain after the coarse delay:
+
+* fused (the default): the fused F-engine
+  (:mod:`dc_sand_tpu_torch.ops.fengine_fused`), one CUDA kernel launch
+  (K1) on a CUDA tensor;
+* unfused (``fused=False``), the counterpart of the JAX package's
+  ``impl="pallas"`` path: the standalone FIR kernel (K6,
+  :func:`dc_sand_tpu_torch.ops.pfb.pfb_fir`) reading history and chunk
+  separately, then ``torch.fft.rfft``, the phasor and the requantisation
+  as PyTorch ops (the JAX package runs those outside any Pallas kernel
+  too).
+
+On a CPU tensor both paths run the plain per-stage ops.
 """
 
 from __future__ import annotations
@@ -14,7 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused, fengine_tail
+from dc_sand_tpu_torch.ops.pfb import pfb_fir
 
 __all__ = ["f_engine", "coarse_delay"]
 
@@ -44,7 +55,7 @@ def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
              history: Optional[torch.Tensor] = None,
              coarse_delays=None, max_delay: int = 0,
              frac_delay=None, phase=None, gains=None,
-             impl: str = "auto") -> torch.Tensor:
+             impl: str = "auto", fused: bool = True) -> torch.Tensor:
     """Full F-engine on ``x: (..., t)`` int8 real streams.
 
     ``history`` (streaming split-I/O mode): ``x`` is the new chunk as
@@ -53,14 +64,19 @@ def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
     (``coarse_delays`` must be None).
 
     Returns the wire format: int8 ``(..., b, k, 2)`` with ``gains``
-    (``(k, 2)`` float32 re/im), float32 ``(..., b, k, 2)`` without (plain
-    version only).
+    (``(k, 2)`` float32 re/im), float32 ``(..., b, k, 2)`` without.
+    ``fused`` picks the path (module docstring); ``impl`` goes to the
+    kernel's wrapper (K1, or K6 when unfused).
     """
     if history is not None and coarse_delays is not None:
         raise ValueError("split-I/O mode keeps coarse delay on the "
                          "host/ingest path (coarse_delays must be None)")
     if coarse_delays is not None:
         x = coarse_delay(x, coarse_delays, max_delay)
-    return fengine_fused(x, window, taps, n_chans, history=history,
-                         frac_delay=frac_delay, phase=phase, gains=gains,
-                         impl=impl)
+    if fused:
+        return fengine_fused(x, window, taps, n_chans, history=history,
+                             frac_delay=frac_delay, phase=phase, gains=gains,
+                             impl=impl)
+    fir = pfb_fir(x, window, taps, 2 * n_chans, history=history, impl=impl)
+    return fengine_tail(fir, n_chans, frac_delay=frac_delay, phase=phase,
+                        gains=gains)

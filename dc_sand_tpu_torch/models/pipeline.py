@@ -1,18 +1,24 @@
-"""The streaming step: F-engine -> X-engine integration, or -> B-engine.
+"""The streaming step: F-engine alone, or -> X-engine integration, or ->
+B-engine.
 
 PyTorch counterpart of :func:`dc_sand_tpu.models.pipeline.make_step` on
-one device, in fx and beam mode.  The step takes its streaming I/O in
-FRAME form (the JAX package's frames-I/O fast path): history ``(A*P,
-taps_pad, M)`` and chunk ``(A*P, B, M)`` int8, coarse delay applied on the
-host feed.
+one device, in fengine, fx and beam mode.  The step takes its streaming
+I/O in FRAME form (the JAX package's frames-I/O fast path): history
+``(A*P, taps_pad, M)`` and chunk ``(A*P, B, M)`` int8, coarse delay
+applied on the host feed.
 
     step(history, acc, chunk, frac, phase, gains, weights, reset) -> dict
 
 (the JAX step's argument order without ``coarse``) updates ``history``
 and ``acc`` IN PLACE, which takes the place of the JAX step's donated
-carry, and returns the chunk's outputs.  Per chunk the fused F-engine
-(K1) writes wire spectra ``(A*P, B, K, 2)`` int8, and then
+carry, and returns the chunk's outputs.  Per chunk the F-engine writes
+wire spectra ``(A*P, B, K, 2)``, int8, or float32 when the config does
+not requantise (fengine mode only): the fused kernel K1, or with
+``fused=False`` the standalone FIR kernel K6 and PyTorch ops (the JAX
+package's ``impl="pallas"`` path).  Then
 
+* fengine mode: returns ``{"spectra": (A, P, B, K, 2)}`` (a free view),
+  ``acc`` is a rank-1 dummy, as in the JAX package;
 * fx mode: the corner-turn as PyTorch glue (one ``permute().contiguous()``,
   :func:`dc_sand_tpu_torch.ops.xcorr.wire_to_a2`; on one device the
   corner-turn's all-to-all is an identity) and the packed CMAC (K2/K3)
@@ -28,10 +34,10 @@ from __future__ import annotations
 
 import torch
 
-from dc_sand_tpu.config import ChainConfig
+from dc_sand_tpu_torch.config import ChainConfig
 from dc_sand_tpu_torch.models.fengine import f_engine
 from dc_sand_tpu_torch.ops.beamform import beamform
-from dc_sand_tpu_torch.ops.fengine_fused import taps_pad_for
+from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.xcorr import (acc_shape, wire_to_a2,
                                          xcorr_accumulate_a2)
 
@@ -69,9 +75,6 @@ def zero_vis_acc(cfg: ChainConfig, device) -> torch.Tensor:
 def check_mode(cfg: ChainConfig) -> None:
     """Raise for configurations this port does not run yet."""
     mode = mode_for(cfg)
-    if mode == "fengine":
-        raise NotImplementedError(
-            f"fengine mode is not ported (config {cfg.name!r})")
     if cfg.beam_stokes:
         raise NotImplementedError("Stokes beam detection is not ported")
     if cfg.beam_parallel:
@@ -79,15 +82,16 @@ def check_mode(cfg: ChainConfig) -> None:
                                   "is not ported")
     if cfg.time_shards != 1:
         raise NotImplementedError("time-sharded (SP) mode is not ported")
-    if not cfg.apply_requant:
+    if not cfg.apply_requant and mode != "fengine":
         raise NotImplementedError(f"{mode} mode without requantisation is "
                                   "not ported")
 
 
-def make_step(cfg: ChainConfig, window, *, device):
+def make_step(cfg: ChainConfig, window, *, device, fused: bool = True):
     """Build the streaming step for ``cfg`` on ``device``: it launches the
     CUDA kernels on a CUDA device and runs their plain versions on the
-    CPU."""
+    CPU.  ``fused`` picks the F-engine path (see
+    :func:`dc_sand_tpu_torch.models.fengine.f_engine`)."""
     check_mode(cfg)
     mode = mode_for(cfg)
     device = torch.device(device)
@@ -103,13 +107,17 @@ def make_step(cfg: ChainConfig, window, *, device):
                      if cfg.apply_delay else None,
                      phase=phase.reshape(s_l, b_l)
                      if cfg.apply_delay else None,
-                     gains=gains)                          # (S, B, K, 2)
+                     gains=gains if cfg.apply_requant else None,
+                     fused=fused)                          # (S, B, K, 2)
         # the next chunk's history: the stream's last taps_pad frames
         tp = history.shape[1]
         if b_l >= tp:
             history.copy_(chunk[:, b_l - tp:])
         else:
             history.copy_(torch.cat([history, chunk], dim=1)[:, -tp:])
+        if mode == "fengine":
+            return {"spectra": q.reshape(cfg.n_ants, cfg.n_pols, b_l,
+                                         n_chans, 2)}
         if mode == "fx":
             xcorr_accumulate_a2(acc, wire_to_a2(q), keep=0 if reset else 1)
             return {}

@@ -1,6 +1,6 @@
-"""Per-stage ops.  Three modules hold CUDA kernels beside their plain
-versions: :mod:`.fengine_fused` (K1), :mod:`.xcorr` (K2/K3) and
-:mod:`.beamform` (K4/K4p/K5)."""
+"""Per-stage ops.  Four modules hold CUDA kernels beside their plain
+versions: :mod:`.fengine_fused` (K1), :mod:`.pfb` (K6), :mod:`.xcorr`
+(K2/K3) and :mod:`.beamform` (K4/K4p/K5)."""
 
 from .pfb import pfb_fir  # noqa: F401
 from .fft import channelize  # noqa: F401

@@ -1,8 +1,9 @@
 """X-engine cross-correlation CMAC (C8) + integration (C9).
 
-Golden semantics: :func:`dc_sand_tpu.golden.chain.xcorr` over the canonical
-:func:`~dc_sand_tpu.golden.chain.baseline_pairs` ordering.  Per channel,
-with A = Ar + j*Ai the (antpol, spectrum) int8 matrix,
+Golden semantics: :func:`dc_sand_tpu_torch.golden.chain.xcorr` over the
+canonical :func:`~dc_sand_tpu_torch.golden.chain.baseline_pairs`
+ordering.  Per channel, with A = Ar + j*Ai the (antpol, spectrum) int8
+matrix,
 
     V = A A^H = (Ar Ar^T + Ai Ai^T) + j (Ai Ar^T - Ar Ai^T) = vr + j vi.
 
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from dc_sand_tpu.golden.chain import baseline_pairs
+from dc_sand_tpu_torch.golden.chain import baseline_pairs
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 

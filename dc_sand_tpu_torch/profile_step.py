@@ -5,7 +5,8 @@ Run from the repository root::
 
     python -m dc_sand_tpu_torch.profile_step [--out DIR]
 
-For each of fx64 and beam64 it builds the production runner
+For each of fx64, beam64 and fx64 through the unfused F-engine (the
+standalone FIR kernel, then PyTorch ops) it builds the production runner
 (:func:`production_runner`: 64 ants x 2 pols, 4096 channels, the
 config's own chunk length, coarse and fractional delay and fringe on,
 seeded int8 noise made on the card; fx64 dumps 8192 spectra per 4
@@ -25,7 +26,7 @@ over one window of chunks, then prints:
    copy of one chunk alone.
 
 The traces are written to ``DIR/<config>_trace.json`` (default
-``build/profile_step``).
+``build/profile_step``; ``fx64_unfused_trace.json`` for the unfused run).
 """
 
 from __future__ import annotations
@@ -39,12 +40,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dc_sand_tpu.config import ChainConfig, get_config
-from dc_sand_tpu.windows import pfb_window
+from dc_sand_tpu_torch.config import ChainConfig, get_config
 from dc_sand_tpu_torch.models.steering import steering_weights
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
+from dc_sand_tpu_torch.windows import pfb_window
 
 __all__ = ["noise_int8", "production_runner", "device_busy_us", "main",
            "BEAM_CHUNKS"]
@@ -69,13 +70,14 @@ def noise_int8(gen: torch.Generator, shape, device) -> torch.Tensor:
     return out
 
 
-def production_runner(cfg: ChainConfig, gen: torch.Generator, device):
+def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
+                      fused: bool = True):
     """The runner at ``cfg``'s own cadence with a seeded delay model
     (coarse up to 31 samples, fractional delay and fringe on) and one
     window of chunks made with ``gen`` on ``device``: one dump's worth in
     fx mode, :data:`BEAM_CHUNKS` in beam mode, whose beams are steered
     toward seeded pointings (geometric delays up to 0.25 us):
-    ``(runner, chunks)``."""
+    ``(runner, chunks)``.  ``fused`` picks the runner's F-engine path."""
     rng = np.random.default_rng(6)
     a, p = cfg.n_ants, cfg.n_pols
     dm = DelayModel.zeros(a, p, max_delay=32)
@@ -94,7 +96,8 @@ def production_runner(cfg: ChainConfig, gen: torch.Generator, device):
     chunks = [noise_int8(gen, (a, p, cfg.chunk_samples), device)
               for _ in range(n_chunks)]
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
-                      delay_model=dm, weights=weights, device=device)
+                      delay_model=dm, weights=weights, device=device,
+                      fused=fused)
     return runner, chunks
 
 
@@ -120,9 +123,12 @@ def _timed(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
+def _profile(name: str, gen: torch.Generator, dev, out: Path,
+             fused: bool = True) -> None:
     cfg = get_config(name)
-    runner, chunks = production_runner(cfg, gen, dev)
+    runner, chunks = production_runner(cfg, gen, dev, fused=fused)
+    if not fused:
+        name += "_unfused"
     n = len(chunks)
     samples = cfg.n_ants * cfg.n_pols * cfg.chunk_samples
     runner.run(lambda i: chunks[i % n], n)            # warm, one window
@@ -176,10 +182,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    for name in ("fx64", "beam64"):
+    for name, fused in (("fx64", True), ("beam64", True), ("fx64", False)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(6)
-        _profile(name, gen, dev, out)
+        _profile(name, gen, dev, out, fused=fused)
         torch.cuda.empty_cache()
     return 0
 

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dc_sand_tpu_torch.ops.fengine_fused import taps_pad_for
+from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 
 __all__ = ["load_jax_checkpoint", "window_and_gains_from_numpy"]
 
@@ -48,8 +48,8 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     accumulator's channel axis is in native (k2-major) order; pass
     ``dc_sand_tpu.ops.fengine_fused.native_channel_perm(n_chans)`` to put
     it back in natural order (``acc_natural = acc_native[perm]``).  The
-    beam weights are restored too; in beam mode the accumulator is the
-    rank-1 dummy that both packages carry.
+    beam weights are restored too; in fengine and beam mode the
+    accumulator is the rank-1 dummy that both packages carry.
     """
     z = np.load(path, allow_pickle=False)
     if "process_shape" in z.files:

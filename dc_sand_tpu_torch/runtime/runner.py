@@ -1,12 +1,14 @@
-"""Chunked streaming runner (C21), fx and beam mode, one device.
+"""Chunked streaming runner (C21), fengine, fx and beam mode, one device.
 
 PyTorch counterpart of :class:`dc_sand_tpu.runtime.runner.FXRunner`:
 feed a chunk to the device, advance the delay polynomials on the host,
 apply the coarse delay as a read-pointer offset on the device, and run
-the step — in fx mode F-engine + corner-turn + CMAC, dumping the
-integration at the accumulation cadence; in beam mode F-engine + beam
-kernel, handing each chunk's beams to ``on_output``.  The FIR history
-and the packed accumulator live on the device and are updated in place.
+the step — in fengine mode the F-engine alone, handing each chunk's
+spectra to ``on_output``; in fx mode F-engine + corner-turn + CMAC,
+dumping the integration at the accumulation cadence; in beam mode
+F-engine + beam kernel, handing each chunk's beams to ``on_output``.
+The FIR history and the packed accumulator live on the device and are
+updated in place.
 
 Fault semantics as in the JAX runner: a dropped chunk is replaced by
 zeros — stream timing advances, the FIR history stays continuous, and
@@ -22,7 +24,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from dc_sand_tpu.config import ChainConfig
+from dc_sand_tpu_torch.config import ChainConfig
 from dc_sand_tpu_torch.models.pipeline import (history_shape, make_step,
                                                mode_for, zero_vis_acc)
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
@@ -55,7 +57,8 @@ class Dump:
 
 
 class FXRunner:
-    """Streaming runner on one device, fx or beam mode (from ``cfg``).
+    """Streaming runner on one device, fengine, fx or beam mode (from
+    ``cfg``).
 
     ``source(chunk_idx)`` returns the chunk's int8 samples, ``(A, P,
     chunk_samples)`` or the same bytes as frames ``(A*P, B, M)``: a numpy
@@ -63,13 +66,16 @@ class FXRunner:
     ``(K, 2)`` float32 re/im (default ``cfg.quant_scale`` real).
     ``weights``: beam weights ``(n_beams, A, K, 2)`` float32 re/im
     (default zeros); :attr:`weights` is read at every chunk, so assigning
-    it between chunks re-points the beams.
+    it between chunks re-points the beams.  ``fused``: the F-engine path
+    (:func:`dc_sand_tpu_torch.models.fengine.f_engine`); False is the
+    counterpart of the JAX runner's ``impl="pallas"``.
     """
 
     def __init__(self, cfg: ChainConfig, window: np.ndarray,
                  delay_model: Optional[DelayModel] = None,
                  gains: Optional[np.ndarray] = None,
-                 weights: Optional[np.ndarray] = None, *, device):
+                 weights: Optional[np.ndarray] = None, *, device,
+                 fused: bool = True):
         self.cfg = cfg
         self.mode = mode_for(cfg)
         self.device = torch.device(device)
@@ -81,7 +87,8 @@ class FXRunner:
             raise ValueError(
                 f"n_spectra_per_acc={cfg.n_spectra_per_acc} overflows the "
                 f"int32 visibility accumulator (max {MAX_SPECTRA_PER_ACC})")
-        self._step = make_step(cfg, window, device=self.device)
+        self._step = make_step(cfg, window, device=self.device,
+                               fused=fused)
         a, p, k = cfg.n_ants, cfg.n_pols, cfg.n_chans
         self.gains = torch.as_tensor(
             gains if gains is not None
@@ -125,8 +132,9 @@ class FXRunner:
         fx mode only).
 
         ``on_output(chunk_idx, outputs)`` receives each chunk's outputs
-        (beam mode: ``"beams"`` and ``"incoherent"``) as tensors ON THE
-        RUNNER'S DEVICE; the consumer copies what it needs.  The JAX
+        (fengine mode: ``"spectra"``; beam mode: ``"beams"`` and
+        ``"incoherent"``) as tensors ON THE RUNNER'S DEVICE; the consumer
+        copies what it needs.  The JAX
         runner hands over numpy arrays, but here that copy would set the
         pace: beam64 makes 268 MB of float32 beams per 256-spectra chunk,
         about 120 ms through pageable memory at the 2.2 GB/s measured for

@@ -1,12 +1,12 @@
-"""End-to-end verification of the fx and beam configs against the golden
-chain.
+"""End-to-end verification of the five configs against the golden chain.
 
 PyTorch counterpart of :func:`dc_sand_tpu.verify.verify_config` on one
 device: the config runs through this package's streaming runner and its
-outputs (fx: the dumps; beam: the beams and the incoherent beam) are
-graded against the float64 golden chain at the contract bound of >50 dB
-SNR.  The golden oracle helpers are copies of the JAX package's
-(``verify.py`` there imports jax); a CPU test holds them equal.
+outputs (fengine: the spectra; fx: the dumps; beam: the beams and the
+incoherent beam) are graded against the float64 golden chain at the
+contract bound of >50 dB SNR.  The golden oracle helpers are copies of
+the JAX package's (``verify.py`` there imports jax); a CPU test holds
+them equal.
 """
 
 from __future__ import annotations
@@ -15,13 +15,14 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from dc_sand_tpu import golden
-from dc_sand_tpu.config import get_config, scaled_for_test
-from dc_sand_tpu.windows import pfb_window
+from dc_sand_tpu_torch import golden
+from dc_sand_tpu_torch.config import get_config, scaled_for_test
 from dc_sand_tpu_torch.models.pipeline import mode_for
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
+from dc_sand_tpu_torch.utils.cplx import np_ri2c
 from dc_sand_tpu_torch.utils.snr import snr_db
+from dc_sand_tpu_torch.windows import pfb_window
 
 SNR_BOUND = 50.0
 
@@ -69,24 +70,24 @@ def _golden_spectra(cfg, stream, dm, gains, n_chunks, window):
 def verify_config(name: str, *, device, n_chunks: int = 4,
                   scale: Optional[int] = None, seed: int = 0,
                   spectra_per_chunk: Optional[int] = 16,
-                  n_spectra_per_acc: Optional[int] = 32):
-    """Run fx or beam config ``name`` end-to-end on ``device``; returns
-    ``(snrs, counters)`` — per-output SNRs in dB vs golden (fx:
-    ``{"visibilities": min over dumps}``; beam: ``{"beams": ...,
-    "incoherent": ...}`` over all chunks) and the runner's counters.
+                  n_spectra_per_acc: Optional[int] = 32,
+                  fused: bool = True):
+    """Run config ``name`` end-to-end on ``device``; returns ``(snrs,
+    counters)`` — per-output SNRs in dB vs golden (fengine: ``{"spectra":
+    ...}``; fx: ``{"visibilities": min over dumps}``; beam: ``{"beams":
+    ..., "incoherent": ...}``, each over all chunks) and the runner's
+    counters.
 
     ``scale``: optionally reduce n_chans; None = full size.
     ``spectra_per_chunk`` / ``n_spectra_per_acc``: clamp the streaming
     cadence (defaults); None runs the config's own cadence.  Every
-    baseline and every beam is graded.  The stream, delay model, gains
-    and beam weights come from ``seed`` exactly as the JAX verify draws
-    them.
+    spectrum, baseline and beam is graded.  The stream (``pfb1k``: a CW
+    tone, its contract input), delay model, gains and beam weights come
+    from ``seed`` exactly as the JAX verify draws them.  ``fused``: the
+    F-engine path (False is the JAX verify's ``impl="pallas"``).
     """
     cfg = get_config(name)
     mode = mode_for(cfg)
-    if mode == "fengine":
-        raise NotImplementedError(f"fengine configs are not ported, not "
-                                  f"{name!r}")
     if scale is not None:
         cfg = scaled_for_test(cfg, n_chans=scale)
     if spectra_per_chunk is not None:
@@ -112,8 +113,16 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
         dm.p1 = rng.uniform(-1e-6, 1e-6, (a, p))
     else:
         dm = DelayModel.zeros(a, p)
-    stream = golden.gaussian_noise_int8(
-        (a, p, n_chunks * cfg.chunk_samples), 20.0, seed)
+    if name == "pfb1k":
+        k0 = k // 3
+        tone = golden.cw_tone(n_chunks * cfg.chunk_samples,
+                              k0 * cfg.sample_rate_hz / cfg.fft_size,
+                              cfg.sample_rate_hz, amplitude=90.0)
+        stream = golden.quantize_adc(
+            np.broadcast_to(tone, (a, p) + tone.shape))
+    else:
+        stream = golden.gaussian_noise_int8(
+            (a, p, n_chunks * cfg.chunk_samples), 20.0, seed)
     gains = np.full(k, 0.05) + 0j
     gains_ri = np.stack([gains.real, gains.imag], -1).astype(np.float32)
     weights = None
@@ -121,7 +130,7 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
         weights = rng.normal(size=(cfg.n_beams, a, k, 2)).astype(np.float32)
 
     runner = FXRunner(cfg, window, delay_model=dm, gains=gains_ri,
-                      weights=weights, device=device)
+                      weights=weights, device=device, fused=fused)
     outputs = []
     dumps, counters = runner.run(
         lambda i: stream[..., i * cfg.chunk_samples:
@@ -131,6 +140,10 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
 
     spec_g = _golden_spectra(cfg, stream, dm, gains, n_chunks, window)
     snrs: Dict[str, float] = {}
+    if mode == "fengine":
+        got = np.concatenate([o["spectra"] for o in outputs], axis=2)
+        snrs["spectra"] = snr_db(spec_g, np_ri2c(got))
+        return snrs, counters
     if mode == "fx":
         bpa = cfg.n_spectra_per_acc
         vals = [snr_db(golden.xcorr(spec_g[:, :, i * bpa:(i + 1) * bpa]),

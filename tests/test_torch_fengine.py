@@ -12,7 +12,7 @@ from dc_sand_tpu.models.fengine import f_engine as jx_f_engine
 from dc_sand_tpu.windows import pfb_window
 from dc_sand_tpu_torch.models.fengine import f_engine
 from dc_sand_tpu_torch.models.pipeline import make_step, history_shape
-from dc_sand_tpu_torch.ops.fengine_fused import taps_pad_for
+from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.utils import np_c2ri, np_ri2c, snr_db
 from dc_sand_tpu.config import ChainConfig
 

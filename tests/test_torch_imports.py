@@ -1,4 +1,5 @@
-"""The port stands without jax, and its kernels' wrappers never fall back.
+"""The port stands without jax and without the JAX package, and its
+kernels' wrappers never fall back.
 
 Tests marked ``cuda`` hold each CUDA kernel to its plain version on the
 card; on a machine without one they skip (``python3 chip_smoke.py``
@@ -12,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from dc_sand_tpu.windows import pfb_window
+from dc_sand_tpu_torch.windows import pfb_window
 from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 from dc_sand_tpu_torch.ops.beamform import beamform
-from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused, taps_pad_for
+from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+from dc_sand_tpu_torch.ops.pfb import pfb_fir, taps_pad_for
 from dc_sand_tpu_torch.ops.xcorr import xcorr_accumulate_a2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -23,6 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NO_JAX_IMPORT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any "import jax..." now fails
+sys.modules["dc_sand_tpu"] = None  # and any import of the JAX package
 sys.path.insert(0, sys.argv[1])
 import dc_sand_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dc_sand_tpu_torch.__path__,
@@ -39,7 +42,7 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 17
+    assert int(res.stdout.split()[-1]) >= 28
 
 
 def test_cuda_impl_on_cpu_tensors_raises():
@@ -60,6 +63,10 @@ def test_cuda_impl_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA"):
         beamform(torch.zeros((3, 2, 4, 8, 2), dtype=torch.int8),
                  torch.zeros((2, 3, 8, 2)), incoherent=True, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        pfb_fir(x, pfb_window(4, 64), 4, 64, history=h, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        fengine_fused(x, pfb_window(4, 64), 4, 32, history=h, impl="cuda")
 
 
 @pytest.fixture
@@ -96,6 +103,54 @@ def test_fengine_kernel_matches_plain(cuda, taps, nch, b):
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,nch,b", [(4, 64, 16), (16, 1024, 24)])
+def test_fengine_float_kernel_matches_plain(cuda, taps, nch, b):
+    """K1's float-output variant (no gains) vs the plain version, with and
+    without the phasor, split I/O and one stream: >= 100 dB apart (both
+    float32, the FFTs summed in different orders)."""
+    from dc_sand_tpu_torch.utils import snr_db
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(taps + nch)
+    s, m = 5, 2 * nch
+    hist = _noise(gen, (s, taps_pad_for(taps), m), cuda)
+    chunk = _noise(gen, (s, b, m), cuda)
+    stream = _noise(gen, (s, (b + taps - 1) * m), cuda)
+    fd = torch.rand((s, b), generator=gen, device=cuda) - 0.5
+    ph = (torch.rand((s, b), generator=gen, device=cuda) - 0.5) * 6
+    w = torch.as_tensor(pfb_window(taps, m), dtype=torch.float32,
+                        device=cuda)
+    for x, kw in ((chunk, dict(history=hist, frac_delay=fd, phase=ph)),
+                  (chunk, dict(history=hist)), (stream, {})):
+        got = fengine_fused(x, w, taps, nch, impl="cuda", **kw)
+        want = fengine_fused(x, w, taps, nch, impl="torch", **kw)
+        assert got.dtype == torch.float32 and got.shape == (s, b, nch, 2)
+        g, r = got.double().cpu().numpy(), want.double().cpu().numpy()
+        assert snr_db(r[..., 0] + 1j * r[..., 1],
+                      g[..., 0] + 1j * g[..., 1]) >= 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,m,b", [(16, 8192, 33), (16, 100, 21),
+                                      (5, 64, 7), (1, 3, 1)])
+def test_pfb_kernel_bitwise_equals_plain(cuda, taps, m, b):
+    """K6 vs the plain version, split I/O and one stream, at odd B and M
+    (M not a multiple of 4 takes the kernel's byte path): bitwise."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(taps * m + b)
+    s = 3
+    hist = _noise(gen, (2, s, taps_pad_for(taps), m), cuda)
+    chunk = _noise(gen, (2, s, b, m), cuda)
+    stream = _noise(gen, (s, (b + taps - 1) * m), cuda)
+    w = torch.as_tensor(pfb_window(taps, m, "hann"), dtype=torch.float32,
+                        device=cuda)
+    for x, h in ((chunk, hist), (stream, None)):
+        got = pfb_fir(x, w, taps, m, history=h, impl="cuda")
+        want = pfb_fir(x, w, taps, m, history=h, impl="torch")
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -146,10 +201,10 @@ def test_beam_kernel_matches_plain(cuda, a, p, b, k, nb, qs):
 
 @pytest.mark.cuda
 def test_beam_runner_on_card_matches_cpu(cuda):
-    from dc_sand_tpu.config import get_config, scaled_for_test
+    from dc_sand_tpu_torch import golden
+    from dc_sand_tpu_torch.config import get_config, scaled_for_test
     from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
     from dc_sand_tpu_torch.utils import snr_db
-    from dc_sand_tpu import golden
     cfg = scaled_for_test(get_config("beam64"), n_chans=256,
                           spectra_per_chunk=16)
     stream = golden.gaussian_noise_int8(
@@ -178,10 +233,10 @@ def test_beam_runner_on_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_runner_on_card_matches_cpu(cuda):
-    from dc_sand_tpu.config import get_config, scaled_for_test
+    from dc_sand_tpu_torch import golden
+    from dc_sand_tpu_torch.config import get_config, scaled_for_test
     from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
     from dc_sand_tpu_torch.utils import snr_db
-    from dc_sand_tpu import golden
     cfg = scaled_for_test(get_config("fx4"), n_chans=256,
                           spectra_per_chunk=16).replace(n_spectra_per_acc=32)
     stream = golden.gaussian_noise_int8(

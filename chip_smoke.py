@@ -5,7 +5,7 @@ Run from the repository root with ``python3 chip_smoke.py`` (no
 arguments, one card).  It imports no jax.  Phases, each of which fails
 the run (non-zero exit) when it fails:
 
-1. build the four CUDA kernels from ``dc_sand_tpu_torch/csrc``, one
+1. build the five CUDA kernel sources from ``dc_sand_tpu_torch/csrc``, one
    nvcc per source, all started together;
 2. F-engine kernel (K1) vs its plain version at the fx64 chunk shape
    (128 streams x 2048 spectra x 8192 samples): every difference a
@@ -58,6 +58,30 @@ the run (non-zero exit) when it fails:
     1-LSB boundary flips).  It prints the device step, ``run()`` per chunk
     and the peak device memory.
 
+Phases 14-18 run on a device mesh, shard i on ``cuda:(i mod the card
+count)``: every shard on the one card, or spread over several cards, with
+the same checks:
+
+14. peer-copy all-to-all (K7b) vs its plain version at the fx64
+    corner-turn shape, 4 shards of int8 (4096, 16, 2, 2048, 2): bitwise
+    equal; ``library_ms`` is ``Tensor.copy_`` of the same 16 blocks;
+15. peer-copy ring step (K7a) vs its plain version on a 4-shard ring of
+    int8 (64, 16, 8192), the SP halo at fx64, and on a 2-shard ring:
+    bitwise equal; ``library_ms`` is ``Tensor.copy_`` of the same blocks;
+    it also times one launch that moves the 4-shard ring's bytes (a
+    one-shard ring of the four blocks stacked), against the ring's four
+    launches;
+16. fx64 on a 4-way fx mesh at production cadence, phase 6's chunks and
+    delay model: the dump bitwise equal to phase 6's; launch counters K1
+    16, CMAC 16, all-to-all 16, all others 0; it prints the device step,
+    ``run()`` per chunk and the peak device memory;
+17. fx64 in SP mode on a (time 2, fx 2) mesh, the same chunks: the dump
+    bitwise equal to phase 6's; K1 16, CMAC 16, all-to-all 16, ring 16;
+18. beam64 on a 4-way fx mesh, replicated and beam-parallel, phase 9's
+    chunks and weights: beams and incoherent beam >= 100 dB from phase
+    9's (float sums in another order), the beam-parallel beams equal to
+    the replicated ones; K1 32 and the beam kernel 32 in each run.
+
 Each kernel's time is a CUDA-event mean over back-to-back launches;
 ``bound_ms`` is the least time the card could take for the same work,
 the larger of the bytes it must move (each input read once, each output
@@ -69,8 +93,8 @@ yardstick and never called by the port.
 
 The second-to-last line is ``{"kernels": [...]}``: launches from the
 main-path phases (6 for K1 and the CMAC, 9 for the beam kernel, 12's
-fused pfb1k for K1-float, 13 for K6), times from phases 2, 3, 7, 10 and
-11; the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
+fused pfb1k for K1-float, 13 for K6, 16 and 17 together for the ring and
+the all-to-all), times from phases 2, 3, 7, 10, 11, 14 and 15; the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present.
 """
 
@@ -89,6 +113,8 @@ PLAIN_BLOCK_STREAMS = 16   # bounds the plain F-engine's float32 copies
 MAX_FLIP_FRACTION = 1e-4   # measured on the H100: about 1e-5
 FLIP_BOUNDARY_TOL = 1e-3   # a flip's float64 pre-round value to a .5
 BEAMS, BEAM_SPECTRA = 16, 256
+BEAM_SEED = 9              # the chunks of phases 9 and 18
+SHARDS = 4                 # the mesh of phases 14-18
 BEAM_SNR_DB = 100.0        # two float32 beamformers, summed in other orders
 BEAM_QUANT_RMS = 30.0      # rms of y*s in LSB for the int8 epilogue check
 BENCH_STREAMS, BENCH_SPECTRA, BENCH_CHANS = 16, 512, 1024
@@ -163,6 +189,10 @@ def main() -> int:
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
     from dc_sand_tpu_torch.ops.pfb import pfb_fir, taps_pad_for
     from dc_sand_tpu_torch.ops.xcorr import wire_to_a2, xcorr_accumulate_a2
+    from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
+                                            all_to_all_torch, build_mesh,
+                                            ring_permute_right,
+                                            ring_permute_right_torch)
     from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, noise_int8,
                                                 production_runner)
     from dc_sand_tpu_torch.utils.snr import snr_db
@@ -172,7 +202,8 @@ def main() -> int:
     def zero_counts():
         fengine_fused.launches = fengine_fused.float_launches = 0
         pfb_fir.launches = xcorr_accumulate_a2.launches = 0
-        beamform.launches = 0
+        beamform.launches = all_to_all.launches = 0
+        ring_permute_right.launches = 0
 
     def counts(**want):
         """The launch counters, checked against ``want`` (every counter
@@ -180,7 +211,9 @@ def main() -> int:
         got = {"fengine": fengine_fused.launches,
                "fengine_float": fengine_fused.float_launches,
                "pfb": pfb_fir.launches, "cmac": xcorr_accumulate_a2.launches,
-               "beamform": beamform.launches}
+               "beamform": beamform.launches,
+               "all_to_all": all_to_all.launches,
+               "ring": ring_permute_right.launches}
         if got != {k: want.get(k, 0) for k in got}:
             raise RuntimeError(f"launch counts {got}, want {want} and 0 "
                                "for the others")
@@ -365,10 +398,10 @@ def main() -> int:
     # kernel, history carry), CUDA events over back-to-back steps
     frames = chunks[0].reshape(a * p, cfg.spectra_per_chunk, cfg.fft_size)
     zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
+    args = runner._step_args(frames, zeros, zeros)
     dev_step_ms = _events_ms(
-        torch, lambda: runner._step(runner.history, runner.vis_acc, frames,
-                                    zeros, zeros, runner.gains,
-                                    runner.weights, False), 4)
+        torch, lambda: runner._step(runner.history, runner.vis_acc,
+                                    *args, False), 4)
     samples = a * p * cfg.chunk_samples
     print(f"[6 fx64 production] {n_chunks} chunks -> 1 dump of "
           f"{dumps[0].n_spectra} spectra; launches {launches}; first run "
@@ -378,7 +411,7 @@ def main() -> int:
           f"excluded); device step {dev_step_ms:.3f} ms = "
           f"{samples / dev_step_ms / 1e6:.2f} Gsamp/s ({card})", flush=True)
     vis_fused = vis               # held for phase 13
-    del runner, chunks, frames, zeros, dumps, vis
+    del runner, chunks, frames, zeros, args, dumps, vis
     torch.cuda.empty_cache()
 
     # ---- 7. beam kernel vs plain at the beam64 shape ----------------------
@@ -436,6 +469,7 @@ def main() -> int:
 
     # ---- 9. beam64 at its own cadence -------------------------------------
     cfg = get_config("beam64")
+    gen.manual_seed(BEAM_SEED)
     runner, chunks = production_runner(cfg, gen, dev)
     n_chunks = len(chunks)
     outs = []
@@ -465,10 +499,10 @@ def main() -> int:
     beam_run_ms = (time.perf_counter() - t) / n_chunks * 1e3
     frames = chunks[0].reshape(FX64_STREAMS, b, FX64_M)
     zeros = torch.zeros((FX64_STREAMS, b), device=dev)
+    args = runner._step_args(frames, zeros, zeros)
     beam_step_ms = _events_ms(
-        torch, lambda: runner._step(runner.history, runner.vis_acc, frames,
-                                    zeros, zeros, runner.gains,
-                                    runner.weights, False), 8)
+        torch, lambda: runner._step(runner.history, runner.vis_acc,
+                                    *args, False), 8)
     d2h_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -488,7 +522,8 @@ def main() -> int:
           + ", ".join(f"{x:.3f}" for x in d2h_ms) + f" ms ({card})",
           flush=True)
 
-    del runner, chunks, outs, frames, zeros
+    beam_ref = outs                 # held on the card for phase 18
+    del runner, chunks, frames, zeros, args
     torch.cuda.empty_cache()
 
     # ---- 10. PFB-FIR kernel (K6) vs plain at the fx64 chunk shape ---------
@@ -629,10 +664,10 @@ def main() -> int:
     step_ms = (time.perf_counter() - t) / n_chunks * 1e3
     frames = chunks[0].reshape(a * p, cfg.spectra_per_chunk, cfg.fft_size)
     zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
+    args = runner._step_args(frames, zeros, zeros)
     dev_step_ms = _events_ms(
-        torch, lambda: runner._step(runner.history, runner.vis_acc, frames,
-                                    zeros, zeros, runner.gains,
-                                    runner.weights, False), 4)
+        torch, lambda: runner._step(runner.history, runner.vis_acc,
+                                    *args, False), 4)
     samples = a * p * cfg.chunk_samples
     print(f"[13 fx64 unfused] {n_chunks} chunks -> 1 dump, {vis_snr:.2f} dB "
           f"from phase 6's fused dump; launches {unfused_launches}; first "
@@ -644,6 +679,173 @@ def main() -> int:
     if not vis_snr >= UNFUSED_SNR_DB:
         raise RuntimeError(f"unfused fx64 dump {vis_snr:.2f} dB from the "
                            f"fused one, want >= {UNFUSED_SNR_DB}")
+
+    del runner, chunks, dumps, frames, zeros, args
+    torch.cuda.empty_cache()
+
+    # ---- 14. peer-copy all-to-all (K7b) vs plain at the fx64 corner-turn --
+    n_cards = torch.cuda.device_count()
+    shard_devs = [torch.device("cuda", i % n_cards) for i in range(SHARDS)]
+    fx_mesh = build_mesh(shard_devs)
+    ct_shape = (nch, FX64_STREAMS // 2 // SHARDS, 2, FX64_SPECTRA, 2)
+    xs = [torch.randint(-127, 128, ct_shape, generator=gen, device=dev,
+                        dtype=torch.int8).to(d) for d in shard_devs]
+    got = all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda")
+    want = all_to_all_torch(xs, fx_mesh, FX_AXIS)
+    if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+        raise RuntimeError("all-to-all kernel != plain version")
+    del got, want
+    a2a_ms = _events_ms(
+        torch, lambda: all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda"), 5)
+    a2a_plain_ms = _events_ms(
+        torch, lambda: all_to_all_torch(xs, fx_mesh, FX_AXIS), 3)
+    rows = nch // SHARDS
+    outs_lib = [torch.empty_like(x) for x in xs]
+
+    def copy_blocks(blocks):
+        for dst, src, d_rows, s_rows in blocks:
+            dst[d_rows].copy_(src[s_rows])
+
+    a2a_blocks = [(outs_lib[j], xs[s], slice(s * rows, (s + 1) * rows),
+                   slice(j * rows, (j + 1) * rows))
+                  for j in range(SHARDS) for s in range(SHARDS)]
+    a2a_lib_ms = _events_ms(torch, lambda: copy_blocks(a2a_blocks), 5)
+    a2a_bound = _bound(2 * _nbytes(*xs), 0, INT8_OPS)
+    print(f"[14 all_to_all] bitwise equal to plain, {SHARDS} shards of int8 "
+          f"{ct_shape} on {[str(d) for d in shard_devs]}; kernel "
+          f"{a2a_ms:.3f} ms ({_nbytes(*xs) / a2a_ms / 1e6:.1f} GB/s of "
+          f"payload), "
+          f"plain {a2a_plain_ms:.3f} ms, copy_ of the {SHARDS * SHARDS} "
+          f"blocks {a2a_lib_ms:.3f} ms, bound {a2a_bound[0]:.3f} ms "
+          f"({a2a_bound[1]}) ({card})", flush=True)
+    del xs, outs_lib, a2a_blocks
+    torch.cuda.empty_cache()
+
+    # ---- 15. peer-copy ring step (K7a) vs plain ---------------------------
+    halo_shape = (FX64_STREAMS // 2, taps_pad_for(TAPS), FX64_M)
+    for n in (SHARDS, 2):
+        ring_mesh = build_mesh(shard_devs[:n], time_shards=n)
+        xs = [torch.randint(-127, 128, halo_shape, generator=gen, device=dev,
+                            dtype=torch.int8).to(d) for d in shard_devs[:n]]
+        got = ring_permute_right(xs, ring_mesh, TIME_AXIS, impl="cuda")
+        want = ring_permute_right_torch(xs, ring_mesh, TIME_AXIS)
+        if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+            raise RuntimeError(f"ring kernel != plain version ({n} shards)")
+        ms = _events_ms(torch, lambda: ring_permute_right(
+            xs, ring_mesh, TIME_AXIS, impl="cuda"), 20)
+        plain = _events_ms(torch, lambda: ring_permute_right_torch(
+            xs, ring_mesh, TIME_AXIS), 20)
+        outs_lib = [torch.empty_like(x) for x in xs]
+        blocks = [(outs_lib[(i + 1) % n], xs[i], slice(None), slice(None))
+                  for i in range(n)]
+        lib = _events_ms(torch, lambda: copy_blocks(blocks), 20)
+        bound = _bound(2 * _nbytes(*xs), 0, INT8_OPS)
+        print(f"[15 ring] bitwise equal to plain, {n}-shard ring of int8 "
+              f"{halo_shape}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"copy_ of the {n} blocks {lib:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}) ({card})", flush=True)
+        if n == SHARDS:
+            ring_ms, ring_plain_ms, ring_lib_ms, ring_bound = (ms, plain, lib,
+                                                               bound)
+        del xs, got, want, outs_lib, blocks
+    # the same bytes as the 4-shard ring in ONE launch: a one-shard ring of
+    # the four blocks stacked, which the kernel copies onto its own shard
+    one_mesh = build_mesh(shard_devs[:1])
+    whole = [noise_int8(gen, (SHARDS * halo_shape[0],) + halo_shape[1:],
+                        shard_devs[0])]
+    one_ms = _events_ms(torch, lambda: ring_permute_right(
+        whole, one_mesh, TIME_AXIS, impl="cuda"), 20)
+    print(f"[15 ring] one launch moving the {SHARDS}-shard ring's "
+          f"{_nbytes(*whole) / 1e6:.1f} MB: {one_ms:.4f} ms, against "
+          f"{ring_ms:.4f} ms in {SHARDS} launches ({card})", flush=True)
+    del whole
+
+    # ---- 16./17. fx64 on a 4-way fx mesh and on a (2, 2) SP mesh ----------
+    mesh_launches = {}
+    for phase, time_shards in ((16, 1), (17, 2)):
+        cfg = get_config("fx64").replace(time_shards=time_shards)
+        mesh = build_mesh(shard_devs, time_shards=time_shards)
+        gen.manual_seed(FX64_SEED)
+        runner, chunks = production_runner(cfg, gen, shard_devs[0],
+                                           mesh=mesh)
+        n_chunks = len(chunks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t = time.perf_counter()
+        dumps, _ = runner.run(lambda i: chunks[i % n_chunks], n_chunks)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        n_sh = n_chunks * SHARDS
+        got_counts = counts(fengine=n_sh, cmac=n_sh, all_to_all=n_sh,
+                            ring=n_sh if time_shards > 1 else 0)
+        mesh_launches[phase] = got_counts
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if len(dumps) != 1 or not np.array_equal(dumps[0].vis, vis_fused):
+            raise RuntimeError(f"phase {phase}: the sharded fx64 dump is not "
+                               "bitwise equal to phase 6's")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner.run(lambda i: chunks[i % n_chunks], n_chunks)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) / n_chunks * 1e3
+        frames = chunks[0].reshape(a * p, cfg.spectra_per_chunk, cfg.fft_size)
+        zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
+        args = runner._step_args(frames, zeros, zeros)
+        dev_step_ms = _events_ms(
+            torch, lambda: runner._step(runner.history, runner.vis_acc,
+                                        *args, False), 4)
+        samples = a * p * cfg.chunk_samples
+        print(f"[{phase} fx64 mesh time {time_shards} x fx "
+              f"{SHARDS // time_shards}] {n_chunks} chunks -> 1 dump bitwise "
+              f"equal to phase 6's; launches {got_counts}; first run "
+              f"{first_s:.2f} s; steady run() per chunk {step_ms:.3f} ms = "
+              f"{samples / step_ms / 1e6:.2f} Gsamp/s (device-resident "
+              f"chunks); device step {dev_step_ms:.3f} ms = "
+              f"{samples / dev_step_ms / 1e6:.2f} Gsamp/s; peak device memory "
+              f"{peak_gb:.2f} GB on {shard_devs[0]} ({card})", flush=True)
+        del runner, chunks, dumps, frames, zeros, args
+        torch.cuda.empty_cache()
+
+    # ---- 18. beam64 on a 4-way fx mesh, replicated and beam-parallel ------
+    beam_outs = {}
+    for ep in (False, True):
+        cfg = get_config("beam64").replace(beam_parallel=ep)
+        gen.manual_seed(BEAM_SEED)
+        runner, chunks = production_runner(cfg, gen, shard_devs[0],
+                                           mesh=fx_mesh)
+        n_chunks = len(chunks)
+        outs = []
+        torch.cuda.synchronize()
+        zero_counts()
+        t = time.perf_counter()
+        runner.run(lambda i: chunks[i % n_chunks], n_chunks,
+                   on_output=lambda i, o: outs.append(o))
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t) / n_chunks * 1e3
+        n_sh = n_chunks * SHARDS
+        got_counts = counts(fengine=n_sh, beamform=n_sh)
+        beam_outs[ep] = outs
+        snr_b = min(_snr_db(r["beams"], o["beams"])
+                    for r, o in zip(beam_ref, outs))
+        snr_i = min(_snr_db(r["incoherent"], o["incoherent"])
+                    for r, o in zip(beam_ref, outs))
+        print(f"[18 beam64 mesh fx {SHARDS}{' beam-parallel' if ep else ''}] "
+              f"{n_chunks} chunks; beams {snr_b:.2f} dB, incoherent "
+              f"{snr_i:.2f} dB from phase 9's; launches {got_counts}; run() "
+              f"per chunk {run_ms:.3f} ms, first run, outputs left on the "
+              f"card ({card})", flush=True)
+        if not (snr_b >= BEAM_SNR_DB and snr_i >= BEAM_SNR_DB):
+            raise RuntimeError("sharded beam64 disagrees with phase 9")
+        del runner, chunks
+    if not all(torch.equal(r["beams"], e["beams"])
+               for r, e in zip(beam_outs[False], beam_outs[True])):
+        raise RuntimeError("beam-parallel beams != the replicated beams")
+    print(f"[18 beam64 mesh] each fx shard's {BEAMS // SHARDS} beam-parallel "
+          f"beams equal its slice of the replicated beams, bitwise",
+          flush=True)
+    del beam_outs, beam_ref, outs
+    torch.cuda.empty_cache()
 
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:
@@ -675,6 +877,13 @@ def main() -> int:
               "dc_sand_tpu/ops/fengine_fused.py:335",
               fengine_launches[("pfb1k", True)]["fengine_float"], float_err,
               float_ms, float_plain_ms, float_bound, None),
+        entry("ring", "remote_dma.cu", "dc_sand_tpu/parallel/remote_dma.py:51",
+              sum(c["ring"] for c in mesh_launches.values()), 0,
+              ring_ms, ring_plain_ms, ring_bound, ring_lib_ms),
+        entry("all_to_all", "remote_dma.cu",
+              "dc_sand_tpu/parallel/remote_dma.py:85",
+              sum(c["all_to_all"] for c in mesh_launches.values()), 0,
+              a2a_ms, a2a_plain_ms, a2a_bound, a2a_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

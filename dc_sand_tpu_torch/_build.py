@@ -25,7 +25,8 @@ import subprocess
 import types
 from pathlib import Path
 
-__all__ = ["library", "build_log", "check", "build_dir", "NVCC_FLAGS"]
+__all__ = ["library", "build_log", "check", "build_dir", "NVCC_FLAGS",
+           "Peers", "MAX_PEERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,8 +35,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+
+MAX_PEERS = 16   # csrc/remote_dma.cu: DCS_MAX_PEERS
+
+
+class Peers(ctypes.Structure):
+    """``DcsPeers`` of ``csrc/remote_dma.cu``: the destination base
+    pointers of one peer-copy launch, passed by value."""
+    _fields_ = [("dst", ctypes.c_void_p * MAX_PEERS)]
+
+
 # source stem -> its C entry points -> argument types (pointers and the
-# stream as c_void_p)
+# stream as c_void_p, byte counts as c_longlong)
 _SIGNATURES = {
     "fengine": {"dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P]},
@@ -43,6 +55,9 @@ _SIGNATURES = {
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},
     "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "remote_dma": {"dcs_all_to_all": [_P, Peers, _I, _I, _L, _P],
+                   "dcs_ring": [_P, Peers, _L, _P],
+                   "dcs_enable_peer": [_I]},
 }
 
 

@@ -95,7 +95,8 @@ class ChainConfig:
     # no stage 2 and ignores it.
     stage2: str = None
 
-    # Sharding intent (the sharded modes are not ported yet).
+    # Sharding intent only: a mesh given to make_step or FXRunner does
+    # the sharding.
     shard_ants: bool = False
     shard_chans: bool = False
     # Sequence-parallel streaming: >1 shards the sample stream over a

@@ -26,7 +26,8 @@ import torch
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 
-__all__ = ["beamform", "beamform_torch", "incoherent_sum_torch"]
+__all__ = ["beamform", "beamform_torch", "incoherent_sum_torch",
+           "quantize_beams"]
 
 
 def _split_ri(x: torch.Tensor):
@@ -46,6 +47,13 @@ def beamform_torch(q: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
     return torch.stack([mm(wr, xr) - mm(wi, xi), mm(wr, xi) + mm(wi, xr)],
                        dim=-1)
+
+
+def quantize_beams(y: torch.Tensor, quant_scale: float) -> torch.Tensor:
+    """The int8 beam product ``clip(rint(y * quant_scale), -127, 127)`` of
+    float beams (round half to even)."""
+    return torch.clamp(torch.round(y * quant_scale), -127, 127).to(
+        torch.int8)
 
 
 def incoherent_sum_torch(q: torch.Tensor) -> torch.Tensor:
@@ -85,8 +93,7 @@ def beamform(q: torch.Tensor, weights: torch.Tensor, *,
     if resolve_impl(impl, q) == "torch":
         y = beamform_torch(q, weights)
         if quant_scale:
-            y = torch.clamp(torch.round(y * quant_scale), -127, 127).to(
-                torch.int8)
+            y = quantize_beams(y, quant_scale)
         return y, (incoherent_sum_torch(q) if incoherent else None)
     dev = q.device
     if q.dtype != torch.int8 or not q.is_contiguous() or q.data_ptr() % 2:
@@ -103,10 +110,12 @@ def beamform(q: torch.Tensor, weights: torch.Tensor, *,
                         device=dev)
     inc = (torch.empty((n_pols, n_b, n_k), dtype=torch.float32, device=dev)
            if incoherent else None)
-    err = _build.library().dcs_beamform(
-        q.data_ptr(), weights.data_ptr(), beams.data_ptr(),
-        None if inc is None else inc.data_ptr(), n_ants, n_pols, n_b, n_k,
-        n_beams, float(quant_scale), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # a launch needs its stream's device
+        err = _build.library().dcs_beamform(
+            q.data_ptr(), weights.data_ptr(), beams.data_ptr(),
+            None if inc is None else inc.data_ptr(), n_ants, n_pols, n_b,
+            n_k, n_beams, float(quant_scale),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dcs_beamform")
     beamform.launches += 1
     return beams, inc

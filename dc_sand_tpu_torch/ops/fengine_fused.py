@@ -103,14 +103,16 @@ def fengine_fused(x: torch.Tensor, window, taps: int, n_chans: int, *,
         ph = _per_spectrum(0.0 if phase is None else phase, lead, b_out, dev)
     out = torch.empty((s, b_out, n_chans, 2), device=dev,
                       dtype=torch.float32 if g is None else torch.int8)
-    err = _build.library().dcs_fengine(
-        fa.data_ptr(), (fb if fb is not None else fa).data_ptr(),
-        w.data_ptr(), _twiddles(m, dev).data_ptr(),
-        None if fd is None else fd.data_ptr(),
-        None if ph is None else ph.data_ptr(),
-        None if g is None else g.data_ptr(), out.data_ptr(), s, fa.shape[1],
-        0 if fb is None else fb.shape[1], b_out, m, taps, pad0,
-        -(2.0 * math.pi / m), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # a launch needs its stream's device
+        err = _build.library().dcs_fengine(
+            fa.data_ptr(), (fb if fb is not None else fa).data_ptr(),
+            w.data_ptr(), _twiddles(m, dev).data_ptr(),
+            None if fd is None else fd.data_ptr(),
+            None if ph is None else ph.data_ptr(),
+            None if g is None else g.data_ptr(), out.data_ptr(), s,
+            fa.shape[1], 0 if fb is None else fb.shape[1], b_out, m, taps,
+            pad0,
+            -(2.0 * math.pi / m), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dcs_fengine")
     if g is None:
         fengine_fused.float_launches += 1

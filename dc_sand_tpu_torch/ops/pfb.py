@@ -106,11 +106,12 @@ def pfb_fir(x: torch.Tensor, window, taps: int, fft_size: int, *,
     vec = int(m % 4 == 0 and all(t.data_ptr() % 4 == 0 for t in (fa, fb)
                                  if t is not None)
               and w.data_ptr() % 16 == 0)
-    err = _build.library().dcs_pfb(
-        fa.data_ptr(), (fb if fb is not None else fa).data_ptr(),
-        w.data_ptr(), out.data_ptr(), s, fa.shape[1],
-        0 if fb is None else fb.shape[1], b_out, m, taps, pad0, vec,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # a launch needs its stream's device
+        err = _build.library().dcs_pfb(
+            fa.data_ptr(), (fb if fb is not None else fa).data_ptr(),
+            w.data_ptr(), out.data_ptr(), s, fa.shape[1],
+            0 if fb is None else fb.shape[1], b_out, m, taps, pad0, vec,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dcs_pfb")
     pfb_fir.launches += 1
     return out.reshape(tuple(lead) + (b_out, m))

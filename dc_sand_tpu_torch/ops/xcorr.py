@@ -158,9 +158,10 @@ def xcorr_accumulate_a2(acc: torch.Tensor, a2: torch.Tensor, keep: int = 1,
     if not 1 <= n_chans <= 65535:
         raise ValueError(f"the CMAC kernel takes 1..65535 channels, "
                          f"got {n_chans}")
-    err = _build.library().dcs_cmac(
-        a2.data_ptr(), acc.data_ptr(), n_chans, ap, n_b, int(keep),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # a launch needs its stream's device
+        err = _build.library().dcs_cmac(
+            a2.data_ptr(), acc.data_ptr(), n_chans, ap, n_b, int(keep),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dcs_cmac")
     xcorr_accumulate_a2.launches += 1
     return acc

@@ -3,10 +3,13 @@ CUDA card.
 
 Run from the repository root::
 
-    python -m dc_sand_tpu_torch.profile_step [--out DIR]
+    python -m dc_sand_tpu_torch.profile_step [--out DIR] [--runs NAMES]
 
-For each of fx64, beam64 and fx64 through the unfused F-engine (the
-standalone FIR kernel, then PyTorch ops) it builds the production runner
+For each run of ``--runs`` (default ``fx64,beam64,fx64_unfused``: fx64,
+beam64 and fx64 through the unfused F-engine, the standalone FIR kernel
+then PyTorch ops; ``fx64_mesh4`` is fx64 sharded over a 4-way fx mesh,
+shard i on ``cuda:(i mod the card count)``, so that the corner-turn's
+share of a sharded step shows) it builds the production runner
 (:func:`production_runner`: 64 ants x 2 pols, 4096 channels, the
 config's own chunk length, coarse and fractional delay and fringe on,
 seeded int8 noise made on the card; fx64 dumps 8192 spectra per 4
@@ -25,8 +28,8 @@ over one window of chunks, then prints:
    of each chunk (2.15 GB for fx64, 268 MB for beam64) is paid, and that
    copy of one chunk alone.
 
-The traces are written to ``DIR/<config>_trace.json`` (default
-``build/profile_step``; ``fx64_unfused_trace.json`` for the unfused run).
+The traces are written to ``DIR/<run>_trace.json`` (default
+``build/profile_step``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 from dc_sand_tpu_torch.config import ChainConfig, get_config
 from dc_sand_tpu_torch.models.steering import steering_weights
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
+from dc_sand_tpu_torch.parallel import build_mesh
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
@@ -71,13 +75,15 @@ def noise_int8(gen: torch.Generator, shape, device) -> torch.Tensor:
 
 
 def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
-                      fused: bool = True):
+                      fused: bool = True, mesh=None):
     """The runner at ``cfg``'s own cadence with a seeded delay model
     (coarse up to 31 samples, fractional delay and fringe on) and one
     window of chunks made with ``gen`` on ``device``: one dump's worth in
     fx mode, :data:`BEAM_CHUNKS` in beam mode, whose beams are steered
     toward seeded pointings (geometric delays up to 0.25 us):
-    ``(runner, chunks)``.  ``fused`` picks the runner's F-engine path."""
+    ``(runner, chunks)``.  ``fused`` picks the runner's F-engine path;
+    with ``mesh`` (whose first shard's device must be ``device``) the
+    runner is sharded over it."""
     rng = np.random.default_rng(6)
     a, p = cfg.n_ants, cfg.n_pols
     dm = DelayModel.zeros(a, p, max_delay=32)
@@ -96,8 +102,9 @@ def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
     chunks = [noise_int8(gen, (a, p, cfg.chunk_samples), device)
               for _ in range(n_chunks)]
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
-                      delay_model=dm, weights=weights, device=device,
-                      fused=fused)
+                      delay_model=dm, weights=weights,
+                      device=None if mesh is not None else device,
+                      mesh=mesh, fused=fused)
     return runner, chunks
 
 
@@ -123,12 +130,21 @@ def _timed(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def _profile(name: str, gen: torch.Generator, dev, out: Path,
-             fused: bool = True) -> None:
-    cfg = get_config(name)
-    runner, chunks = production_runner(cfg, gen, dev, fused=fused)
-    if not fused:
-        name += "_unfused"
+def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
+    """Profile run ``name``: a config, then ``_unfused`` for the unfused
+    F-engine or ``_mesh<N>`` for an N-way fx mesh."""
+    config, _, variant = name.partition("_")
+    cfg = get_config(config)
+    mesh = None
+    if variant.startswith("mesh"):
+        n_cards = torch.cuda.device_count()
+        mesh = build_mesh([torch.device("cuda", i % n_cards)
+                           for i in range(int(variant[4:]))])
+        dev = mesh.flat_devices[0]
+    elif variant not in ("", "unfused"):
+        raise SystemExit(f"unknown profile run {name!r}")
+    runner, chunks = production_runner(cfg, gen, dev,
+                                       fused=variant != "unfused", mesh=mesh)
     n = len(chunks)
     samples = cfg.n_ants * cfg.n_pols * cfg.chunk_samples
     runner.run(lambda i: chunks[i % n], n)            # warm, one window
@@ -157,7 +173,7 @@ def _profile(name: str, gen: torch.Generator, dev, out: Path,
 
     # 2. the dump alone
     if runner.mode == "fx":
-        dump_ms = [_timed(lambda: extract_vis(runner.vis_acc, cfg.n_ants,
+        dump_ms = [_timed(lambda: extract_vis(runner._acc_total(), cfg.n_ants,
                                               cfg.n_pols).contiguous().cpu())
                    for _ in range(3)]
         print(f"[{name} dump] extract_vis + device-to-host copy ms: "
@@ -176,16 +192,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_step",
                     help="directory for the traces")
+    ap.add_argument("--runs", default="fx64,beam64,fx64_unfused",
+                    help="comma-separated runs: a config name, with "
+                         "_unfused or _mesh<N> (e.g. fx64_mesh4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     dev = torch.device("cuda")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    for name, fused in (("fx64", True), ("beam64", True), ("fx64", False)):
+    for name in args.runs.split(","):
         gen = torch.Generator(device=dev)
         gen.manual_seed(6)
-        _profile(name, gen, dev, out, fused=fused)
+        _profile(name, gen, dev, out)
         torch.cuda.empty_cache()
     return 0
 

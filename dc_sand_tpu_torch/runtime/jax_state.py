@@ -3,7 +3,10 @@
 :func:`load_jax_checkpoint` reads the single-process ``.npz`` that
 :func:`dc_sand_tpu.runtime.checkpoint.save_state` writes (plain numpy, so
 no jax is needed) into a :class:`~dc_sand_tpu_torch.runtime.runner.FXRunner`,
-which then continues the stream where the JAX run stopped.
+which then continues the stream where the JAX run stopped.  A JAX run on
+a mesh saves global arrays, which are cut to the port runner's shards;
+an SP run's history holds one block per time shard and its accumulator a
+leading time axis, one partial per time shard.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import numpy as np
 import torch
 
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
+from dc_sand_tpu_torch.ops.xcorr import acc_shape
+from dc_sand_tpu_torch.parallel import FX_AXIS
 
 __all__ = ["load_jax_checkpoint", "window_and_gains_from_numpy"]
 
@@ -49,7 +54,9 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     ``dc_sand_tpu.ops.fengine_fused.native_channel_perm(n_chans)`` to put
     it back in natural order (``acc_natural = acc_native[perm]``).  The
     beam weights are restored too; in fengine and beam mode the
-    accumulator is the rank-1 dummy that both packages carry.
+    accumulator is the rank-1 dummy that both packages carry.  A runner
+    on a mesh takes a checkpoint of the same ``cfg`` (``time_shards``
+    included) from a JAX run on any mesh of one process.
     """
     z = np.load(path, allow_pickle=False)
     if "process_shape" in z.files:
@@ -64,20 +71,27 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
             f"checkpoint delay max_delay {int(z['delay_max'])} != runner's "
             f"{runner.max_delay}; build the resuming runner with a "
             "DelayModel of the same max_delay")
-    hist = _frames_history(z["history"], cfg, tuple(runner.history.shape))
+    n_t = cfg.time_shards
+    want = (cfg.n_ants * cfg.n_pols, taps_pad_for(cfg.n_taps), cfg.fft_size)
+    # one history block per time shard (only shard 0's is live)
+    hists = [_frames_history(h, cfg, want)
+             for h in np.split(z["history"], n_t, axis=-1)]
     acc = z["vis_acc"]
-    if acc.shape != tuple(runner.vis_acc.shape):
+    acc_want = (1,)
+    if runner.mode == "fx":
+        acc_want = ((n_t,) if n_t > 1 else ()) + acc_shape(
+            cfg.n_ants, cfg.n_pols, cfg.n_chans)
+    if acc.shape != acc_want:
         raise ValueError(f"checkpoint accumulator shape {acc.shape} != "
-                         f"{tuple(runner.vis_acc.shape)}")
+                         f"{acc_want}")
     if channel_perm is not None:
-        acc = acc[np.asarray(channel_perm)]
+        acc = np.take(acc, np.asarray(channel_perm), axis=-3)
     weights = z["weights"]
     if weights.shape != tuple(runner.weights.shape):
         raise ValueError(f"checkpoint weights shape {weights.shape} != "
                          f"{tuple(runner.weights.shape)}")
     runner.weights = weights
-    runner.history.copy_(torch.from_numpy(np.ascontiguousarray(hist)))
-    runner.vis_acc.copy_(torch.from_numpy(np.ascontiguousarray(acc)))
+    _restore_carry(runner, hists, acc)
     runner.t0 = int(z["t0"])
     runner.chunk_idx = int(z["chunk_idx"])
     runner._acc_spectra = int(z["acc_spectra"])
@@ -99,6 +113,24 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     runner.counters = dataclasses.replace(
         runner.counters, chunks_in=int(c[0]), chunks_dropped=int(c[1]),
         samples_in=int(c[2]), spectra_out=int(c[3]), dumps=int(c[4]))
+
+
+def _restore_carry(runner, hists: list, acc: np.ndarray) -> None:
+    """Cut the global carry to the shards of the runner's mesh: antenna
+    rows and time block for the history, channel block and time partial
+    for the accumulator."""
+    def put(dst, src):
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+
+    mesh = runner.mesh
+    n_f = mesh.shape[FX_AXIS]
+    parts = acc if runner.cfg.time_shards > 1 else acc[None]
+    s_l = hists[0].shape[0] // n_f
+    k_l = acc.shape[-3] // n_f if runner.mode == "fx" else None
+    for d, (h, a) in enumerate(zip(runner.history, runner.vis_acc)):
+        t, f = mesh.coords(d)
+        put(h, hists[t][f * s_l:(f + 1) * s_l])
+        put(a, acc if k_l is None else parts[t][f * k_l:(f + 1) * k_l])
 
 
 def window_and_gains_from_numpy(window, gains, taps: int, device):

@@ -1,4 +1,5 @@
-"""Chunked streaming runner (C21), fengine, fx and beam mode, one device.
+"""Chunked streaming runner (C21), fengine, fx and beam mode, on one
+device or on a device mesh.
 
 PyTorch counterpart of :class:`dc_sand_tpu.runtime.runner.FXRunner`:
 feed a chunk to the device, advance the delay polynomials on the host,
@@ -9,6 +10,16 @@ dumping the integration at the accumulation cadence; in beam mode
 F-engine + beam kernel, handing each chunk's beams to ``on_output``.
 The FIR history and the packed accumulator live on the device and are
 updated in place.
+
+The runner keeps one carry per shard of its mesh
+(:func:`dc_sand_tpu_torch.parallel.build_mesh`), as lists in shard order;
+one device is a mesh of one shard.  The coarse shift runs on the whole
+chunk on the first shard's device; the chunk is then cut to the shards by
+antenna rows and, in SP mode, by spectra.  At a dump the channel blocks
+are gathered and the SP partial accumulators summed, as the JAX runner's
+dump extraction does, and ``on_output`` gets the outputs in their global
+layout on the first shard's device (beam-parallel beams put back in beam
+order).
 
 Fault semantics as in the JAX runner: a dropped chunk is replaced by
 zeros — stream timing advances, the FIR history stays continuous, and
@@ -25,9 +36,12 @@ import numpy as np
 import torch
 
 from dc_sand_tpu_torch.config import ChainConfig
-from dc_sand_tpu_torch.models.pipeline import (history_shape, make_step,
-                                               mode_for, zero_vis_acc)
+from dc_sand_tpu_torch.models.pipeline import (gather_acc, gather_outputs,
+                                               history_shape, make_step,
+                                               mode_for, shard_inputs,
+                                               zero_vis_acc)
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
+from dc_sand_tpu_torch.parallel import FX_AXIS, build_mesh
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 
 logger = logging.getLogger("dc_sand_tpu_torch.runner")
@@ -57,8 +71,8 @@ class Dump:
 
 
 class FXRunner:
-    """Streaming runner on one device, fengine, fx or beam mode (from
-    ``cfg``).
+    """Streaming runner on one device or a mesh, fengine, fx or beam mode
+    (from ``cfg``).
 
     ``source(chunk_idx)`` returns the chunk's int8 samples, ``(A, P,
     chunk_samples)`` or the same bytes as frames ``(A*P, B, M)``: a numpy
@@ -68,17 +82,25 @@ class FXRunner:
     (default zeros); :attr:`weights` is read at every chunk, so assigning
     it between chunks re-points the beams.  ``fused``: the F-engine path
     (:func:`dc_sand_tpu_torch.models.fengine.f_engine`); False is the
-    counterpart of the JAX runner's ``impl="pallas"``.
+    counterpart of the JAX runner's ``impl="pallas"``.  Give ``device``
+    for one device (a mesh of one shard) or ``mesh`` for a mesh (whose
+    first shard's device is then :attr:`device`).
     """
 
     def __init__(self, cfg: ChainConfig, window: np.ndarray,
                  delay_model: Optional[DelayModel] = None,
                  gains: Optional[np.ndarray] = None,
-                 weights: Optional[np.ndarray] = None, *, device,
-                 fused: bool = True):
+                 weights: Optional[np.ndarray] = None, *, device=None,
+                 mesh=None, fused: bool = True):
         self.cfg = cfg
         self.mode = mode_for(cfg)
-        self.device = torch.device(device)
+        if (device is None) == (mesh is None):
+            raise ValueError("FXRunner takes a device or a mesh, one of them")
+        if mesh is None:
+            mesh = build_mesh([device])
+        self.mesh = mesh
+        self.device = mesh.flat_devices[0]
+        self._devices = mesh.flat_devices
         self.delay_model = delay_model or DelayModel.zeros(
             cfg.n_ants, cfg.n_pols)
         self.max_delay = self.delay_model.max_delay
@@ -87,32 +109,43 @@ class FXRunner:
             raise ValueError(
                 f"n_spectra_per_acc={cfg.n_spectra_per_acc} overflows the "
                 f"int32 visibility accumulator (max {MAX_SPECTRA_PER_ACC})")
-        self._step = make_step(cfg, window, device=self.device,
-                               fused=fused)
+        self._step = make_step(cfg, window, mesh=mesh, fused=fused)
         a, p, k = cfg.n_ants, cfg.n_pols, cfg.n_chans
-        self.gains = torch.as_tensor(
-            gains if gains is not None
-            else np.stack([np.full((k,), cfg.quant_scale, np.float32),
-                           np.zeros((k,), np.float32)], -1),
-            dtype=torch.float32, device=self.device).contiguous()
+        self.gains = (gains if gains is not None
+                      else np.stack([np.full((k,), cfg.quant_scale,
+                                             np.float32),
+                                     np.zeros((k,), np.float32)], -1))
         self.weights = (weights if weights is not None
                         else np.zeros((max(cfg.n_beams, 1), a, k, 2),
                                       np.float32))
-        self.history = torch.zeros(history_shape(cfg), dtype=torch.int8,
-                                   device=self.device)
+        self.history = [torch.zeros(history_shape(cfg, mesh),
+                                    dtype=torch.int8, device=dev)
+                        for dev in self._devices]
+        self.vis_acc = [zero_vis_acc(cfg, dev, mesh) for dev in self._devices]
         # integer-sample (coarse) delay is a read-pointer offset applied in
         # the feed; the tail carries the previous chunk's last max_delay
         # samples (zeros at stream start)
         self._tail = (torch.zeros((a, p, self.max_delay),
                                        dtype=torch.int8, device=self.device)
                            if cfg.apply_delay and self.max_delay else None)
-        self.vis_acc = zero_vis_acc(cfg, self.device)
         self.counters = RunnerCounters()
         self.t0 = 0          # absolute sample index of next new sample
         self.chunk_idx = 0
         self._acc_spectra = 0       # spectra in current window (nominal)
         self._acc_integrated = 0    # spectra actually integrated
         self._acc_first_chunk = 0
+
+    @property
+    def gains(self) -> torch.Tensor:
+        """Channel gains ``(K, 2)`` float32 re/im on the device."""
+        return self._gains
+
+    @gains.setter
+    def gains(self, g) -> None:
+        self._gains = torch.as_tensor(g, dtype=torch.float32,
+                                      device=self.device).contiguous()
+        per_dev = {dev: self._gains.to(dev) for dev in set(self._devices)}
+        self._gains_sh = [per_dev[dev] for dev in self._devices]
 
     @property
     def weights(self) -> torch.Tensor:
@@ -123,6 +156,13 @@ class FXRunner:
     def weights(self, w) -> None:
         self._weights = torch.as_tensor(w, dtype=torch.float32,
                                         device=self.device).contiguous()
+        # each fx shard's antennas
+        a_l = self.cfg.n_ants // self.mesh.shape[FX_AXIS]
+        self._weights_sh = []
+        for d, dev in enumerate(self._devices):
+            f = self.mesh.coords(d)[1]
+            self._weights_sh.append(
+                self._weights[:, f * a_l:(f + 1) * a_l].contiguous().to(dev))
 
     # ------------------------------------------------------------------
     def run(self, source: Callable[[int], np.ndarray], n_chunks: int,
@@ -151,17 +191,18 @@ class FXRunner:
             reset = self._acc_spectra == 0
             if reset:
                 self._acc_first_chunk = i
-            outputs = self._step(self.history, self.vis_acc, chunk, frac,
-                                 phase, self.gains, self._weights, reset)
+            outputs = self._step(self.history, self.vis_acc,
+                                 *self._step_args(chunk, frac, phase), reset)
             if on_output is not None and outputs:
-                on_output(i, outputs)
+                on_output(i, gather_outputs(outputs, cfg, self.mesh,
+                                            self.device))
             if self.mode != "fx":
                 continue
             self._acc_spectra += b
             if not dropped:
                 self._acc_integrated += b
             if self._acc_spectra >= cfg.n_spectra_per_acc:
-                vis = extract_vis(self.vis_acc, cfg.n_ants, cfg.n_pols)
+                vis = extract_vis(self._acc_total(), cfg.n_ants, cfg.n_pols)
                 dumps.append(Dump(vis=vis.contiguous().cpu().numpy(),
                                   n_spectra=self._acc_integrated,
                                   n_spectra_nominal=self._acc_spectra,
@@ -199,14 +240,24 @@ class FXRunner:
         # (A, P, T) -> (A*P, B, M): a free row-major view, the layout the
         # F-engine kernel reads
         chunk = chunk.reshape(a * p, b, cfg.fft_size)
-        frac_t = torch.from_numpy(frac.reshape(a * p, b)).to(self.device)
-        phase_t = torch.from_numpy(phase.reshape(a * p, b)).to(self.device)
         self.counters.chunks_in += 1
         self.counters.samples_in += chunk.numel()
         self.counters.spectra_out += b
         self.t0 += cfg.chunk_samples
         self.chunk_idx += 1
-        return chunk.contiguous(), frac_t, phase_t, dropped
+        return (chunk.contiguous(), torch.from_numpy(frac.reshape(a * p, b)),
+                torch.from_numpy(phase.reshape(a * p, b)), dropped)
+
+    def _step_args(self, chunk, frac, phase) -> tuple:
+        """The step's arguments after the carries: ``(chunk, frac, phase,
+        gains, weights)`` from the frame chunk ``(A*P, B, M)`` and the
+        per-spectrum ``(A*P, B)`` delays, as lists cut to the shards."""
+        return shard_inputs(self.mesh, chunk, frac, phase) + (
+            self._gains_sh, self._weights_sh)
+
+    def _acc_total(self) -> torch.Tensor:
+        """The packed ``(K, ap, ap)`` accumulator on the device."""
+        return gather_acc(self.vis_acc, self.mesh, self.device)
 
     def _coarse_shift(self, chunk: torch.Tensor, coarse: np.ndarray):
         """Coarse delay: a read-pointer offset into ``[tail | chunk]``,

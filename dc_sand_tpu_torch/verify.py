@@ -1,12 +1,12 @@
 """End-to-end verification of the five configs against the golden chain.
 
-PyTorch counterpart of :func:`dc_sand_tpu.verify.verify_config` on one
-device: the config runs through this package's streaming runner and its
-outputs (fengine: the spectra; fx: the dumps; beam: the beams and the
-incoherent beam) are graded against the float64 golden chain at the
-contract bound of >50 dB SNR.  The golden oracle helpers are copies of
-the JAX package's (``verify.py`` there imports jax); a CPU test holds
-them equal.
+PyTorch counterpart of :func:`dc_sand_tpu.verify.verify_config`, on one
+device or a device mesh: the config runs through this package's
+streaming runner and its outputs (fengine: the spectra; fx: the dumps;
+beam: the beams and the incoherent beam) are graded against the float64
+golden chain at the contract bound of >50 dB SNR.  The golden oracle
+helpers are copies of the JAX package's (``verify.py`` there imports
+jax); a CPU test holds them equal.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 from dc_sand_tpu_torch import golden
 from dc_sand_tpu_torch.config import get_config, scaled_for_test
 from dc_sand_tpu_torch.models.pipeline import mode_for
+from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.utils.cplx import np_ri2c
@@ -67,10 +68,11 @@ def _golden_spectra(cfg, stream, dm, gains, n_chunks, window):
     return golden.f_engine(xg, window, cfg.n_taps, cfg.n_chans, **kw)
 
 
-def verify_config(name: str, *, device, n_chunks: int = 4,
+def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
                   scale: Optional[int] = None, seed: int = 0,
                   spectra_per_chunk: Optional[int] = 16,
                   n_spectra_per_acc: Optional[int] = 32,
+                  time_shards: int = 1, beam_parallel: bool = False,
                   fused: bool = True):
     """Run config ``name`` end-to-end on ``device``; returns ``(snrs,
     counters)`` — per-output SNRs in dB vs golden (fengine: ``{"spectra":
@@ -85,6 +87,12 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
     tone, its contract input), delay model, gains and beam weights come
     from ``seed`` exactly as the JAX verify draws them.  ``fused``: the
     F-engine path (False is the JAX verify's ``impl="pallas"``).
+    ``mesh``: run the sharded step over this mesh instead of on
+    ``device`` (give one of the two); ``time_shards > 1`` runs SP mode
+    (the mesh's time axis), the chunk raised to ``time_shards *
+    taps_pad`` spectra at least so that every time shard holds its
+    overlap-save halo, and ``beam_parallel`` the beam-sharded B-engine,
+    as the JAX verify does.
     """
     cfg = get_config(name)
     mode = mode_for(cfg)
@@ -96,6 +104,14 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
     if n_spectra_per_acc is not None:
         cfg = cfg.replace(n_spectra_per_acc=min(cfg.n_spectra_per_acc,
                                                 n_spectra_per_acc))
+    if time_shards > 1:
+        spc = max(cfg.spectra_per_chunk,
+                  time_shards * taps_pad_for(cfg.n_taps))
+        spa = -(-cfg.n_spectra_per_acc // spc) * spc
+        cfg = cfg.replace(time_shards=time_shards, spectra_per_chunk=spc,
+                          n_spectra_per_acc=spa)
+    if beam_parallel:
+        cfg = cfg.replace(beam_parallel=True)
     if mode == "fx" and cfg.n_spectra_per_acc % cfg.spectra_per_chunk:
         # the runner dumps at chunk-aligned boundaries (>=), while the
         # golden oracle slices exact n_spectra_per_acc windows
@@ -130,7 +146,7 @@ def verify_config(name: str, *, device, n_chunks: int = 4,
         weights = rng.normal(size=(cfg.n_beams, a, k, 2)).astype(np.float32)
 
     runner = FXRunner(cfg, window, delay_model=dm, gains=gains_ri,
-                      weights=weights, device=device, fused=fused)
+                      weights=weights, device=device, mesh=mesh, fused=fused)
     outputs = []
     dumps, counters = runner.run(
         lambda i: stream[..., i * cfg.chunk_samples:

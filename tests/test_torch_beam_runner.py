@@ -169,13 +169,16 @@ def test_verify_beam64_scaled_on_cpu():
     assert counters.chunks_in == 4
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(beam_stokes=True), "Stokes"),
-    (dict(beam_parallel=True), "beam-parallel"),
-    (dict(time_shards=2), "time-sharded"),
-    (dict(apply_requant=False), "requantisation")])
-def test_modes_not_ported_raise(change, match):
+@pytest.mark.parametrize("change,exc,match", [
+    (dict(beam_stokes=True, n_pols=1), ValueError, "dual-pol"),
+    (dict(beam_parallel=True), ValueError, "requires a mesh"),
+    (dict(time_shards=2), ValueError, "SP mode needs a mesh"),
+    (dict(apply_requant=False), NotImplementedError, "requantisation")])
+def test_modes_not_ported_raise(change, exc, match):
+    """What the one-device step refuses: the JAX step's validation errors
+    (Stokes of single-pol beams; beam-parallel and time-sharded modes
+    without a mesh) and beam mode without requantisation, not ported."""
     cfg = _beam_cfg().replace(**change)
     w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         make_step(cfg, w, device="cpu")

@@ -127,7 +127,7 @@ def test_resume_pfb4k_run_from_jax_checkpoint(tmp_path):
                        device="cpu", fused=False)
     load_jax_checkpoint(resumed, path)
     assert resumed.chunk_idx == 2 and resumed.t0 == 2 * cfg.chunk_samples
-    assert tuple(resumed.vis_acc.shape) == (1,)
+    assert tuple(resumed.vis_acc[0].shape) == (1,)
     got = []
     resumed.run(src, 1, on_output=_collect(got, True))
     _assert_close_to_jax(got[0]["spectra"], want[2]["spectra"], True)

@@ -19,6 +19,8 @@ from dc_sand_tpu_torch.ops.beamform import beamform
 from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
 from dc_sand_tpu_torch.ops.pfb import pfb_fir, taps_pad_for
 from dc_sand_tpu_torch.ops.xcorr import xcorr_accumulate_a2
+from dc_sand_tpu_torch.parallel import (all_to_all, build_mesh,
+                                        ring_permute_right)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,6 +69,20 @@ def test_cuda_impl_on_cpu_tensors_raises():
         pfb_fir(x, pfb_window(4, 64), 4, 64, history=h, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         fengine_fused(x, pfb_window(4, 64), 4, 32, history=h, impl="cuda")
+    mesh = build_mesh(["cpu"] * 2)
+    for op in (all_to_all, ring_permute_right):
+        with pytest.raises(ValueError, match="CUDA"):
+            op([x, h], mesh, "fx", impl="cuda")
+
+
+def test_mesh_never_falls_back_to_the_cpu():
+    """A CUDA device that is not there raises; it is never replaced by the
+    CPU, and a mesh never mixes CPU and CUDA shards."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="CUDA"):
+        build_mesh([f"cuda:{n}"] * 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        build_mesh(["cpu", "cuda:0"])
 
 
 @pytest.fixture
@@ -257,3 +273,76 @@ def test_runner_on_card_matches_cpu(cuda):
         vb = b.vis[..., 0] + 1j * b.vis[..., 1]
         assert snr_db(va, vb) > 60
     assert np.isfinite(dumps[1][0].vis).all()
+
+
+def _card_mesh(n, time_shards=1):
+    """n shards, shard i on cuda:(i mod the card count): every shard on one
+    card, or spread over several."""
+    return build_mesh([f"cuda:{i % torch.cuda.device_count()}"
+                       for i in range(n)], time_shards=time_shards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 3, 5), torch.int8), ((4, 7), torch.float32), ((12, 33), torch.int8),
+    ((4096, 2, 64), torch.int8)])
+@pytest.mark.parametrize("n,time_shards", [(4, 1), (4, 2), (2, 1), (1, 1)])
+def test_peer_copy_kernels_bitwise_equal_plain(cuda, shape, dtype, n,
+                                               time_shards):
+    """K7a and K7b vs their plain versions over both axes of a mesh, at
+    16-byte and odd block sizes: bitwise; each sender launches once."""
+    mesh = _card_mesh(n, time_shards)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + shape[0])
+    xs = [(torch.randn(shape, generator=gen, device=cuda) * 50).to(dtype)
+          .to(dev) for dev in mesh.flat_devices]
+    for axis in ("fx", "time"):
+        k = len(mesh.groups(axis)[0])
+        for op, plain, ok in ((all_to_all, "all_to_all_torch",
+                               shape[0] % k == 0),
+                              (ring_permute_right, "ring_permute_right_torch",
+                               True)):
+            if not ok:
+                continue
+            from dc_sand_tpu_torch.parallel import remote_dma
+            before = op.launches
+            got = op(xs, mesh, axis, impl="cuda")
+            want = getattr(remote_dma, plain)(xs, mesh, axis)
+            torch.cuda.synchronize()
+            assert op.launches - before == n
+            for g, w, x in zip(got, want, xs):
+                assert g.device == x.device and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_sharded_runner_on_card_equals_one_device(cuda):
+    """The fx runner on a 4-way fx mesh and on a (2, 2) SP mesh of the
+    card(s) gives the one-device dumps bitwise, through K7b (and K7a in
+    SP)."""
+    from dc_sand_tpu_torch import golden
+    from dc_sand_tpu_torch.config import get_config, scaled_for_test
+    from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
+    cfg = scaled_for_test(get_config("fx64"), n_chans=256,
+                          spectra_per_chunk=32).replace(n_spectra_per_acc=64)
+    stream = golden.gaussian_noise_int8(
+        (cfg.n_ants, cfg.n_pols, 4 * cfg.chunk_samples), 20.0, 8)
+    c = cfg.chunk_samples
+    w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
+
+    def run(cfg_, **kw):
+        dm = DelayModel.zeros(cfg.n_ants, cfg.n_pols, max_delay=8)
+        dm.d0 += 5.0
+        dm.p1 += 1e-6
+        return FXRunner(cfg_, w, delay_model=dm, **kw).run(
+            lambda i: stream[..., i * c:(i + 1) * c], 4)[0]
+
+    ref = run(cfg, device=cuda)
+    a2a, ring = all_to_all.launches, ring_permute_right.launches
+    for cfg_, mesh in ((cfg, _card_mesh(4)),
+                       (cfg.replace(time_shards=2), _card_mesh(4, 2))):
+        got = run(cfg_, mesh=mesh)
+        assert len(got) == len(ref) == 2
+        for a, b in zip(ref, got):
+            np.testing.assert_array_equal(a.vis, b.vis)
+    assert all_to_all.launches - a2a == 2 * 4 * 4
+    assert ring_permute_right.launches - ring == 4 * 4

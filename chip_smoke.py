@@ -5,7 +5,7 @@ Run from the repository root with ``python3 chip_smoke.py`` (no
 arguments, one card).  It imports no jax.  Phases, each of which fails
 the run (non-zero exit) when it fails:
 
-1. build the five CUDA kernel sources from ``dc_sand_tpu_torch/csrc``, one
+1. build the six CUDA kernel sources from ``dc_sand_tpu_torch/csrc``, one
    nvcc per source, all started together;
 2. F-engine kernel (K1) vs its plain version at the fx64 chunk shape
    (128 streams x 2048 spectra x 8192 samples): every difference a
@@ -82,27 +82,42 @@ the same checks:
     9's (float sums in another order), the beam-parallel beams equal to
     the replicated ones; K1 32 and the beam kernel 32 in each run.
 
-Each kernel's time is a CUDA-event mean over back-to-back launches;
-``bound_ms`` is the least time the card could take for the same work,
-the larger of the bytes it must move (each input read once, each output
-written once) at 3.35 TB/s and its operations at the data sheet's peak
-for their type (67 fp32 TFLOP/s without the tensor cores, 1979 int8
-TOP/s), from the shapes of the timed call; ``library_ms`` is one PyTorch
-call that computes the same function, where there is one, timed as a
-yardstick and never called by the port.
+Phases 19-20 drive the bench path:
+
+19. the read and write probes (P1, P2) vs their plain versions at the
+    shapes of ``scripts/sweep_s10_micro.py`` (int8 (16, 527, 8192) read
+    in 64-row blocks; int8 (16, 128, 512, 64) written): tile, block sums
+    and written tensor bitwise equal; kernel times with the L2 flushed
+    before each launch and back to back; ``library_ms`` is
+    ``x[:, :512].sum(dtype=torch.int64)`` (P1) and ``Tensor.fill_`` of the
+    same 67.1 MB (P2);
+20. the bench entry (``python -m dc_sand_tpu_torch.bench``) in process:
+    the headline, whose JSON line it prints, with the launch counters
+    zeroed before and showing K1 and the CMAC and no other kernel after;
+    then its ``probes`` target, showing P1 and P2 and no other kernel.
+
+Each kernel's time is a CUDA-event mean over back-to-back launches
+(``dc_sand_tpu_torch/bench/harness.py:time_cuda``); ``bound_ms`` is the
+least time the card could take for the same work, the larger of the bytes
+it must move (each input read once, each output written once) at the HBM
+rate and its operations at the data sheet's peak for their type
+(``harness.bound_ms``: 3.35 TB/s, 67 fp32 TFLOP/s without the tensor
+cores, 1979 int8 TOP/s), from the shapes of the timed call;
+``library_ms`` is one PyTorch call that computes the same function, where
+there is one, timed as a yardstick and never called by the port.
 
 The second-to-last line is ``{"kernels": [...]}``: launches from the
 main-path phases (6 for K1 and the CMAC, 9 for the beam kernel, 12's
 fused pfb1k for K1-float, 13 for K6, 16 and 17 together for the ring and
-the all-to-all), times from phases 2, 3, 7, 10, 11, 14 and 15; the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
-printing no result, when no CUDA device is present.
+the all-to-all, 20's probes target for P1 and P2), times from phases 2,
+3, 7, 10, 11, 14, 15 and 19 (the probes with the L2 flushed); the last is
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import json
-import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -120,49 +135,13 @@ BEAM_QUANT_RMS = 30.0      # rms of y*s in LSB for the int8 epilogue check
 BENCH_STREAMS, BENCH_SPECTRA, BENCH_CHANS = 16, 512, 1024
 FLOAT_SNR_DB = 100.0       # two float32 F-engines, FFTs in other orders
 UNFUSED_SNR_DB = 60.0      # fused vs unfused fx64 dump: 1-LSB flips
-# NVIDIA H100 SXM data sheet: HBM rate, fp32 (no tensor cores), int8 peak
-HBM_BYTES_S, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
-
-
-def _events_ms(torch, fn, n):
-    """Mean device time of ``fn`` over ``n`` calls (CUDA events), after
-    one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def _bound(nbytes, ops, peak):
-    """``(bound_ms, bound_by)``: the larger of ``nbytes`` at the HBM rate
-    and ``ops`` at ``peak`` per second."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _fengine_flops(spectra, m, taps, rotate, quant):
-    """fp32 operations of the F-engine for ``spectra`` spectra of M
-    samples: FIR mul+add per tap, 5 N log2 N for the N = M/2 radix-2
-    complex FFT, 16 per channel for the real split, 9 for the phasor
-    (theta and a complex product; sincos is not counted), 6 for the
-    complex gain."""
-    n = m // 2
-    per = 2 * taps * m + 5 * n * int(math.log2(n)) + 16 * n
-    return spectra * (per + (9 * n if rotate else 0) + (6 * n if quant else 0))
+def _events_ms(fn, n):
+    """Mean device time in ms of ``fn`` over ``n`` back-to-back calls
+    (CUDA events), after one warm-up call."""
+    from dc_sand_tpu_torch.bench.harness import time_cuda
+    return time_cuda(fn, warmup=1, iters=n) * 1e3
 
 
 def _nbytes(*tensors) -> int:
@@ -184,6 +163,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
     from dc_sand_tpu_torch import _build, golden
+    from dc_sand_tpu_torch.bench import harness
+    from dc_sand_tpu_torch.bench import probes
+    from dc_sand_tpu_torch.bench.__main__ import main as bench_main
+    from dc_sand_tpu_torch.bench.harness import (bound_ms, fengine_flops,
+                                                 time_cuda)
+    from dc_sand_tpu_torch.bench.probes import read_probe, write_probe
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.ops.beamform import beamform
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
@@ -204,25 +189,40 @@ def main() -> int:
         pfb_fir.launches = xcorr_accumulate_a2.launches = 0
         beamform.launches = all_to_all.launches = 0
         ring_permute_right.launches = 0
+        read_probe.launches = write_probe.launches = 0
+
+    def current():
+        return {"fengine": fengine_fused.launches,
+                "fengine_float": fengine_fused.float_launches,
+                "pfb": pfb_fir.launches, "cmac": xcorr_accumulate_a2.launches,
+                "beamform": beamform.launches,
+                "all_to_all": all_to_all.launches,
+                "ring": ring_permute_right.launches,
+                "read_probe": read_probe.launches,
+                "write_probe": write_probe.launches}
 
     def counts(**want):
         """The launch counters, checked against ``want`` (every counter
         not named must read 0)."""
-        got = {"fengine": fengine_fused.launches,
-               "fengine_float": fengine_fused.float_launches,
-               "pfb": pfb_fir.launches, "cmac": xcorr_accumulate_a2.launches,
-               "beamform": beamform.launches,
-               "all_to_all": all_to_all.launches,
-               "ring": ring_permute_right.launches}
+        got = current()
         if got != {k: want.get(k, 0) for k in got}:
             raise RuntimeError(f"launch counts {got}, want {want} and 0 "
                                "for the others")
         return got
 
+    def ran(*names):
+        """The launch counters, checked: each of ``names`` above 0, every
+        other 0."""
+        got = current()
+        if any(bool(v) != (k in names) for k, v in got.items()):
+            raise RuntimeError(f"launch counts {got}: want {names} above 0 "
+                               "and 0 for the others")
+        return got
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = _card()
+    card = harness.card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     print(card, flush=True)
@@ -253,7 +253,7 @@ def main() -> int:
         return fengine_fused(chunk, window, TAPS, nch, impl="cuda", **kw)
 
     got = k1()
-    k1_ms = _events_ms(torch, k1, 5)
+    k1_ms = _events_ms(k1, 5)
 
     def plain_blocks(compare):
         for i in range(0, s, PLAIN_BLOCK_STREAMS):
@@ -272,11 +272,11 @@ def main() -> int:
         stats["flips"][sl] = (d > 0).sum(dim=(1, 2, 3)).cpu()
 
     plain_blocks(compare)
-    k1_plain_ms = _events_ms(torch, lambda: plain_blocks(None), 1)
+    k1_plain_ms = _events_ms(lambda: plain_blocks(None), 1)
     flip_frac = int(stats["flips"].sum()) / got.numel()
-    k1_bound = _bound(
+    k1_bound = bound_ms(
         _nbytes(chunk, hist, window, fd, ph, gains, got),
-        _fengine_flops(s * b, m, TAPS, rotate=True, quant=True), FP32_FLOPS)
+        fengine_flops(s * b, m, TAPS, rotate=True, quant=True))
     print(f"[2 fengine] kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
           f"({PLAIN_BLOCK_STREAMS}-stream blocks), bound {k1_bound[0]:.3f} "
           f"ms ({k1_bound[1]}), max |diff| {stats['max']} LSB, flip "
@@ -308,7 +308,7 @@ def main() -> int:
     if (dist >= FLIP_BOUNDARY_TOL).any():
         raise RuntimeError("F-engine kernel flips a value away from a .5 "
                            "rounding boundary")
-    ct_ms = _events_ms(torch, lambda: wire_to_a2(got), 5)
+    ct_ms = _events_ms(lambda: wire_to_a2(got), 5)
     print(f"[2 corner-turn glue] wire_to_a2 {ct_ms:.3f} ms for "
           f"{got.numel() / 1e9:.2f} GB ({card})", flush=True)
     del got, chunk, hist, fd, ph
@@ -333,15 +333,15 @@ def main() -> int:
     # accumulator read and written
     scratch = acc0.clone()
     cmac_ms = _events_ms(
-        torch, lambda: xcorr_accumulate_a2(scratch, a2, keep=1,
+        lambda: xcorr_accumulate_a2(scratch, a2, keep=1,
                                            impl="cuda"), 5)
     cmac_plain_ms = _events_ms(
-        torch, lambda: xcorr_accumulate_a2(scratch, a2, keep=1,
+        lambda: xcorr_accumulate_a2(scratch, a2, keep=1,
                                            impl="torch"), 1)
     ops = 12 * 2 * 64 * 64 * b * nch   # 12 of the 16 64x64 tile products
     # needed: vr and vi of every (i, j), two length-B dot products each
-    cmac_bound = _bound(_nbytes(a2, acc0, acc0), 4 * ap * ap * b * nch,
-                        INT8_OPS)
+    cmac_bound = bound_ms(_nbytes(a2, acc0, acc0),
+                          int8_ops=4 * ap * ap * b * nch)
     print(f"[3 cmac] bitwise equal (keep 1 and 0); kernel {cmac_ms:.3f} ms "
           f"({ops / cmac_ms / 1e9:.1f} int8 TOP/s executed), plain "
           f"{cmac_plain_ms:.3f} ms, bound {cmac_bound[0]:.3f} ms "
@@ -400,7 +400,7 @@ def main() -> int:
     zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
     args = runner._step_args(frames, zeros, zeros)
     dev_step_ms = _events_ms(
-        torch, lambda: runner._step(runner.history, runner.vis_acc,
+        lambda: runner._step(runner.history, runner.vis_acc,
                                     *args, False), 4)
     samples = a * p * cfg.chunk_samples
     print(f"[6 fx64 production] {n_chunks} chunks -> 1 dump of "
@@ -429,9 +429,9 @@ def main() -> int:
     dq = (got_q.to(torch.int16) - want_q.to(torch.int16)).abs()
     q_max, q_flips = int(dq.max()), float((dq > 0).double().mean())
     beam_ms = _events_ms(
-        torch, lambda: beamform(q, bw, incoherent=True, impl="cuda"), 10)
+        lambda: beamform(q, bw, incoherent=True, impl="cuda"), 10)
     beam_plain_ms = _events_ms(
-        torch, lambda: beamform(q, bw, incoherent=True, impl="torch"), 2)
+        lambda: beamform(q, bw, incoherent=True, impl="torch"), 2)
     # the library yardstick: the coherent beams as one complex64 matmul
     # batched over channels, (K, nb, a) @ (K, a, p*B), on inputs already
     # converted to complex64 (the conversion is not timed)
@@ -439,11 +439,11 @@ def main() -> int:
     xc = torch.complex(q[..., 0].float(), q[..., 1].float()).permute(
         3, 0, 1, 2).reshape(nch, na, 2 * BEAM_SPECTRA).contiguous()
     wc = torch.complex(bw[..., 0], bw[..., 1]).permute(2, 0, 1).contiguous()
-    beam_lib_ms = _events_ms(torch, lambda: torch.matmul(wc, xc), 5)
+    beam_lib_ms = _events_ms(lambda: torch.matmul(wc, xc), 5)
     del xc, wc
     flops = 8 * BEAMS * 2 * BEAM_SPECTRA * nch * na   # 8 per complex MAC
-    beam_bound = _bound(_nbytes(q, bw, got, inc),
-                        flops + 4 * 2 * BEAM_SPECTRA * nch * na, FP32_FLOPS)
+    beam_bound = bound_ms(_nbytes(q, bw, got, inc),
+                          flops + 4 * 2 * BEAM_SPECTRA * nch * na)
     print(f"[7 beamform] float beams {beam_snr:.2f} dB vs plain (max |diff| "
           f"{beam_err:.3e}), incoherent bitwise {inc_equal}; int8 at "
           f"scale {qs:.5f}: max |diff| {q_max} LSB, flip fraction "
@@ -501,7 +501,7 @@ def main() -> int:
     zeros = torch.zeros((FX64_STREAMS, b), device=dev)
     args = runner._step_args(frames, zeros, zeros)
     beam_step_ms = _events_ms(
-        torch, lambda: runner._step(runner.history, runner.vis_acc,
+        lambda: runner._step(runner.history, runner.vis_acc,
                                     *args, False), 8)
     d2h_ms = []
     for _ in range(3):
@@ -535,7 +535,7 @@ def main() -> int:
         return pfb_fir(chunk, window, TAPS, m, history=hist, impl="cuda")
 
     got = k6()
-    pfb_ms = _events_ms(torch, k6, 5)
+    pfb_ms = _events_ms(k6, 5)
     pfb_errs = []
 
     def plain_fir(compare):
@@ -551,9 +551,9 @@ def main() -> int:
 
     plain_fir(True)
     pfb_err = max(pfb_errs)
-    pfb_plain_ms = _events_ms(torch, lambda: plain_fir(False), 1)
-    pfb_bound = _bound(_nbytes(chunk, hist, window, got),
-                       2 * TAPS * s * b * m, FP32_FLOPS)
+    pfb_plain_ms = _events_ms(lambda: plain_fir(False), 1)
+    pfb_bound = bound_ms(_nbytes(chunk, hist, window, got),
+                         2 * TAPS * s * b * m)
     # the library yardstick: a depthwise conv1d over frames, (S, M, F)
     # float32 with weights (M, 1, taps), TF32 off (set above)
     pad0 = taps_pad_for(TAPS) - TAPS + 1
@@ -568,7 +568,7 @@ def main() -> int:
     conv_diff = float((conv[:2].transpose(1, 2) - got[:2]).abs().max())
     del conv
     pfb_lib_ms = _events_ms(
-        torch, lambda: torch.nn.functional.conv1d(xf, wconv, groups=m), 3)
+        lambda: torch.nn.functional.conv1d(xf, wconv, groups=m), 3)
     print(f"[10 pfb] bitwise equal to plain (split I/O, {s} streams x "
           f"{TAPS}+{b} frames x {m}); kernel {pfb_ms:.3f} ms, plain "
           f"{pfb_plain_ms:.3f} ms ({PLAIN_BLOCK_STREAMS}-stream blocks), "
@@ -596,14 +596,14 @@ def main() -> int:
         float_snr = min(float_snr, _snr_db(want, got))
         float_err = max(float_err, float((got - want).abs().max()))
     float_ms = _events_ms(
-        torch, lambda: fengine_fused(xs, wb, TAPS, BENCH_CHANS,
+        lambda: fengine_fused(xs, wb, TAPS, BENCH_CHANS,
                                      impl="cuda"), 10)
     float_plain_ms = _events_ms(
-        torch, lambda: fengine_fused(xs, wb, TAPS, BENCH_CHANS,
+        lambda: fengine_fused(xs, wb, TAPS, BENCH_CHANS,
                                      impl="torch"), 3)
-    float_bound = _bound(_nbytes(xs, wb, got),
-                         _fengine_flops(bs * bb, bm, TAPS, rotate=False,
-                                        quant=False), FP32_FLOPS)
+    float_bound = bound_ms(_nbytes(xs, wb, got),
+                           fengine_flops(bs * bb, bm, TAPS, rotate=False,
+                                         quant=False))
     print(f"[11 fengine float] {float_snr:.2f} dB vs plain, worst of "
           f"without and with the phasor (max |diff| {float_err:.3e}); "
           f"kernel {float_ms:.3f} ms, plain {float_plain_ms:.3f} ms, bound "
@@ -666,7 +666,7 @@ def main() -> int:
     zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
     args = runner._step_args(frames, zeros, zeros)
     dev_step_ms = _events_ms(
-        torch, lambda: runner._step(runner.history, runner.vis_acc,
+        lambda: runner._step(runner.history, runner.vis_acc,
                                     *args, False), 4)
     samples = a * p * cfg.chunk_samples
     print(f"[13 fx64 unfused] {n_chunks} chunks -> 1 dump, {vis_snr:.2f} dB "
@@ -696,9 +696,9 @@ def main() -> int:
         raise RuntimeError("all-to-all kernel != plain version")
     del got, want
     a2a_ms = _events_ms(
-        torch, lambda: all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda"), 5)
+        lambda: all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda"), 5)
     a2a_plain_ms = _events_ms(
-        torch, lambda: all_to_all_torch(xs, fx_mesh, FX_AXIS), 3)
+        lambda: all_to_all_torch(xs, fx_mesh, FX_AXIS), 3)
     rows = nch // SHARDS
     outs_lib = [torch.empty_like(x) for x in xs]
 
@@ -709,8 +709,8 @@ def main() -> int:
     a2a_blocks = [(outs_lib[j], xs[s], slice(s * rows, (s + 1) * rows),
                    slice(j * rows, (j + 1) * rows))
                   for j in range(SHARDS) for s in range(SHARDS)]
-    a2a_lib_ms = _events_ms(torch, lambda: copy_blocks(a2a_blocks), 5)
-    a2a_bound = _bound(2 * _nbytes(*xs), 0, INT8_OPS)
+    a2a_lib_ms = _events_ms(lambda: copy_blocks(a2a_blocks), 5)
+    a2a_bound = bound_ms(2 * _nbytes(*xs))
     print(f"[14 all_to_all] bitwise equal to plain, {SHARDS} shards of int8 "
           f"{ct_shape} on {[str(d) for d in shard_devs]}; kernel "
           f"{a2a_ms:.3f} ms ({_nbytes(*xs) / a2a_ms / 1e6:.1f} GB/s of "
@@ -731,15 +731,15 @@ def main() -> int:
         want = ring_permute_right_torch(xs, ring_mesh, TIME_AXIS)
         if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
             raise RuntimeError(f"ring kernel != plain version ({n} shards)")
-        ms = _events_ms(torch, lambda: ring_permute_right(
+        ms = _events_ms(lambda: ring_permute_right(
             xs, ring_mesh, TIME_AXIS, impl="cuda"), 20)
-        plain = _events_ms(torch, lambda: ring_permute_right_torch(
+        plain = _events_ms(lambda: ring_permute_right_torch(
             xs, ring_mesh, TIME_AXIS), 20)
         outs_lib = [torch.empty_like(x) for x in xs]
         blocks = [(outs_lib[(i + 1) % n], xs[i], slice(None), slice(None))
                   for i in range(n)]
-        lib = _events_ms(torch, lambda: copy_blocks(blocks), 20)
-        bound = _bound(2 * _nbytes(*xs), 0, INT8_OPS)
+        lib = _events_ms(lambda: copy_blocks(blocks), 20)
+        bound = bound_ms(2 * _nbytes(*xs))
         print(f"[15 ring] bitwise equal to plain, {n}-shard ring of int8 "
               f"{halo_shape}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"copy_ of the {n} blocks {lib:.4f} ms, bound {bound[0]:.4f} ms "
@@ -753,7 +753,7 @@ def main() -> int:
     one_mesh = build_mesh(shard_devs[:1])
     whole = [noise_int8(gen, (SHARDS * halo_shape[0],) + halo_shape[1:],
                         shard_devs[0])]
-    one_ms = _events_ms(torch, lambda: ring_permute_right(
+    one_ms = _events_ms(lambda: ring_permute_right(
         whole, one_mesh, TIME_AXIS, impl="cuda"), 20)
     print(f"[15 ring] one launch moving the {SHARDS}-shard ring's "
           f"{_nbytes(*whole) / 1e6:.1f} MB: {one_ms:.4f} ms, against "
@@ -793,7 +793,7 @@ def main() -> int:
         zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
         args = runner._step_args(frames, zeros, zeros)
         dev_step_ms = _events_ms(
-            torch, lambda: runner._step(runner.history, runner.vis_acc,
+            lambda: runner._step(runner.history, runner.vis_acc,
                                         *args, False), 4)
         samples = a * p * cfg.chunk_samples
         print(f"[{phase} fx64 mesh time {time_shards} x fx "
@@ -847,6 +847,66 @@ def main() -> int:
     del beam_outs, beam_ref, outs
     torch.cuda.empty_cache()
 
+    # ---- 19. read and write probes (P1, P2) vs plain ----------------------
+    xp = torch.randint(-128, 128, (probes.S, probes.NF, probes.M),
+                       generator=gen, device=dev, dtype=torch.int8)
+    pk = dict(tb=probes.TB, nb=probes.NB)
+    wk = (probes.S, probes.NB, probes.TB, probes.M2, probes.K1N)
+    tile, sums = read_probe(xp, impl="cuda", **pk)
+    tile_w, sums_w = read_probe(xp, impl="torch", **pk)
+    wp = write_probe(*wk, device=dev, impl="cuda")
+    wp_w = write_probe(*wk, device=dev, impl="torch")
+    torch.cuda.synchronize()
+    if not (torch.equal(tile, tile_w) and torch.equal(sums, sums_w)):
+        raise RuntimeError("read probe kernel != plain version")
+    if not torch.equal(wp, wp_w):
+        raise RuntimeError("write probe kernel != plain version")
+    rows = probes.NB * probes.TB
+    n_read = probes.S * rows * probes.M
+    wp_lib = torch.empty_like(wp)
+    probe_times = {}
+    for name, kernel, plain, lib, nbytes, adds in (
+            ("read_probe", lambda: read_probe(xp, impl="cuda", **pk),
+             lambda: read_probe(xp, impl="torch", **pk),
+             lambda: xp[:, :rows].sum(dtype=torch.int64),
+             n_read + _nbytes(tile, sums), n_read),
+            ("write_probe", lambda: write_probe(*wk, device=dev, impl="cuda"),
+             lambda: write_probe(*wk, device=dev, impl="torch"),
+             lambda: wp_lib.fill_(1), _nbytes(wp), 0)):
+        cold = time_cuda(kernel, warmup=2, iters=200, flush_l2=True) * 1e3
+        warm = _events_ms(kernel, 200)
+        plain_ms = time_cuda(plain, warmup=1, iters=20, flush_l2=True) * 1e3
+        lib_ms = time_cuda(lib, warmup=1, iters=20, flush_l2=True) * 1e3
+        bound = bound_ms(nbytes, int8_ops=adds)
+        probe_times[name] = (cold, plain_ms, bound, lib_ms)
+        print(f"[19 {name}] bitwise equal to plain; kernel {cold:.4f} ms "
+              f"with the L2 flushed ({nbytes / cold / 1e6:.1f} GB/s), "
+              f"{warm:.4f} ms back to back ({nbytes / warm / 1e6:.1f} GB/s); "
+              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) for {nbytes / 1e6:.1f} MB "
+              f"({card})", flush=True)
+    del xp, tile, sums, tile_w, sums_w, wp, wp_w, wp_lib
+    torch.cuda.empty_cache()
+
+    # ---- 20. the bench entry: its headline, then its probes target -------
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    if bench_main([]) != 0:
+        raise RuntimeError("the bench entry's headline failed")
+    torch.cuda.synchronize()
+    headline_counts = ran("fengine", "cmac")
+    print(f"[20 bench headline] launches {headline_counts} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    zero_counts()
+    t = time.perf_counter()
+    if bench_main(["probes"]) != 0:
+        raise RuntimeError("the bench entry's probes target failed")
+    torch.cuda.synchronize()
+    probe_counts = ran("read_probe", "write_probe")
+    print(f"[20 bench probes] launches {probe_counts} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:
             raise RuntimeError(f"the port must not import {banned}")
@@ -884,6 +944,10 @@ def main() -> int:
               "dc_sand_tpu/parallel/remote_dma.py:85",
               sum(c["all_to_all"] for c in mesh_launches.values()), 0,
               a2a_ms, a2a_plain_ms, a2a_bound, a2a_lib_ms),
+        entry("read_probe", "probes.cu", "scripts/sweep_s10_micro.py:26",
+              probe_counts["read_probe"], 0, *probe_times["read_probe"]),
+        entry("write_probe", "probes.cu", "scripts/sweep_s10_micro.py:49",
+              probe_counts["write_probe"], 0, *probe_times["write_probe"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,8 @@ _SIGNATURES = {
     "remote_dma": {"dcs_all_to_all": [_P, Peers, _I, _I, _L, _P],
                    "dcs_ring": [_P, Peers, _L, _P],
                    "dcs_enable_peer": [_I]},
+    "probes": {"dcs_read_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+               "dcs_write_probe": [_P, _I, _I, _I, _I, _I, _P]},
 }
 
 

@@ -64,6 +64,7 @@ import torch
 
 from dc_sand_tpu_torch.config import ChainConfig
 from dc_sand_tpu_torch.models.fengine import f_engine
+from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.beamform import beamform, quantize_beams
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.stokes import stokes
@@ -248,15 +249,14 @@ def _cat(parts, dim: int) -> torch.Tensor:
 
 def make_step(cfg: ChainConfig, window, *, device=None, mesh=None,
               fused: bool = True):
-    """Build the streaming step for ``cfg`` on ``device``, or over ``mesh``
-    (see the module docstring): it launches the CUDA kernels on CUDA
-    devices and runs their plain versions on the CPU.  ``fused`` picks the
+    """Build the streaming step for ``cfg`` on ``device`` (None: the
+    current CUDA device; it raises without a card), or over ``mesh`` (see
+    the module docstring): it launches the CUDA kernels on CUDA devices
+    and runs their plain versions on the CPU.  ``fused`` picks the
     F-engine path (:func:`dc_sand_tpu_torch.models.fengine.f_engine`)."""
     check_mode(cfg, mesh)
     if mesh is None:
-        if device is None:
-            raise ValueError("make_step needs a device or a mesh")
-        return _make_one_step(cfg, window, torch.device(device), fused)
+        return _make_one_step(cfg, window, default_device(device), fused)
     if mesh.size == 1:
         return _listed(_make_one_step(cfg, window, mesh.flat_devices[0],
                                       fused))

@@ -1,10 +1,11 @@
-"""impl= dispatch helper shared by the ops that hold a CUDA kernel."""
+"""impl= dispatch helper shared by the ops that hold a CUDA kernel, and the
+default device of the entry points."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_impl"]
+__all__ = ["resolve_impl", "default_device"]
 
 
 def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
@@ -26,3 +27,15 @@ def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
     if impl == "torch":
         return impl
     raise ValueError(f"unknown impl {impl!r}")
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` is the current CUDA
+    device.  Without a card, ``None`` raises: the entry points run on the
+    card, and the CPU only when a caller passes ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is present; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())

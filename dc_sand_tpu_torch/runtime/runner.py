@@ -40,6 +40,7 @@ from dc_sand_tpu_torch.models.pipeline import (gather_acc, gather_outputs,
                                                history_shape, make_step,
                                                mode_for, shard_inputs,
                                                zero_vis_acc)
+from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
 from dc_sand_tpu_torch.parallel import FX_AXIS, build_mesh
 from dc_sand_tpu_torch.runtime.delays import DelayModel
@@ -83,8 +84,9 @@ class FXRunner:
     it between chunks re-points the beams.  ``fused``: the F-engine path
     (:func:`dc_sand_tpu_torch.models.fengine.f_engine`); False is the
     counterpart of the JAX runner's ``impl="pallas"``.  Give ``device``
-    for one device (a mesh of one shard) or ``mesh`` for a mesh (whose
-    first shard's device is then :attr:`device`).
+    for one device (a mesh of one shard; None is the current CUDA device,
+    and raises without a card) or ``mesh`` for a mesh (whose first
+    shard's device is then :attr:`device`).
     """
 
     def __init__(self, cfg: ChainConfig, window: np.ndarray,
@@ -94,10 +96,10 @@ class FXRunner:
                  mesh=None, fused: bool = True):
         self.cfg = cfg
         self.mode = mode_for(cfg)
-        if (device is None) == (mesh is None):
+        if device is not None and mesh is not None:
             raise ValueError("FXRunner takes a device or a mesh, one of them")
         if mesh is None:
-            mesh = build_mesh([device])
+            mesh = build_mesh([default_device(device)])
         self.mesh = mesh
         self.device = mesh.flat_devices[0]
         self._devices = mesh.flat_devices

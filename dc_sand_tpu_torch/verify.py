@@ -74,7 +74,8 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
                   n_spectra_per_acc: Optional[int] = 32,
                   time_shards: int = 1, beam_parallel: bool = False,
                   fused: bool = True):
-    """Run config ``name`` end-to-end on ``device``; returns ``(snrs,
+    """Run config ``name`` end-to-end on ``device`` (None: the current
+    CUDA device; it raises without a card); returns ``(snrs,
     counters)`` — per-output SNRs in dB vs golden (fengine: ``{"spectra":
     ...}``; fx: ``{"visibilities": min over dumps}``; beam: ``{"beams":
     ..., "incoherent": ...}``, each over all chunks) and the runner's

@@ -35,8 +35,13 @@ names = [m.name for m in pkgutil.walk_packages(dc_sand_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-print(len(names))
+print(" ".join(names))
 """
+
+# the bench layer and its entry, imported with the rest
+BENCH_MODULES = ("bench", "bench.__main__", "bench.harness", "bench.probes",
+                 "bench.kernels", "bench.pipelines", "bench.membench",
+                 "bench.collectives", "bench.scaling", "bench.regress")
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -44,7 +49,9 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 28
+    names = set(res.stdout.split())
+    assert len(names) >= 38
+    assert {f"dc_sand_tpu_torch.{m}" for m in BENCH_MODULES} <= names
 
 
 def test_cuda_impl_on_cpu_tensors_raises():

@@ -26,11 +26,12 @@ the run (non-zero exit) when it fails:
    it prints is with the chunks already on the card (no host-to-device
    copy); ``python -m dc_sand_tpu_torch.profile_step`` measures the
    numpy feed;
-7. beam kernel (K4/K4p/K5) vs its plain version at the beam64 shape
-   (64 ants x 2 pols, 256 spectra, 4096 channels, 16 beams): float beams
-   >= 100 dB apart, the incoherent beam bitwise equal, and int8 beams at
-   a scale that puts the rms of y*s near 30 LSB within 1 LSB with at
-   most 1e-4 of the values flipped;
+7. beam kernel (K4/K4p/K5, on the tensor cores) vs its plain version at
+   the beam64 shape (64 ants x 2 pols, 256 spectra, 4096 channels, 16
+   beams): float beams >= 100 dB apart, the incoherent beam bitwise
+   equal, and int8 beams at a scale that puts the rms of y*s near 30 LSB
+   within 1 LSB with at most 1e-4 of the values flipped; the same three
+   checks at a mesh shard's 16 antennas and at 64 beams (64 spectra);
 8. ``verify beam64`` at full width with verify's short cadence (16-spectra
    chunks, 4 chunks): beams and incoherent beam each >50 dB against the
    float64 golden chain;
@@ -68,15 +69,17 @@ the same checks:
 15. peer-copy ring step (K7a) vs its plain version on a 4-shard ring of
     int8 (64, 16, 8192), the SP halo at fx64, and on a 2-shard ring:
     bitwise equal; ``library_ms`` is ``Tensor.copy_`` of the same blocks;
-    it also times one launch that moves the 4-shard ring's bytes (a
-    one-shard ring of the four blocks stacked), against the ring's four
-    launches;
+    one call launches once per card that holds a sender (on one card the
+    whole ring is one launch), and so do the two rings of two of a
+    (time 2, fx 2) mesh, checked bitwise over both axes; it also prints
+    the wrapper's host time per call;
 16. fx64 on a 4-way fx mesh at production cadence, phase 6's chunks and
     delay model: the dump bitwise equal to phase 6's; launch counters K1
     16, CMAC 16, all-to-all 16, all others 0; it prints the device step,
     ``run()`` per chunk and the peak device memory;
 17. fx64 in SP mode on a (time 2, fx 2) mesh, the same chunks: the dump
-    bitwise equal to phase 6's; K1 16, CMAC 16, all-to-all 16, ring 16;
+    bitwise equal to phase 6's; K1 16, CMAC 16, all-to-all 16, ring 4 x
+    the number of cards (one launch a chunk and card);
 18. beam64 on a 4-way fx mesh, replicated and beam-parallel, phase 9's
     chunks and weights: beams and incoherent beam >= 100 dB from phase
     9's (float sums in another order), the beam-parallel beams equal to
@@ -102,7 +105,8 @@ least time the card could take for the same work, the larger of the bytes
 it must move (each input read once, each output written once) at the HBM
 rate and its operations at the data sheet's peak for their type
 (``harness.bound_ms``: 3.35 TB/s, 67 fp32 TFLOP/s without the tensor
-cores, 1979 int8 TOP/s), from the shapes of the timed call;
+cores, 1979 int8 TOP/s, 989 bf16 TFLOP/s for the beam kernel's useful
+flops), from the shapes of the timed call;
 ``library_ms`` is one PyTorch call that computes the same function, where
 there is one, timed as a yardstick and never called by the port.
 
@@ -415,19 +419,35 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. beam kernel vs plain at the beam64 shape ----------------------
-    q = noise_int8(gen, (FX64_STREAMS // 2, 2, BEAM_SPECTRA, nch, 2), dev)
-    bw = torch.randn((BEAMS, FX64_STREAMS // 2, nch, 2), generator=gen,
-                     device=dev)
-    got, inc = beamform(q, bw, incoherent=True, impl="cuda")
-    want, inc_w = beamform(q, bw, incoherent=True, impl="torch")
-    beam_snr = _snr_db(want, got)
-    beam_err = float((got - want).abs().max())
-    inc_equal = torch.equal(inc, inc_w)
-    qs = BEAM_QUANT_RMS / float(want.double().pow(2).mean().sqrt())
-    got_q, _ = beamform(q, bw, quant_scale=qs, impl="cuda")
-    want_q, _ = beamform(q, bw, quant_scale=qs, impl="torch")
-    dq = (got_q.to(torch.int16) - want_q.to(torch.int16)).abs()
-    q_max, q_flips = int(dq.max()), float((dq > 0).double().mean())
+    na = FX64_STREAMS // 2
+
+    def beam_check(n_ants, n_beams, n_spectra):
+        """Kernel vs plain on seeded inputs: (q, weights, float beams dB,
+        max |diff|, incoherent bitwise, int8 scale, int8 max |diff| in LSB,
+        int8 flip fraction); raises where they disagree."""
+        q = noise_int8(gen, (n_ants, 2, n_spectra, nch, 2), dev)
+        bw = torch.randn((n_beams, n_ants, nch, 2), generator=gen, device=dev)
+        got, inc = beamform(q, bw, incoherent=True, impl="cuda")
+        want, inc_w = beamform(q, bw, incoherent=True, impl="torch")
+        snr = _snr_db(want, got)
+        err = float((got - want).abs().max())
+        inc_equal = torch.equal(inc, inc_w)
+        qs = BEAM_QUANT_RMS / float(want.double().pow(2).mean().sqrt())
+        got_q, _ = beamform(q, bw, quant_scale=qs, impl="cuda")
+        want_q, _ = beamform(q, bw, quant_scale=qs, impl="torch")
+        dq = (got_q.to(torch.int16) - want_q.to(torch.int16)).abs()
+        q_max, q_flips = int(dq.max()), float((dq > 0).double().mean())
+        if not (snr >= BEAM_SNR_DB and inc_equal and q_max <= 1
+                and q_flips <= MAX_FLIP_FRACTION):
+            raise RuntimeError(
+                f"beam kernel disagrees with its plain version at {n_ants} "
+                f"antennas, {n_beams} beams: {snr:.2f} dB, incoherent "
+                f"bitwise {inc_equal}, int8 max |diff| {q_max}, flips "
+                f"{q_flips:.3e}")
+        return q, bw, snr, err, inc_equal, qs, q_max, q_flips
+
+    q, bw, beam_snr, beam_err, inc_equal, qs, q_max, q_flips = beam_check(
+        na, BEAMS, BEAM_SPECTRA)
     beam_ms = _events_ms(
         lambda: beamform(q, bw, incoherent=True, impl="cuda"), 10)
     beam_plain_ms = _events_ms(
@@ -435,28 +455,45 @@ def main() -> int:
     # the library yardstick: the coherent beams as one complex64 matmul
     # batched over channels, (K, nb, a) @ (K, a, p*B), on inputs already
     # converted to complex64 (the conversion is not timed)
-    na = FX64_STREAMS // 2
     xc = torch.complex(q[..., 0].float(), q[..., 1].float()).permute(
         3, 0, 1, 2).reshape(nch, na, 2 * BEAM_SPECTRA).contiguous()
     wc = torch.complex(bw[..., 0], bw[..., 1]).permute(2, 0, 1).contiguous()
     beam_lib_ms = _events_ms(lambda: torch.matmul(wc, xc), 5)
     del xc, wc
-    flops = 8 * BEAMS * 2 * BEAM_SPECTRA * nch * na   # 8 per complex MAC
-    beam_bound = bound_ms(_nbytes(q, bw, got, inc),
-                          flops + 4 * 2 * BEAM_SPECTRA * nch * na)
+    # 8 useful flops per complex MAC, once, at the bf16 tensor-core peak
+    # (the kernel spends three passes on them); the incoherent sum's 4
+    # flops a sample at the fp32 peak; every byte once
+    flops = 8 * BEAMS * 2 * BEAM_SPECTRA * nch * na
+    out_bytes = BEAMS * 2 * BEAM_SPECTRA * nch * 2 * 4
+    inc_bytes = 2 * BEAM_SPECTRA * nch * 4
+    beam_bound = bound_ms(_nbytes(q, bw) + out_bytes + inc_bytes,
+                          fp32_ops=4 * 2 * BEAM_SPECTRA * nch * na,
+                          bf16_ops=flops)
     print(f"[7 beamform] float beams {beam_snr:.2f} dB vs plain (max |diff| "
           f"{beam_err:.3e}), incoherent bitwise {inc_equal}; int8 at "
           f"scale {qs:.5f}: max |diff| {q_max} LSB, flip fraction "
           f"{q_flips:.3e}; kernel {beam_ms:.3f} ms "
-          f"({flops / beam_ms / 1e9:.2f} fp32 TFLOP/s), plain "
-          f"{beam_plain_ms:.3f} ms, complex64 matmul {beam_lib_ms:.3f} ms, "
-          f"bound {beam_bound[0]:.3f} ms "
+          f"({flops / beam_ms / 1e9:.2f} useful TFLOP/s, "
+          f"{(_nbytes(q, bw) + out_bytes + inc_bytes) / beam_ms / 1e6:.1f} "
+          f"GB/s), plain {beam_plain_ms:.3f} ms, complex64 matmul "
+          f"{beam_lib_ms:.3f} ms, bound {beam_bound[0]:.3f} ms "
           f"({beam_bound[1]}) ({card})", flush=True)
-    if not (beam_snr >= BEAM_SNR_DB and inc_equal and q_max <= 1
-            and q_flips <= MAX_FLIP_FRACTION):
-        raise RuntimeError("beam kernel disagrees with its plain version")
-    del q, bw, got, inc, want, inc_w, got_q, want_q, dq
+    del q, bw
     torch.cuda.empty_cache()
+    # a mesh shard's call (16 antennas) and the bench's 64-beam call
+    for n_ants, n_beams, n_spectra in ((na // SHARDS, BEAMS, BEAM_SPECTRA),
+                                       (na, 4 * BEAMS, 64)):
+        q, bw, snr, err, _, _, q_max, q_flips = beam_check(n_ants, n_beams,
+                                                           n_spectra)
+        ms = _events_ms(
+            lambda: beamform(q, bw, incoherent=True, impl="cuda"), 10)
+        print(f"[7 beamform] {n_ants} antennas, {n_beams} beams, "
+              f"{n_spectra} spectra: float beams {snr:.2f} dB vs plain (max "
+              f"|diff| {err:.3e}), incoherent bitwise True, int8 max |diff| "
+              f"{q_max} LSB, flip fraction {q_flips:.3e}; kernel {ms:.3f} ms "
+              f"({card})", flush=True)
+        del q, bw
+        torch.cuda.empty_cache()
 
     # ---- 8. verify beam64 at full width against golden --------------------
     t = time.perf_counter()
@@ -748,17 +785,32 @@ def main() -> int:
             ring_ms, ring_plain_ms, ring_lib_ms, ring_bound = (ms, plain, lib,
                                                                bound)
         del xs, got, want, outs_lib, blocks
-    # the same bytes as the 4-shard ring in ONE launch: a one-shard ring of
-    # the four blocks stacked, which the kernel copies onto its own shard
-    one_mesh = build_mesh(shard_devs[:1])
-    whole = [noise_int8(gen, (SHARDS * halo_shape[0],) + halo_shape[1:],
-                        shard_devs[0])]
-    one_ms = _events_ms(lambda: ring_permute_right(
-        whole, one_mesh, TIME_AXIS, impl="cuda"), 20)
-    print(f"[15 ring] one launch moving the {SHARDS}-shard ring's "
-          f"{_nbytes(*whole) / 1e6:.1f} MB: {one_ms:.4f} ms, against "
-          f"{ring_ms:.4f} ms in {SHARDS} launches ({card})", flush=True)
-    del whole
+    # both rings of two of a (time 2, fx 2) mesh ride in one launch a card
+    sp_mesh = build_mesh(shard_devs, time_shards=2)
+    xs = [noise_int8(gen, halo_shape, dev).to(d) for d in shard_devs]
+    for axis in (TIME_AXIS, FX_AXIS):
+        zero_counts()
+        got = ring_permute_right(xs, sp_mesh, axis, impl="cuda")
+        n_launches = ring_permute_right.launches
+        want = ring_permute_right_torch(xs, sp_mesh, axis)
+        if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+            raise RuntimeError(f"ring kernel != plain version on the (2, 2) "
+                               f"mesh, axis {axis}")
+        if n_launches != n_cards:
+            raise RuntimeError(f"(2, 2) ring over {axis}: {n_launches} "
+                               f"launches, expected one a card ({n_cards})")
+    del got, want
+    # the wrapper's host time per call, the card left to run behind
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        ring_permute_right(xs, sp_mesh, TIME_AXIS, impl="cuda")
+    ring_host_ms = (time.perf_counter() - t) / 200 * 1e3
+    torch.cuda.synchronize()
+    print(f"[15 ring] (time 2, fx 2) mesh: both axes bitwise equal to plain, "
+          f"{n_cards} launch(es) a call for {SHARDS} shards; wrapper host "
+          f"time {ring_host_ms:.4f} ms a call ({card})", flush=True)
+    del xs
 
     # ---- 16./17. fx64 on a 4-way fx mesh and on a (2, 2) SP mesh ----------
     mesh_launches = {}
@@ -778,7 +830,7 @@ def main() -> int:
         first_s = time.perf_counter() - t
         n_sh = n_chunks * SHARDS
         got_counts = counts(fengine=n_sh, cmac=n_sh, all_to_all=n_sh,
-                            ring=n_sh if time_shards > 1 else 0)
+                            ring=n_chunks * n_cards if time_shards > 1 else 0)
         mesh_launches[phase] = got_counts
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if len(dumps) != 1 or not np.array_equal(dumps[0].vis, vis_fused):

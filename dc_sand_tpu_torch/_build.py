@@ -26,7 +26,7 @@ import types
 from pathlib import Path
 
 __all__ = ["library", "build_log", "check", "build_dir", "NVCC_FLAGS",
-           "Peers", "MAX_PEERS"]
+           "Peers", "Pairs", "MAX_PEERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +46,13 @@ class Peers(ctypes.Structure):
     _fields_ = [("dst", ctypes.c_void_p * MAX_PEERS)]
 
 
+class Pairs(ctypes.Structure):
+    """``DcsPairs`` of ``csrc/remote_dma.cu``: the (source, destination)
+    block pointers of one ring launch, passed by value."""
+    _fields_ = [("src", ctypes.c_void_p * MAX_PEERS),
+                ("dst", ctypes.c_void_p * MAX_PEERS)]
+
+
 # source stem -> its C entry points -> argument types (pointers and the
 # stream as c_void_p, byte counts as c_longlong)
 _SIGNATURES = {
@@ -56,7 +63,7 @@ _SIGNATURES = {
                                   _P]},
     "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "remote_dma": {"dcs_all_to_all": [_P, Peers, _I, _I, _L, _P],
-                   "dcs_ring": [_P, Peers, _L, _P],
+                   "dcs_ring": [Pairs, _I, _L, _P],
                    "dcs_enable_peer": [_I]},
     "probes": {"dcs_read_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
                "dcs_write_probe": [_P, _I, _I, _I, _I, _I, _P]},

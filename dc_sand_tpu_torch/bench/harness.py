@@ -37,11 +37,11 @@ from dc_sand_tpu_torch.ops._dispatch import default_device
 
 __all__ = ["time_cuda", "BenchResult", "HBM_BW_BY_CHIP", "detect_chip",
            "card", "bound_ms", "fengine_flops", "HBM_BYTES_S", "FP32_FLOPS",
-           "INT8_OPS"]
+           "INT8_OPS", "BF16_FLOPS"]
 
 # NVIDIA H100 SXM data sheet: HBM rate, fp32 without the tensor cores, int8
-# tensor-core peak (dense); the rates assume the card's full 700 W
-HBM_BYTES_S, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+# and bf16 tensor-core peaks (dense); the rates assume the card's full 700 W
+HBM_BYTES_S, FP32_FLOPS, INT8_OPS, BF16_FLOPS = 3.35e12, 67e12, 1979e12, 989e12
 L2_BYTES = 50 * 2 ** 20
 
 # Peak HBM bandwidth per chip, GB/s (data sheets)
@@ -74,12 +74,15 @@ def card() -> str:
 
 
 def bound_ms(nbytes: float, fp32_ops: float = 0.0,
-             int8_ops: float = 0.0) -> tuple:
+             int8_ops: float = 0.0, bf16_ops: float = 0.0) -> tuple:
     """``(bound_ms, bound_by)``: the larger of ``nbytes`` at the HBM rate
-    and the operations at their peaks (fp32 and int8 times added), with
-    ``"bytes"`` or ``"operations"``."""
+    and the operations at their peaks (fp32, int8 and bf16 times added),
+    with ``"bytes"`` or ``"operations"``.  ``bf16_ops`` are the useful
+    operations of a product that runs on the bf16 tensor cores, counted
+    once however many passes the kernel spends on them."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = (fp32_ops / FP32_FLOPS + int8_ops / INT8_OPS) * 1e3
+    t_ops = (fp32_ops / FP32_FLOPS + int8_ops / INT8_OPS
+             + bf16_ops / BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -155,24 +158,26 @@ class BenchResult:
     extra: dict = dataclasses.field(default_factory=dict)
 
     def finish(self, device=None, *, fp32_ops: float = 0.0,
-               int8_ops: float = 0.0) -> "BenchResult":
+               int8_ops: float = 0.0, bf16_ops: float = 0.0) -> "BenchResult":
         """Record the platform, the chip and the operation counts; on a
         card also its name and power limit, the H100 bound of the counted
         bytes and operations and the share of it reached
         (``pct_of_bound``, a fraction; above 1.0 the counts are wrong and
-        this raises), the achieved HBM rate and the fp32 and int8 rates
-        beside their peaks."""
+        this raises), the achieved HBM rate and the fp32, int8 and bf16
+        rates beside their peaks."""
         dev = default_device(device)
         ex = self.extra
         ex["chip"] = detect_chip(dev)
         ex["fp32_ops"], ex["int8_ops"] = fp32_ops, int8_ops
+        ex["bf16_ops"] = bf16_ops
         if dev.type == "cpu":
             ex["platform"] = "cpu"
             return self
         ex["platform"] = "gpu"
         name, _, limit = card().partition(",")
         ex["card"], ex["power_limit"] = name.strip(), limit.strip()
-        ms, by = bound_ms(self.bytes_moved or 0.0, fp32_ops, int8_ops)
+        ms, by = bound_ms(self.bytes_moved or 0.0, fp32_ops, int8_ops,
+                          bf16_ops)
         pct = ms / (self.wall_s * 1e3)
         if pct > 1.0:
             raise RuntimeError(
@@ -190,6 +195,9 @@ class BenchResult:
         if int8_ops:
             ex["int8_tops"] = int8_ops / self.wall_s / 1e12
             ex["int8_frac_of_peak"] = int8_ops / self.wall_s / INT8_OPS
+        if bf16_ops:
+            ex["bf16_tflops"] = bf16_ops / self.wall_s / 1e12
+            ex["bf16_frac_of_peak"] = bf16_ops / self.wall_s / BF16_FLOPS
         return self
 
     def to_json(self) -> str:

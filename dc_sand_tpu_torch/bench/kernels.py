@@ -142,4 +142,4 @@ def bench_beamform(n_beams: int = 16, n_ants: int = 64, n_pols: int = 2,
         extra={"n_beams": n_beams, "n_ants": n_ants, "n_chans": n_chans,
                "n_spectra": n_spectra, "layout": layout,
                "quant_scale": quant_scale},
-    ).finish(dev, fp32_ops=flops)
+    ).finish(dev, bf16_ops=flops)   # the tensor-core kernel's useful flops

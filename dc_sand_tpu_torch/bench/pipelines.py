@@ -170,4 +170,5 @@ def bench_beam_step(n_ants: int = 64, n_pols: int = 2,
                "vs_array_realtime": samples / wall / ARRAY_REALTIME},
     ).finish(dev, fp32_ops=fengine_flops(a * p * b, cfg.fft_size, taps,
                                          rotate=True, quant=True)
-             + 8 * n_beams * p * b * k * a)
+             + 4 * a * p * b * k,            # the incoherent sum
+             bf16_ops=8 * n_beams * p * b * k * a)

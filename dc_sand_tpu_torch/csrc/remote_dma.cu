@@ -9,20 +9,24 @@
 //       shard s's output (its own block included).
 //
 // The TPU kernels issue make_async_remote_copy DMAs to the other chips and
-// wait on DMA semaphores.  Here one launch per SENDING shard copies its blocks
-// with ordinary loads and stores into the receivers' output buffers, addressed
-// by raw device pointers: the shards of a mesh may share one card (every shard
-// is an allocation of its own, and the kernel still does all the cross-shard
-// copying) or sit on different cards, where the stores go to the peer card's
-// memory over NVLink (unified addressing, peer access enabled by
-// dcs_enable_peer).  The wrapper (dc_sand_tpu_torch/parallel/remote_dma.py)
-// orders the launches with stream events in place of the DMA semaphores.
+// wait on DMA semaphores.  Here a launch copies blocks with ordinary loads and
+// stores into the receivers' output buffers, addressed by raw device pointers:
+// the shards of a mesh may share one card (every shard is an allocation of its
+// own, and the kernel still does all the cross-shard copying) or sit on
+// different cards, where the stores go to the peer card's memory over NVLink
+// (unified addressing, peer access enabled by dcs_enable_peer).  The wrapper
+// (dc_sand_tpu_torch/parallel/remote_dma.py) orders the launches with stream
+// events in place of the DMA semaphores.
 //
-// Both entries take a by-value struct of up to 16 destination base pointers
-// (the JAX package's contract mesh has 16 shards), the sender's index and the
-// block size.  A thread copies 16 bytes at a time, grid-stride; the tail of a
-// block that is not a multiple of 16 bytes, or a block whose addresses are not
-// 16-byte aligned, is copied byte by byte.
+// One kernel serves both: it takes, by value, up to 16 (source, destination)
+// pointer pairs (the JAX package's contract mesh has 16 shards; 256 B of the
+// 4 KB a launch may carry) and the block size, blockIdx.y picks the pair.  A
+// thread copies 16 bytes at a time, grid-stride; the tail of a block that is
+// not a multiple of 16 bytes, or a launch with an address that is not 16-byte
+// aligned, is copied byte by byte.  K7b launches once per SENDING shard (its
+// n row-blocks to the n receivers).  K7a launches once per CARD: the pairs of
+// every sender that sits on the card ride in one launch, so the 4-shard ring
+// of the SP halo on one card, or both rings of a (2, 2) mesh, is one launch.
 //
 // What bounds it on the H100: bytes.  Each byte is read once and written
 // once, so on one card a call moves 2x its payload at 3.35 TB/s: K7b at the
@@ -32,29 +36,39 @@
 // each way per card.  What the design does about it: nothing but wide,
 // coalesced accesses (a warp moves 512 contiguous bytes) and a grid large
 // enough to keep every SM's loads in flight; there is no arithmetic to hide.
+// K7a at the SP halo (4 blocks of 8.4 MB, bound 0.020 ms) is small enough
+// that the launches and the host work around them, not the bytes, decide its
+// time: one launch for the ring takes 0.054-0.069 ms where four took 0.126 ms
+// (an H100 80GB HBM3 at 700 W), which is why the pairs share a launch; the
+// wrapper's host work, about 0.04-0.05 ms a call, is what is left.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define DCS_MAX_PEERS 16
 
-// Destination base pointers of one launch, passed by value.
+// Destination base pointers of one K7b launch, passed by value.
 struct DcsPeers {
+  char* dst[DCS_MAX_PEERS];
+};
+
+// The (source, destination) block pairs of one launch, passed by value.
+struct DcsPairs {
+  const char* src[DCS_MAX_PEERS];
   char* dst[DCS_MAX_PEERS];
 };
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 2048;  // per launch, over all destinations
+constexpr int kMaxBlocks = 2048;  // per launch, over all pairs
 
-// blockIdx.y = destination d: copy nbytes from src + d * src_stride to
-// peers.dst[d] + dst_off.  vec: all addresses 16-byte aligned.
+// blockIdx.y = pair d: copy nbytes from pairs.src[d] to pairs.dst[d].
+// vec: all addresses 16-byte aligned.
 __global__ void __launch_bounds__(kThreads)
-    copy_blocks(const char* __restrict__ src, const __grid_constant__ DcsPeers peers,
-                long long src_stride, long long dst_off, long long nbytes, int vec) {
-  const char* s = src + blockIdx.y * src_stride;
-  char* t = peers.dst[blockIdx.y] + dst_off;
+    copy_pairs(const __grid_constant__ DcsPairs pairs, long long nbytes, int vec) {
+  const char* s = pairs.src[blockIdx.y];
+  char* t = pairs.dst[blockIdx.y];
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long step = static_cast<long long>(gridDim.x) * kThreads;
   const long long n16 = vec ? nbytes / 16 : 0;
@@ -64,24 +78,24 @@ __global__ void __launch_bounds__(kThreads)
   for (long long v = n16 * 16 + i; v < nbytes; v += step) t[v] = s[v];
 }
 
-int launch(const void* src, const DcsPeers& peers, int n_dst, long long src_stride,
-           long long dst_off, long long nbytes, void* stream) {
-  if (n_dst < 1 || n_dst > DCS_MAX_PEERS || nbytes < 0 || src == nullptr)
+int launch(const DcsPairs& pairs, int n_pairs, long long nbytes, void* stream) {
+  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || nbytes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nbytes == 0) return static_cast<int>(cudaGetLastError());
-  int vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 && src_stride % 16 == 0 &&
-            dst_off % 16 == 0;
-  for (int d = 0; d < n_dst; ++d) {
-    if (peers.dst[d] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    vec = vec && reinterpret_cast<uintptr_t>(peers.dst[d]) % 16 == 0;
+  int vec = 1;
+  for (int d = 0; d < n_pairs; ++d) {
+    if (pairs.src[d] == nullptr || pairs.dst[d] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    vec = vec && reinterpret_cast<uintptr_t>(pairs.src[d]) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(pairs.dst[d]) % 16 == 0;
   }
+  if (nbytes == 0) return static_cast<int>(cudaGetLastError());
   const long long units = vec ? (nbytes + 15) / 16 : nbytes;
   long long bx = (units + kThreads - 1) / kThreads;
-  const long long cap = kMaxBlocks / n_dst > 0 ? kMaxBlocks / n_dst : 1;
+  const long long cap = kMaxBlocks / n_pairs > 0 ? kMaxBlocks / n_pairs : 1;
   if (bx > cap) bx = cap;
-  const dim3 grid(static_cast<unsigned>(bx), n_dst);
-  copy_blocks<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(src), peers, src_stride, dst_off, nbytes, vec);
+  const dim3 grid(static_cast<unsigned>(bx), n_pairs);
+  copy_pairs<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(pairs, nbytes,
+                                                                       vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -93,15 +107,21 @@ int launch(const void* src, const DcsPeers& peers, int n_dst, long long src_stri
 // current device, which must own `stream`; returns cudaGetLastError().
 extern "C" int dcs_all_to_all(const void* src, DcsPeers peers, int n, int my,
                               long long block_bytes, void* stream) {
-  if (my < 0 || my >= n) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(src, peers, n, block_bytes, my * block_bytes, block_bytes, stream);
+  if (my < 0 || my >= n || n > DCS_MAX_PEERS || src == nullptr || block_bytes < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DcsPairs pairs = {};
+  for (int s = 0; s < n; ++s) {
+    if (peers.dst[s] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    pairs.src[s] = static_cast<const char*>(src) + s * block_bytes;
+    pairs.dst[s] = peers.dst[s] + my * block_bytes;
+  }
+  return launch(pairs, n, block_bytes, stream);
 }
 
-// K7a, one sender: its whole block of nbytes goes to peers.dst[0] (the right
-// neighbour's output).
-extern "C" int dcs_ring(const void* src, DcsPeers peers, long long nbytes,
-                        void* stream) {
-  return launch(src, peers, 1, 0, 0, nbytes, stream);
+// K7a, every sender of one card: the whole block of nbytes at pairs.src[d]
+// goes to pairs.dst[d] (its right neighbour's output), d < n_pairs.
+extern "C" int dcs_ring(DcsPairs pairs, int n_pairs, long long nbytes, void* stream) {
+  return launch(pairs, n_pairs, nbytes, stream);
 }
 
 // Let the current device's kernels address `peer`'s memory (both on this host,

@@ -10,8 +10,14 @@ and the incoherent beam is ``sum_a |x[a, p, b, k]|^2``.  On CUDA tensors
 which replaces the TPU kernels of ``dc_sand_tpu/ops/beamform.py``
 (``_beam_native_kernel``, ``_beam_native_kernel_pmerge`` and
 ``_bf_kernel``): it reads the F-engine's wire spectra as they are, forms
-both outputs in one pass with fp32 FMAs, and can quantise the beams to
-int8 in its epilogue.  On CPU tensors it runs the plain versions below.
+both outputs in one pass, and can quantise the beams to int8 in its
+epilogue.  The kernel runs each channel as a real GEMM on the bf16
+tensor cores with exact operands: the int8 samples as they are, and each
+float32 weight split into three bf16 pieces (:func:`split3`), laid out
+with the reduction axis ordered (antenna, re/im)
+(:func:`interleaved_weights`); :func:`beamform_split_torch` is that
+arithmetic in plain PyTorch, for the tests.  On CPU tensors
+:func:`beamform` runs the plain versions below.
 
 The plain versions cast int8 samples to float32 before any product:
 PyTorch's int8 ``einsum`` returns int8 and wraps.
@@ -27,7 +33,8 @@ from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 
 __all__ = ["beamform", "beamform_torch", "incoherent_sum_torch",
-           "quantize_beams"]
+           "quantize_beams", "split3", "interleaved_weights",
+           "beamform_split_torch"]
 
 
 def _split_ri(x: torch.Tensor):
@@ -47,6 +54,48 @@ def beamform_torch(q: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
     return torch.stack([mm(wr, xr) - mm(wi, xi), mm(wr, xi) + mm(wi, xr)],
                        dim=-1)
+
+
+def split3(w: torch.Tensor):
+    """The kernel's weight split: float32 ``w`` -> ``(hi, mid, lo)``, each
+    float32 holding a bf16 value, ``hi = bf16(w)``, ``mid = bf16(w - hi)``,
+    ``lo = bf16(w - hi - mid)`` (round to nearest even, residuals in
+    float32).  8 + 8 + 8 significant bits: ``hi + mid + lo == w`` exactly
+    for a normal float32."""
+    def bf16(x):
+        return x.to(torch.bfloat16).to(torch.float32)
+
+    hi = bf16(w)
+    r1 = w - hi
+    mid = bf16(r1)
+    return hi, mid, bf16(r1 - mid)
+
+
+def interleaved_weights(weights: torch.Tensor) -> torch.Tensor:
+    """The kernel's B operand: ``weights (nb, a, k, 2)`` -> ``W' (k, 2a,
+    2nb)`` with rows ``2a + c'`` (antenna, re/im of the sample) and
+    columns ``2e + c`` (beam, re/im of the output): ``(wr, -wi)`` down the
+    real column, ``(wi, wr)`` down the imaginary."""
+    wr, wi = weights[..., 0], weights[..., 1]              # (nb, a, k)
+    col_re = torch.stack([wr, -wi], dim=-1)                # (nb, a, k, c')
+    col_im = torch.stack([wi, wr], dim=-1)
+    w4 = torch.stack([col_re, col_im], dim=-1)             # (nb, a, k, c', c)
+    nb, a, k = wr.shape
+    return w4.permute(2, 1, 3, 0, 4).reshape(k, 2 * a, 2 * nb)
+
+
+def beamform_split_torch(q: torch.Tensor, weights: torch.Tensor
+                         ) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: per channel the real
+    product ``X' (p*b, 2a) @ W' (2a, 2nb)`` once for each bf16 piece of
+    the weights, summed in float32.  Same arguments and result as
+    :func:`beamform_torch`."""
+    a, p, b, k, _ = q.shape
+    nb = weights.shape[0]
+    x = q.to(torch.float32).permute(3, 1, 2, 0, 4).reshape(k, p * b, 2 * a)
+    y = sum(torch.matmul(x, interleaved_weights(piece))
+            for piece in reversed(split3(weights)))
+    return y.reshape(k, p, b, nb, 2).permute(3, 1, 2, 0, 4).contiguous()
 
 
 def quantize_beams(y: torch.Tensor, quant_scale: float) -> torch.Tensor:

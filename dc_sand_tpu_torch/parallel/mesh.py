@@ -41,6 +41,7 @@ class Mesh:
             raise ValueError("a mesh is a non-empty (time, fx) device array")
         self.devices = devices
         self.shape = {TIME_AXIS: devices.shape[0], FX_AXIS: devices.shape[1]}
+        self._ring_sends = {}
 
     @property
     def size(self) -> int:
@@ -65,6 +66,24 @@ class Mesh:
             return [[t * n_f + f for t in range(n_t)] for f in range(n_f)]
         raise ValueError(f"unknown mesh axis {axis!r}; axes are "
                          f"{self.axis_names}")
+
+    def ring_sends(self, axis: str) -> tuple:
+        """One ring step to the right over ``axis``, grouped by the card
+        that sends: a tuple of ``(device, pairs)``, one entry per device
+        that holds a sender, ``pairs`` a tuple of ``(src, dst)`` shard
+        numbers, shard ``dst`` being ``src``'s right neighbour in its
+        group (the last one's is the first).  Every shard is ``src`` once
+        and ``dst`` once.  Computed once per axis and kept."""
+        if axis not in self._ring_sends:
+            flat = self.flat_devices
+            by_dev = {}
+            for group in self.groups(axis):
+                for k, src in enumerate(group):
+                    by_dev.setdefault(flat[src], []).append(
+                        (src, group[(k + 1) % len(group)]))
+            self._ring_sends[axis] = tuple(
+                (dev, tuple(sorted(pairs))) for dev, pairs in by_dev.items())
+        return self._ring_sends[axis]
 
 
 def _device(d) -> torch.device:

@@ -12,18 +12,23 @@ of shards along ``axis``, as the JAX ops do inside ``shard_map``:
   output row-block s holds shard s's row-block ``my`` (``lax.all_to_all``
   with ``split_axis=concat_axis=0, tiled=True``).
 
-On CUDA tensors each launches ``csrc/remote_dma.cu`` once per sending
-shard, on the sender's device and current stream, adding one to the op's
-``launches``; the senders first wait for the receivers' streams (their
-outputs are allocated there), and every receiver's stream then waits for
-each of its senders, which takes the place of the TPU kernels' DMA
-semaphores.  Shards on different cards need peer access, which is enabled
-once per pair; a pair without it raises.  No ``copy_``, ``cat`` or NCCL
-stands in for the kernel.  On CPU tensors they run the plain versions
-(``*_torch``): index arithmetic and ``.to(device)`` copies.
+On CUDA tensors they launch ``csrc/remote_dma.cu`` on the sender's
+device and current stream, each launch adding one to the op's
+``launches``: the all-to-all once per sending shard, the ring step once
+per CARD that holds a sender (the blocks of all its senders ride in one
+launch; on one card the whole ring is one launch).  The senders first
+wait for the receivers' streams (their outputs are allocated there), and
+every receiver's stream then waits for each of its senders, which takes
+the place of the TPU kernels' DMA semaphores.  Shards on different cards
+need peer access, which is enabled once per pair; a pair without it
+raises.  No ``copy_``, ``cat`` or NCCL stands in for the kernel.  On CPU
+tensors they run the plain versions (``*_torch``): index arithmetic and
+``.to(device)`` copies.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -114,18 +119,34 @@ def ring_permute_right(xs, mesh, axis: str, *, impl: str = "auto") -> list:
     _contiguous(xs)
     outs = [torch.empty_like(x) for x in xs]
     nbytes = xs[0].numel() * xs[0].element_size()
-    right = {}
-    for group in mesh.groups(axis):
-        for k, src in enumerate(group):
-            right[src] = group[(k + 1) % len(group)]
-
-    def entry(i, stream):
-        _build.check(_build.library().dcs_ring(
-            xs[i].data_ptr(), _peers([outs[right[i]].data_ptr()]), nbytes,
-            stream), "dcs_ring")
-        ring_permute_right.launches += 1
-
-    _launch_all(xs, outs, {i: [j] for i, j in right.items()}, entry)
+    lib = _build.library()
+    waits = []
+    current = torch.cuda.current_device()
+    for dev, pairs in mesh.ring_sends(axis):
+        stream = torch.cuda.current_stream(dev)
+        for i, j in pairs:
+            if xs[i].device != dev:
+                raise ValueError(f"shard {i} lies on {xs[i].device}, its "
+                                 f"mesh device is {dev}")
+            to = outs[j].device
+            if to != dev:
+                _enable_peer(dev, to)
+                waits.append((torch.cuda.current_stream(to), stream))
+                stream.wait_stream(waits[-1][0])
+        # switching the device costs as much host time as the launch
+        with (torch.cuda.device(dev) if dev.index != current
+              else contextlib.nullcontext()):
+            for at in range(0, len(pairs), _build.MAX_PEERS):
+                part = pairs[at:at + _build.MAX_PEERS]
+                arg = _build.Pairs()
+                for k, (i, j) in enumerate(part):
+                    arg.src[k] = xs[i].data_ptr()
+                    arg.dst[k] = outs[j].data_ptr()
+                _build.check(lib.dcs_ring(arg, len(part), nbytes,
+                                          stream.cuda_stream), "dcs_ring")
+                ring_permute_right.launches += 1
+    for receiver, sender in waits:
+        receiver.wait_stream(sender)
     return outs
 
 

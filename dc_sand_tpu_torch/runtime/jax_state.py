@@ -12,6 +12,7 @@ leading time axis, one partial per time shard.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -58,6 +59,8 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     on a mesh takes a checkpoint of the same ``cfg`` (``time_shards``
     included) from a JAX run on any mesh of one process.
     """
+    if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+        path = path + ".npz"      # np.savez appended the suffix at save time
     z = np.load(path, allow_pickle=False)
     if "process_shape" in z.files:
         raise ValueError("multi-process checkpoints are not supported")
@@ -66,7 +69,10 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     if saved_hash != cfg.config_hash():
         raise ValueError(f"checkpoint config hash {saved_hash} != runner "
                          f"config {cfg.config_hash()}")
-    if int(z["delay_max"]) != runner.max_delay:
+    # an older file may lack the delay / gain / counter block (then the
+    # runner keeps its own), as the JAX loader allows
+    has_delay = "delay_d0" in z.files
+    if has_delay and int(z["delay_max"]) != runner.max_delay:
         raise ValueError(
             f"checkpoint delay max_delay {int(z['delay_max'])} != runner's "
             f"{runner.max_delay}; build the resuming runner with a "
@@ -96,17 +102,25 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     runner.chunk_idx = int(z["chunk_idx"])
     runner._acc_spectra = int(z["acc_spectra"])
     runner._acc_integrated = int(z["acc_integrated"])
-    runner._acc_first_chunk = int(z["acc_first_chunk"])
-    if z["host_tail"].size:
+    if "acc_first_chunk" in z.files:
+        runner._acc_first_chunk = int(z["acc_first_chunk"])
+    if "host_tail" in z.files and z["host_tail"].size:
         runner._tail = torch.as_tensor(z["host_tail"], device=runner.device)
+    if not has_delay:
+        return
     dm = runner.delay_model
     dm.d0 = z["delay_d0"].copy()
     dm.d1 = z["delay_d1"].copy()
     dm.p0 = z["delay_p0"].copy()
     dm.p1 = z["delay_p1"].copy()
-    dm.d2 = z["delay_d2"].copy()
-    dm.p2 = z["delay_p2"].copy()
-    dm.t_ref = int(z["delay_t_ref"])
+    if "delay_d2" in z.files:
+        dm.d2 = z["delay_d2"].copy()
+        dm.p2 = z["delay_p2"].copy()
+        dm.t_ref = int(z["delay_t_ref"])
+    else:                         # a file of the linear model, epoch 0
+        dm.d2 = np.zeros_like(dm.d0)
+        dm.p2 = np.zeros_like(dm.p0)
+        dm.t_ref = 0
     runner.gains = torch.as_tensor(z["gains"], dtype=torch.float32,
                                    device=runner.device).contiguous()
     c = z["counters"]

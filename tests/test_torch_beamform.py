@@ -90,6 +90,90 @@ def test_beams_match_the_native_tpu_kernel_k4():
     assert d.max() <= 1 and (d > 0).mean() <= 1e-3
 
 
+# the kernel's arithmetic in plain PyTorch: exact operands (int8 samples,
+# three bf16 pieces that add up to the float32 weight), float32 sums in
+# another order than beamform_torch's
+SNR_SPLIT_VS_PLAIN = 120.0
+# against the JAX package: its jnp arm sums float32 in yet another order,
+# and the TPU kernels keep two bf16 pieces of a weight (about 16 bits)
+SNR_SPLIT_VS_JAX = 60.0
+
+
+def test_split3_pieces_add_up_to_the_weight_bitwise():
+    """hi, mid, lo are bf16 values and hi + mid + lo == w bitwise, in
+    either order of the float32 additions, for seeded normal weights."""
+    w = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(16, 64, 33, 2)).astype(np.float32))
+    w[0, 0, 0, 0] = 0.0
+    hi, mid, lo = tb.split3(w)
+    for piece in (hi, mid, lo):
+        assert piece.dtype == torch.float32
+        assert torch.equal(piece.to(torch.bfloat16).to(torch.float32), piece)
+    assert torch.equal((hi + mid) + lo, w)
+    assert torch.equal(hi + (mid + lo), w)
+    # two pieces do not: the third carries bits 17-24
+    assert not torch.equal(hi + mid, w)
+
+
+@pytest.mark.parametrize("a,p,b,k,nb", [(4, 2, 64, 16, 4),
+                                        (64, 2, 16, 8, 16)])
+def test_beams_from_split_weights_match_plain_and_jax(a, p, b, k, nb):
+    """Beams formed as the kernel forms them (interleaved real GEMM per
+    channel, one pass per bf16 piece, float32 sums) against the plain
+    version, the JAX jnp arm and the TPU kernel K5 in the interpreter."""
+    q, w = _inputs(a, p, b, k, nb, seed=a * b + 1)
+    got = tb.beamform_split_torch(torch.from_numpy(q), torch.from_numpy(w))
+    plain = tb.beamform_torch(torch.from_numpy(q), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == plain.shape
+    assert snr_db(plain.numpy(), got.numpy()) >= SNR_SPLIT_VS_PLAIN
+    jnp_arm = np.asarray(jb.beamform(jnp.asarray(q), jnp.asarray(w),
+                                     impl="jnp"))
+    assert snr_db(jnp_arm, got.numpy()) >= SNR_SPLIT_VS_JAX
+    if b % 64 == 0:                  # K5's gate (as in the test above)
+        k5 = np.asarray(jb.beamform(jnp.asarray(q), jnp.asarray(w),
+                                    impl="pallas_interpret"))
+        assert snr_db(k5, got.numpy()) >= SNR_SPLIT_VS_JAX
+
+
+def test_beams_from_split_weights_match_the_native_tpu_kernel_k4():
+    """The same arithmetic against K4 in the interpreter, fed the native
+    planes of the same wire spectra."""
+    a, p, b, m2, k1n, nb = 4, 2, 128, 2, 128, 4
+    k = m2 * k1n
+    q, w = _inputs(a, p, b, k, nb, seed=58)
+    qn = np.ascontiguousarray(
+        q.reshape(a, p, b, k1n, m2, 2).transpose(0, 1, 4, 5, 2, 3))
+    want = np.asarray(jb.beamform_native(jnp.asarray(qn), jnp.asarray(w),
+                                         impl="pallas_interpret", _kg=16))
+    got = tb.beamform_split_torch(torch.from_numpy(q), torch.from_numpy(w))
+    assert snr_db(want, got.numpy()) >= SNR_SPLIT_VS_JAX
+
+
+@pytest.mark.parametrize("a,p,b,k,nb", [(3, 2, 5, 7, 5), (1, 1, 1, 1, 1),
+                                        (5, 1, 16, 9, 17), (16, 2, 8, 4, 16)])
+def test_interleaved_weights_signs_and_column_order(a, p, b, k, nb):
+    """W' (k, 2a, 2nb): rows (antenna, re/im of the sample), columns
+    (beam, re/im of the output).  One float32 product X' @ W' per channel
+    gives the plain version's beams (float32 sums in another order:
+    >= 120 dB), and the entries are the weights themselves."""
+    q, w = _inputs(a, p, b, k, nb, seed=a + nb)
+    qt, wt = torch.from_numpy(q), torch.from_numpy(w)
+    wp = tb.interleaved_weights(wt)
+    assert wp.shape == (k, 2 * a, 2 * nb)
+    e, ant, ch = nb - 1, a - 1, k - 1
+    wr, wi = w[e, ant, ch]
+    assert wp[ch, 2 * ant, 2 * e] == wr and wp[ch, 2 * ant + 1, 2 * e] == -wi
+    assert wp[ch, 2 * ant, 2 * e + 1] == wi
+    assert wp[ch, 2 * ant + 1, 2 * e + 1] == wr
+    x = qt.float().permute(3, 1, 2, 0, 4).reshape(k, p * b, 2 * a)
+    y = torch.matmul(x, wp).reshape(k, p, b, nb, 2).permute(3, 1, 2, 0, 4)
+    assert snr_db(tb.beamform_torch(qt, wt).numpy(),
+                  y.numpy()) >= SNR_SPLIT_VS_PLAIN
+    assert snr_db(tb.beamform_torch(qt, wt).numpy(),
+                  tb.beamform_split_torch(qt, wt).numpy()) \
+        >= SNR_SPLIT_VS_PLAIN
+
+
 def test_incoherent_sum_bitwise_equals_jax():
     q, w = _inputs(64, 2, 16, 8, 2, seed=3)
     want = np.asarray(jb.incoherent_sum(jnp.asarray(q)))

@@ -160,6 +160,12 @@ def test_bounds_and_flop_counts():
     assert by == "bytes" and ms == pytest.approx(1.0)
     ms, by = bound_ms(0, fp32_ops=67e9, int8_ops=1979e9)
     assert by == "operations" and ms == pytest.approx(2.0)
+    ms, by = bound_ms(0, fp32_ops=67e9, bf16_ops=989e9)
+    assert by == "operations" and ms == pytest.approx(2.0)
+    # beam64: 578.7 MB against 17.2 GFLOP on the tensor cores -> bytes
+    ms, by = bound_ms(578.7e6, fp32_ops=4 * 64 * 2 * 256 * 4096,
+                      bf16_ops=8 * 16 * 64 * 2 * 256 * 4096)
+    assert by == "bytes" and ms == pytest.approx(0.1727, abs=1e-4)
     # 2*taps*M + 5 N log2 N + 16 N (+ 9 N phasor, + 6 N gain), N = M/2
     n = 4096
     per = 2 * 16 * 8192 + 5 * n * 12 + 16 * n
@@ -205,7 +211,10 @@ def test_bench_beamform_counts(quant_scale):
                                device="cpu")
     assert r.bytes_moved == (a * p * b * k * 2 + nb * a * k * 2 * 4
                              + nb * p * b * k * 2 * (1 if quant_scale else 4))
-    assert r.extra["fp32_ops"] == 4 * 2 * nb * a * p * b * k
+    # the beam kernel's useful flops, 8 a complex MAC, run on the bf16
+    # tensor cores and are bounded by their peak
+    assert r.extra["bf16_ops"] == 4 * 2 * nb * a * p * b * k
+    assert r.extra["fp32_ops"] == 0
     assert r.name == "beamform" + ("_int8" if quant_scale else "") + "_4b"
     assert r.extra["platform"] == "cpu" and r.value > 0
     with pytest.raises(ValueError, match="no native layout"):

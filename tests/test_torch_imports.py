@@ -195,13 +195,19 @@ def test_cmac_kernel_bitwise_equals_plain(cuda, k, ap, b, keep):
 @pytest.mark.cuda
 @pytest.mark.parametrize("qs", [0.0, 0.25])
 @pytest.mark.parametrize("a,p,b,k,nb", [(3, 2, 37, 50, 1), (5, 1, 16, 64, 17),
-                                        (64, 2, 256, 96, 16)])
+                                        (64, 2, 256, 96, 16),
+                                        (64, 2, 256, 4096, 16),
+                                        (16, 2, 256, 1024, 16),
+                                        (64, 2, 64, 256, 64),
+                                        (9, 2, 70, 24, 4)])
 def test_beam_kernel_matches_plain(cuda, a, p, b, k, nb, qs):
-    """Kernel vs plain version at odd shapes (K not a multiple of the 32
-    channel lanes, B not a multiple of the spectra tile, one beam, a
-    second beam group): float beams >= 100 dB apart (both float32, summed
-    in different orders), int8 beams within 1 LSB, the incoherent beam
-    bitwise."""
+    """Tensor-core kernel vs plain version at the beam64 shape, at a mesh
+    shard's 16 antennas, at 64 beams (four beam groups) and at ragged
+    shapes (K not a multiple of the 16-channel tile or of 8, B not a
+    multiple of the 64-spectra tile, antennas not a multiple of the
+    8-antenna stage, one beam, a second beam group): float beams >= 100
+    dB apart (exact products, float32 sums in different orders), int8
+    beams within 1 LSB, the incoherent beam bitwise."""
     from dc_sand_tpu_torch.utils import snr_db
     gen = torch.Generator(device=cuda)
     gen.manual_seed(a * b + k)
@@ -297,7 +303,9 @@ def _card_mesh(n, time_shards=1):
 def test_peer_copy_kernels_bitwise_equal_plain(cuda, shape, dtype, n,
                                                time_shards):
     """K7a and K7b vs their plain versions over both axes of a mesh, at
-    16-byte and odd block sizes: bitwise; each sender launches once."""
+    16-byte and odd block sizes: bitwise; the all-to-all launches once
+    per sender, the ring once per card that holds a sender (on one card
+    the 4-shard ring, or both rings of the (2, 2) mesh, is one launch)."""
     mesh = _card_mesh(n, time_shards)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n + shape[0])
@@ -316,7 +324,11 @@ def test_peer_copy_kernels_bitwise_equal_plain(cuda, shape, dtype, n,
             got = op(xs, mesh, axis, impl="cuda")
             want = getattr(remote_dma, plain)(xs, mesh, axis)
             torch.cuda.synchronize()
-            assert op.launches - before == n
+            cards = len({str(d) for d in mesh.flat_devices})
+            assert op.launches - before == (
+                cards if op is ring_permute_right else n)
+            if op is ring_permute_right:
+                assert len(mesh.ring_sends(axis)) == cards
             for g, w, x in zip(got, want, xs):
                 assert g.device == x.device and torch.equal(g, w)
 
@@ -325,7 +337,7 @@ def test_peer_copy_kernels_bitwise_equal_plain(cuda, shape, dtype, n,
 def test_sharded_runner_on_card_equals_one_device(cuda):
     """The fx runner on a 4-way fx mesh and on a (2, 2) SP mesh of the
     card(s) gives the one-device dumps bitwise, through K7b (and K7a in
-    SP)."""
+    SP, one launch a chunk and card)."""
     from dc_sand_tpu_torch import golden
     from dc_sand_tpu_torch.config import get_config, scaled_for_test
     from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
@@ -352,4 +364,6 @@ def test_sharded_runner_on_card_equals_one_device(cuda):
         for a, b in zip(ref, got):
             np.testing.assert_array_equal(a.vis, b.vis)
     assert all_to_all.launches - a2a == 2 * 4 * 4
-    assert ring_permute_right.launches - ring == 4 * 4
+    # one ring launch a chunk and card that holds a sender
+    assert ring_permute_right.launches - ring == 4 * min(
+        4, torch.cuda.device_count())

@@ -28,7 +28,8 @@ from dc_sand_tpu_torch.ops.xcorr import wire_to_a2
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
                                         build_mesh, corner_turn_all_to_all,
                                         halo_exchange_left, psum,
-                                        psum_scatter, ring_permute_right)
+                                        psum_scatter, ring_permute_right,
+                                        ring_permute_right_torch)
 
 try:
     from jax import shard_map as shard_map_fn
@@ -113,6 +114,39 @@ def test_collectives_act_within_each_group_of_a_2d_mesh():
                                                [2, 3]]
     assert [r.tolist() for r in psum(xs, mesh, TIME_AXIS)] == [
         [[2.0] * 3] * 2, [[4.0] * 3] * 2] * 2
+
+
+@pytest.mark.parametrize("n,time_shards,cards", [
+    (4, 4, 1), (4, 2, 1), (4, 2, 2), (4, 2, 4), (16, 4, 1), (16, 16, 4),
+    (16, 1, 16)])
+def test_ring_sender_grouping_covers_every_shard_once(n, time_shards, cards):
+    """The (source, destination) pairs the ring wrapper hands each card
+    (``Mesh.ring_sends``; CPU devices ``cpu:i`` stand for the cards): one
+    entry per card that holds a sender, every shard a source once and a
+    destination once, each source on its entry's card, and the pairs move
+    the blocks as the plain version does, on both axes."""
+    devs = [f"cpu:{i % cards}" for i in range(n)]
+    mesh = build_mesh(devs, time_shards=time_shards)
+    xs = [torch.full((2, 3), float(d)) for d in range(n)]
+    for axis in (TIME_AXIS, FX_AXIS):
+        sends = mesh.ring_sends(axis)
+        assert sends is mesh.ring_sends(axis)            # computed once
+        assert len(sends) == len({d for d, _ in sends}) == cards
+        pairs = [pr for _, prs in sends for pr in prs]
+        assert sorted(s for s, _ in pairs) == list(range(n))
+        assert sorted(d for _, d in pairs) == list(range(n))
+        for dev, prs in sends:
+            assert all(mesh.flat_devices[s] == dev for s, _ in prs)
+        want = ring_permute_right_torch(xs, mesh, axis)
+        moved = [None] * n
+        for s, d in pairs:
+            moved[d] = xs[s]
+        for m, w in zip(moved, want):
+            assert torch.equal(m, w)
+    # the whole 4-shard ring on one card, and both rings of a (2, 2) mesh,
+    # are one launch's worth of pairs
+    if cards == 1:
+        assert len(mesh.ring_sends(TIME_AXIS)) == 1
 
 
 def test_corner_turn_bitwise_equals_jax():

@@ -11,7 +11,9 @@ the run (non-zero exit) when it fails:
    (128 streams x 2048 spectra x 8192 samples): every difference a
    single LSB, at most 1e-4 of the values, and each flip of the stream
    with the most lies within 1e-3 of a .5 rounding boundary of the
-   float64 golden chain;
+   float64 golden chain; its operand layout (the CMAC operand, which the
+   fx path feeds to the CMAC) bitwise equal to ``wire_to_a2`` of its wire
+   layout; both layouts timed beside that corner-turn glue;
 3. CMAC kernel (K2/K3) vs its plain version at the fx64 shape
    (K = 4096, ap = 128, B = 2048), keep 1 and 0: bitwise equal;
 4. ``verify fx4`` at its full config through the port's runner: >50 dB
@@ -64,8 +66,14 @@ count)``: every shard on the one card, or spread over several cards, with
 the same checks:
 
 14. peer-copy all-to-all (K7b) vs its plain version at the fx64
-    corner-turn shape, 4 shards of int8 (4096, 16, 2, 2048, 2): bitwise
-    equal; ``library_ms`` is ``Tensor.copy_`` of the same 16 blocks;
+    corner-turn shape, 4 shards of 537 MB, one launch: in block mode
+    (int8 (4096, 16, 2, 2048, 2)) and in the corner-turn mode the fx
+    mesh runs (operand-layout int8 (4096, 2, 32, 2048), each block's 2048
+    rows of 64 KB landing at a pitch of 256 KB in the receiver's CMAC
+    operand): bitwise equal; ``library_ms`` is ``Tensor.copy_`` of the
+    same 16 blocks, in corner-turn mode into the same 16 strided
+    destination views, each timed in turns with the kernel (the median of
+    five rounds);
 15. peer-copy ring step (K7a) vs its plain version on a 4-shard ring of
     int8 (64, 16, 8192), the SP halo at fx64, and on a 2-shard ring:
     bitwise equal; ``library_ms`` is ``Tensor.copy_`` of the same blocks;
@@ -74,12 +82,14 @@ the same checks:
     (time 2, fx 2) mesh, checked bitwise over both axes; it also prints
     the wrapper's host time per call;
 16. fx64 on a 4-way fx mesh at production cadence, phase 6's chunks and
-    delay model: the dump bitwise equal to phase 6's; launch counters K1
-    16, CMAC 16, all-to-all 16, all others 0; it prints the device step,
-    ``run()`` per chunk and the peak device memory;
+    delay model (K1 in the operand layout, K7b in corner-turn mode, the
+    CMAC, no copy between them): the dump bitwise equal to phase 6's;
+    launch counters K1 16, CMAC 16, all-to-all 4 x the number of cards
+    (one launch a chunk and card), all others 0; it prints the device
+    step, ``run()`` per chunk and the peak device memory;
 17. fx64 in SP mode on a (time 2, fx 2) mesh, the same chunks: the dump
-    bitwise equal to phase 6's; K1 16, CMAC 16, all-to-all 16, ring 4 x
-    the number of cards (one launch a chunk and card);
+    bitwise equal to phase 6's; K1 16, CMAC 16, all-to-all and ring each
+    4 x the number of cards;
 18. beam64 on a 4-way fx mesh, replicated and beam-parallel, phase 9's
     chunks and weights: beams and incoherent beam >= 100 dB from phase
     9's (float sums in another order), the beam-parallel beams equal to
@@ -100,7 +110,8 @@ Phases 19-20 drive the bench path:
     then its ``probes`` target, showing P1 and P2 and no other kernel.
 
 Each kernel's time is a CUDA-event mean over back-to-back launches
-(``dc_sand_tpu_torch/bench/harness.py:time_cuda``); ``bound_ms`` is the
+(``dc_sand_tpu_torch/bench/harness.py:time_cuda``; in phase 14 the median
+of five such means taken in turns with the yardstick); ``bound_ms`` is the
 least time the card could take for the same work, the larger of the bytes
 it must move (each input read once, each output written once) at the HBM
 rate and its operations at the data sheet's peak for their type
@@ -111,17 +122,19 @@ flops), from the shapes of the timed call;
 there is one, timed as a yardstick and never called by the port.
 
 The second-to-last line is ``{"kernels": [...]}``: launches from the
-main-path phases (6 for K1 and the CMAC, 9 for the beam kernel, 12's
-fused pfb1k for K1-float, 13 for K6, 16 and 17 together for the ring and
-the all-to-all, 20's probes target for P1 and P2), times from phases 2,
-3, 7, 10, 11, 14, 15 and 19 (the probes with the L2 flushed); the last is
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+main-path phases (6 for K1 in the operand layout and the CMAC, 9 for K1
+in the wire layout and the beam kernel, 12's fused pfb1k for K1-float, 13
+for K6, 16 and 17 together for the ring and the all-to-all in
+corner-turn mode, 20's probes target for P1 and P2), times from phases
+2, 3, 7, 10, 11, 14, 15 and 19 (the probes with the L2 flushed); the last
+is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -146,6 +159,17 @@ def _events_ms(fn, n):
     (CUDA events), after one warm-up call."""
     from dc_sand_tpu_torch.bench.harness import time_cuda
     return time_cuda(fn, warmup=1, iters=n) * 1e3
+
+
+def _turns_ms(fns, n, rounds=5):
+    """Device ms of each of ``fns``: ``_events_ms(fn, n)`` in turns, one of
+    every fn a round, and the median of the rounds, so that a stall of
+    the host in one round does not decide a comparison."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(_events_ms(fn, n))
+    return [statistics.median(t) for t in times]
 
 
 def _nbytes(*tensors) -> int:
@@ -253,11 +277,13 @@ def main() -> int:
                              device=dev)
     kw = dict(history=hist, frac_delay=fd, phase=ph, gains=gains)
 
-    def k1():
-        return fengine_fused(chunk, window, TAPS, nch, impl="cuda", **kw)
+    def k1(layout):
+        return fengine_fused(chunk, window, TAPS, nch, impl="cuda",
+                             layout=layout, **kw)
 
-    got = k1()
-    k1_ms = _events_ms(k1, 5)
+    got = k1("wire")
+    k1_wire_ms = _events_ms(lambda: k1("wire"), 5)
+    k1_ms = _events_ms(lambda: k1("operand"), 5)
 
     def plain_blocks(compare):
         for i in range(0, s, PLAIN_BLOCK_STREAMS):
@@ -281,7 +307,8 @@ def main() -> int:
     k1_bound = bound_ms(
         _nbytes(chunk, hist, window, fd, ph, gains, got),
         fengine_flops(s * b, m, TAPS, rotate=True, quant=True))
-    print(f"[2 fengine] kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
+    print(f"[2 fengine] kernel {k1_wire_ms:.3f} ms (wire layout), plain "
+          f"{k1_plain_ms:.3f} ms "
           f"({PLAIN_BLOCK_STREAMS}-stream blocks), bound {k1_bound[0]:.3f} "
           f"ms ({k1_bound[1]}), max |diff| {stats['max']} LSB, flip "
           f"fraction {flip_frac:.3e} ({card})", flush=True)
@@ -312,10 +339,17 @@ def main() -> int:
     if (dist >= FLIP_BOUNDARY_TOL).any():
         raise RuntimeError("F-engine kernel flips a value away from a .5 "
                            "rounding boundary")
+    op = k1("operand")
+    if not torch.equal(op.reshape(nch, 2 * s, b), wire_to_a2(got)):
+        raise RuntimeError("F-engine operand layout != wire_to_a2 of its "
+                           "wire layout")
     ct_ms = _events_ms(lambda: wire_to_a2(got), 5)
-    print(f"[2 corner-turn glue] wire_to_a2 {ct_ms:.3f} ms for "
-          f"{got.numel() / 1e9:.2f} GB ({card})", flush=True)
-    del got, chunk, hist, fd, ph
+    print(f"[2 fengine layouts] operand layout bitwise equal to wire_to_a2 "
+          f"of the wire layout; kernel wire {k1_wire_ms:.3f} ms, operand "
+          f"{k1_ms:.3f} ms; the corner-turn glue it replaces, wire_to_a2, "
+          f"{ct_ms:.3f} ms for {got.numel() / 1e9:.2f} GB ({card})",
+          flush=True)
+    del got, op, chunk, hist, fd, ph
     torch.cuda.empty_cache()
 
     # ---- 3. CMAC kernel vs plain at the fx64 shape ------------------------
@@ -727,14 +761,16 @@ def main() -> int:
     ct_shape = (nch, FX64_STREAMS // 2 // SHARDS, 2, FX64_SPECTRA, 2)
     xs = [torch.randint(-127, 128, ct_shape, generator=gen, device=dev,
                         dtype=torch.int8).to(d) for d in shard_devs]
+    zero_counts()
     got = all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda")
+    if all_to_all.launches != n_cards:
+        raise RuntimeError(f"all-to-all: {all_to_all.launches} launches, "
+                           f"expected one a card ({n_cards})")
     want = all_to_all_torch(xs, fx_mesh, FX_AXIS)
     if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
         raise RuntimeError("all-to-all kernel != plain version")
     del got, want
-    a2a_ms = _events_ms(
-        lambda: all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda"), 5)
-    a2a_plain_ms = _events_ms(
+    a2a_block_plain_ms = _events_ms(
         lambda: all_to_all_torch(xs, fx_mesh, FX_AXIS), 3)
     rows = nch // SHARDS
     outs_lib = [torch.empty_like(x) for x in xs]
@@ -746,16 +782,54 @@ def main() -> int:
     a2a_blocks = [(outs_lib[j], xs[s], slice(s * rows, (s + 1) * rows),
                    slice(j * rows, (j + 1) * rows))
                   for j in range(SHARDS) for s in range(SHARDS)]
-    a2a_lib_ms = _events_ms(lambda: copy_blocks(a2a_blocks), 5)
+    a2a_block_ms, a2a_block_lib_ms = _turns_ms(
+        (lambda: all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda"),
+         lambda: copy_blocks(a2a_blocks)), 5)
     a2a_bound = bound_ms(2 * _nbytes(*xs))
-    print(f"[14 all_to_all] bitwise equal to plain, {SHARDS} shards of int8 "
-          f"{ct_shape} on {[str(d) for d in shard_devs]}; kernel "
-          f"{a2a_ms:.3f} ms ({_nbytes(*xs) / a2a_ms / 1e6:.1f} GB/s of "
-          f"payload), "
-          f"plain {a2a_plain_ms:.3f} ms, copy_ of the {SHARDS * SHARDS} "
-          f"blocks {a2a_lib_ms:.3f} ms, bound {a2a_bound[0]:.3f} ms "
+    print(f"[14 all_to_all block mode] bitwise equal to plain, {SHARDS} "
+          f"shards of int8 {ct_shape} on {[str(d) for d in shard_devs]}; "
+          f"kernel {a2a_block_ms:.3f} ms "
+          f"({_nbytes(*xs) / a2a_block_ms / 1e6:.1f} GB/s of payload), plain "
+          f"{a2a_block_plain_ms:.3f} ms, copy_ of the {SHARDS * SHARDS} "
+          f"blocks {a2a_block_lib_ms:.3f} ms, bound {a2a_bound[0]:.3f} ms "
           f"({a2a_bound[1]}) ({card})", flush=True)
     del xs, outs_lib, a2a_blocks
+    torch.cuda.empty_cache()
+    # corner-turn mode: operand-layout shards (K, 2, s_l, b), each block's
+    # 2 * k_l rows landing at the receiver's pitch of SHARDS * s_l * b
+    s_l, k_l = FX64_STREAMS // SHARDS, nch // SHARDS
+    xs = [torch.randint(-127, 128, (nch, 2, s_l, FX64_SPECTRA),
+                        generator=gen, device=dev, dtype=torch.int8).to(d)
+          for d in shard_devs]
+    ct_rows = 2 * k_l
+    got = all_to_all(xs, fx_mesh, FX_AXIS, rows=ct_rows, impl="cuda")
+    want = all_to_all_torch(xs, fx_mesh, FX_AXIS, rows=ct_rows)
+    if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+        raise RuntimeError("all-to-all kernel != plain version (corner-turn "
+                           "mode)")
+    del got, want
+    a2a_plain_ms = _events_ms(lambda: all_to_all_torch(
+        xs, fx_mesh, FX_AXIS, rows=ct_rows), 3)
+    outs_lib = [torch.empty_like(x) for x in xs]
+    views = [(o.view(ct_rows, SHARDS, -1)[:, my],
+              x.view(SHARDS, ct_rows, -1)[r])
+             for r, o in enumerate(outs_lib) for my, x in enumerate(xs)]
+
+    def copy_views():
+        for dst, src in views:
+            dst.copy_(src)
+
+    a2a_ms, a2a_lib_ms = _turns_ms(
+        (lambda: all_to_all(xs, fx_mesh, FX_AXIS, rows=ct_rows, impl="cuda"),
+         copy_views), 5)
+    print(f"[14 all_to_all corner-turn mode] bitwise equal to plain, "
+          f"{SHARDS} shards of operand-layout int8 {tuple(xs[0].shape)}, "
+          f"{ct_rows} rows a block; kernel {a2a_ms:.3f} ms "
+          f"({_nbytes(*xs) / a2a_ms / 1e6:.1f} GB/s of payload), plain "
+          f"{a2a_plain_ms:.3f} ms, copy_ into the {SHARDS * SHARDS} strided "
+          f"views {a2a_lib_ms:.3f} ms, bound {a2a_bound[0]:.3f} ms "
+          f"({a2a_bound[1]}) ({card})", flush=True)
+    del xs, outs_lib, views
     torch.cuda.empty_cache()
 
     # ---- 15. peer-copy ring step (K7a) vs plain ---------------------------
@@ -829,7 +903,8 @@ def main() -> int:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t
         n_sh = n_chunks * SHARDS
-        got_counts = counts(fengine=n_sh, cmac=n_sh, all_to_all=n_sh,
+        got_counts = counts(fengine=n_sh, cmac=n_sh,
+                            all_to_all=n_chunks * n_cards,
                             ring=n_chunks * n_cards if time_shards > 1 else 0)
         mesh_launches[phase] = got_counts
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -975,6 +1050,10 @@ def main() -> int:
     kernels = [
         entry("fengine", "fengine.cu", "dc_sand_tpu/ops/fengine_fused.py:335",
               launches["fengine"], stats["max"], k1_ms, k1_plain_ms,
+              k1_bound, None),
+        entry("fengine_wire", "fengine.cu",
+              "dc_sand_tpu/ops/fengine_fused.py:335",
+              beam_launches["fengine"], stats["max"], k1_wire_ms, k1_plain_ms,
               k1_bound, None),
         entry("cmac", "cmac.cu", "dc_sand_tpu/ops/xcorr.py:371",
               launches["cmac"], cmac_err, cmac_ms, cmac_plain_ms, cmac_bound,

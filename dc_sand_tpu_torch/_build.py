@@ -7,8 +7,8 @@ per source), into ``build/torch_kernels/`` beside the package, each keyed
 by a hash of its source and the flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.  It compiles only the sources in this
 repository.  ``--use_fast_math`` is deliberately absent: it would turn
-``sincosf`` into the approximate ``__sinf``/``__cosf`` and allow FMA
-contraction that the F-engine's float order rules out.
+``sincosf`` into the approximate ``__sinf``/``__cosf``, whose error at the
+F-engine's phasor angles would flip too many int8 values.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.
@@ -26,7 +26,7 @@ import types
 from pathlib import Path
 
 __all__ = ["library", "build_log", "check", "build_dir", "NVCC_FLAGS",
-           "Peers", "Pairs", "MAX_PEERS"]
+           "Pairs", "MAX_PEERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,15 +40,9 @@ _L = ctypes.c_longlong
 MAX_PEERS = 16   # csrc/remote_dma.cu: DCS_MAX_PEERS
 
 
-class Peers(ctypes.Structure):
-    """``DcsPeers`` of ``csrc/remote_dma.cu``: the destination base
-    pointers of one peer-copy launch, passed by value."""
-    _fields_ = [("dst", ctypes.c_void_p * MAX_PEERS)]
-
-
 class Pairs(ctypes.Structure):
     """``DcsPairs`` of ``csrc/remote_dma.cu``: the (source, destination)
-    block pointers of one ring launch, passed by value."""
+    block pointers of one peer-copy launch, passed by value."""
     _fields_ = [("src", ctypes.c_void_p * MAX_PEERS),
                 ("dst", ctypes.c_void_p * MAX_PEERS)]
 
@@ -56,13 +50,13 @@ class Pairs(ctypes.Structure):
 # source stem -> its C entry points -> argument types (pointers and the
 # stream as c_void_p, byte counts as c_longlong)
 _SIGNATURES = {
-    "fengine": {"dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _P]},
+    "fengine": {"dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P]},
     "cmac": {"dcs_cmac": [_P, _P, _I, _I, _I, _I, _P]},
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},
     "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "remote_dma": {"dcs_all_to_all": [_P, Peers, _I, _I, _L, _P],
+    "remote_dma": {"dcs_all_to_all": [Pairs, _I, _L, _L, _L, _P],
                    "dcs_ring": [Pairs, _I, _L, _P],
                    "dcs_enable_peer": [_I]},
     "probes": {"dcs_read_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

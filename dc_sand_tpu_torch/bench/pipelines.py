@@ -116,9 +116,9 @@ def _step_setup(preset: str, taps: int, weights, dev, **overrides):
 def bench_fx_step(n_ants: int = 64, n_pols: int = 2, n_chans: int = 1024,
                   n_spectra: int = None, taps: int = 16, iters: int = 64,
                   device=None) -> BenchResult:
-    """The one-card fx streaming step (F-engine K1, corner-turn glue, CMAC
-    into the carried accumulator), ``make_step`` on device-resident
-    inputs; ``n_spectra`` defaults to fx64's own chunk."""
+    """The one-card fx streaming step (F-engine K1 writing the CMAC
+    operand, the CMAC into the carried accumulator), ``make_step`` on
+    device-resident inputs; ``n_spectra`` defaults to fx64's own chunk."""
     dev = default_device(device)
     if n_spectra is None:
         n_spectra = get_config("fx64").spectra_per_chunk

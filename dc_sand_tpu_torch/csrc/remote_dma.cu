@@ -20,39 +20,49 @@
 //
 // One kernel serves both: it takes, by value, up to 16 (source, destination)
 // pointer pairs (the JAX package's contract mesh has 16 shards; 256 B of the
-// 4 KB a launch may carry) and the block size, blockIdx.y picks the pair.  A
-// thread copies 16 bytes at a time, grid-stride; the tail of a block that is
-// not a multiple of 16 bytes, or a launch with an address that is not 16-byte
-// aligned, is copied byte by byte.  K7b launches once per SENDING shard (its
-// n row-blocks to the n receivers).  K7a launches once per CARD: the pairs of
-// every sender that sits on the card ride in one launch, so the 4-shard ring
-// of the SP halo on one card, or both rings of a (2, 2) mesh, is one launch.
+// 4 KB a launch may carry), and every pair moves `rows` rows of `row_bytes`:
+// the source rows contiguous, the destination rows `dst_pitch` bytes apart.
+// One launch carries every pair whose sender sits on the launching card:
+// K7a's ring step (one row a pair) and K7b's blocks.  K7b in block mode is
+// one row a pair (row-block s of sender my lands whole in row-block my of
+// receiver s); in corner-turn mode the sender's block for receiver r is its
+// channels [r k_l, (r + 1) k_l) of the F-engine's operand layout (K, 2, s_l,
+// b), 2 k_l rows of s_l b bytes, and row (k, c) lands at row (k - r k_l, c),
+// streams [my s_l, (my + 1) s_l), of the receiver's (k_l, 2, n s_l, b) CMAC
+// operand (pitch n s_l b): no permute before the copy, no reassembly after
+// it.  On one card a 4-shard all-to-all (16 pairs) or both 2-shard rings of
+// a (2, 2) mesh is one launch.
+//
+// One block a tile of kUnroll x kThreads 16-byte units, the tiles of all
+// pairs numbered pair after pair (two short divisions a tile find its pair
+// and row), so the card streams through one block at a time as back-to-back
+// copies do.  A thread loads all kUnroll of its units before it stores
+// them, so a warp keeps kUnroll 512-byte loads in flight.  On an H100 80GB
+// HBM3 at 700 W a grid sized to the SMs (8 blocks each) walking the tiles
+// in a loop took 1.750 ms for block mode at the fx64 corner-turn, where the
+// same run's copy_ of the 16 blocks took 1.713; one block a tile takes 1.458
+// against copy_'s 1.476 (another run).  A launch whose addresses, row length
+// or pitch are not all multiples of 16 bytes copies byte by byte.
 //
 // What bounds it on the H100: bytes.  Each byte is read once and written
 // once, so on one card a call moves 2x its payload at 3.35 TB/s: K7b at the
-// fx64 corner-turn (4 shards of int8 (4096, 16, 2, 2048, 2), 537 MB each,
+// fx64 corner-turn (4 shards of int8 (4096, 2, 32, 2048), 537 MB each,
 // 2.15 GB in all) has a bound of 2 x 2.15 GB / 3.35 TB/s = 1.282 ms.  Across
 // cards the stores of the blocks for other shards cross NVLink at 450 GB/s
-// each way per card.  What the design does about it: nothing but wide,
-// coalesced accesses (a warp moves 512 contiguous bytes) and a grid large
-// enough to keep every SM's loads in flight; there is no arithmetic to hide.
-// K7a at the SP halo (4 blocks of 8.4 MB, bound 0.020 ms) is small enough
-// that the launches and the host work around them, not the bytes, decide its
-// time: one launch for the ring takes 0.054-0.069 ms where four took 0.126 ms
-// (an H100 80GB HBM3 at 700 W), which is why the pairs share a launch; the
-// wrapper's host work, about 0.04-0.05 ms a call, is what is left.
+// each way per card.  K7a at the SP halo (4 blocks of 8.4 MB, bound 0.020 ms)
+// is small enough that the launches and the host work around them, not the
+// bytes, decide its time: one launch for the ring takes 0.054-0.069 ms where
+// four took 0.126 ms (an H100 80GB HBM3 at 700 W), which is why the pairs of
+// a card share a launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define DCS_MAX_PEERS 16
 
-// Destination base pointers of one K7b launch, passed by value.
-struct DcsPeers {
-  char* dst[DCS_MAX_PEERS];
-};
-
-// The (source, destination) block pairs of one launch, passed by value.
+// The (source, destination) pairs of one launch, passed by value.
 struct DcsPairs {
   const char* src[DCS_MAX_PEERS];
   char* dst[DCS_MAX_PEERS];
@@ -61,67 +71,82 @@ struct DcsPairs {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 2048;  // per launch, over all pairs
+constexpr int kUnroll = 4;
 
-// blockIdx.y = pair d: copy nbytes from pairs.src[d] to pairs.dst[d].
-// vec: all addresses 16-byte aligned.
+// `rows` rows of `row_units` units (16 bytes when kVec, else 1) from
+// pairs.src[d] (contiguous) to pairs.dst[d] (rows `pitch` units apart), for
+// every pair d < n_pairs.  The tiles of all pairs form one sequence, one
+// block a tile, so the card streams through one pair's block at a time.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    copy_pairs(const __grid_constant__ DcsPairs pairs, long long nbytes, int vec) {
-  const char* s = pairs.src[blockIdx.y];
-  char* t = pairs.dst[blockIdx.y];
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  const long long n16 = vec ? nbytes / 16 : 0;
-  const uint4* s4 = reinterpret_cast<const uint4*>(s);
-  uint4* t4 = reinterpret_cast<uint4*>(t);
-  for (long long v = i; v < n16; v += step) t4[v] = s4[v];
-  for (long long v = n16 * 16 + i; v < nbytes; v += step) t[v] = s[v];
+    copy_rows(const __grid_constant__ DcsPairs pairs, int n_pairs, unsigned rows,
+              long long row_units, long long pitch) {
+  using Unit = typename std::conditional<kVec, uint4, char>::type;
+  constexpr int kTile = kUnroll * kThreads;
+  // tile indices fit 32 bits (the launch checks): the divisions that place a
+  // tile stay short beside its loads
+  const unsigned tiles_per_row = static_cast<unsigned>((row_units + kTile - 1) / kTile);
+  const unsigned tiles_per_pair = rows * tiles_per_row;
+  const unsigned tile = blockIdx.x;
+  const unsigned d = n_pairs == 1 ? 0u : tile / tiles_per_pair;
+  const unsigned in_pair = tile - d * tiles_per_pair;
+  const unsigned row = rows == 1 ? 0u : in_pair / tiles_per_row;
+  const long long c0 =
+      static_cast<long long>(in_pair - row * tiles_per_row) * kTile + threadIdx.x;
+  const Unit* src = reinterpret_cast<const Unit*>(pairs.src[d]) + row * row_units;
+  Unit* dst = reinterpret_cast<Unit*>(pairs.dst[d]) + row * pitch;
+  Unit v[kUnroll];
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i)
+    if (c0 + i * kThreads < row_units) v[i] = src[c0 + i * kThreads];
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i)
+    if (c0 + i * kThreads < row_units) dst[c0 + i * kThreads] = v[i];
 }
 
-int launch(const DcsPairs& pairs, int n_pairs, long long nbytes, void* stream) {
-  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || nbytes < 0)
+int launch(const DcsPairs& pairs, int n_pairs, long long rows, long long row_bytes,
+           long long dst_pitch, void* stream) {
+  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || rows < 0 || row_bytes < 0 ||
+      (rows > 1 && dst_pitch < row_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  int vec = 1;
+  bool vec = row_bytes % 16 == 0 && dst_pitch % 16 == 0;
   for (int d = 0; d < n_pairs; ++d) {
     if (pairs.src[d] == nullptr || pairs.dst[d] == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     vec = vec && reinterpret_cast<uintptr_t>(pairs.src[d]) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(pairs.dst[d]) % 16 == 0;
   }
-  if (nbytes == 0) return static_cast<int>(cudaGetLastError());
-  const long long units = vec ? (nbytes + 15) / 16 : nbytes;
-  long long bx = (units + kThreads - 1) / kThreads;
-  const long long cap = kMaxBlocks / n_pairs > 0 ? kMaxBlocks / n_pairs : 1;
-  if (bx > cap) bx = cap;
-  const dim3 grid(static_cast<unsigned>(bx), n_pairs);
-  copy_pairs<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(pairs, nbytes,
-                                                                       vec);
+  if (rows == 0 || row_bytes == 0) return static_cast<int>(cudaGetLastError());
+  const long long units = vec ? row_bytes / 16 : row_bytes;
+  const long long per = kUnroll * kThreads;
+  const long long tiles = n_pairs * rows * ((units + per - 1) / per);
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(tiles);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    copy_rows<true><<<grid, kThreads, 0, st>>>(pairs, n_pairs, static_cast<unsigned>(rows),
+                                                units, dst_pitch / 16);
+  else
+    copy_rows<false><<<grid, kThreads, 0, st>>>(pairs, n_pairs, static_cast<unsigned>(rows),
+                                                 units, dst_pitch);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K7b, one sender.  src: the sender's input, n row-blocks of block_bytes;
-// peers.dst[s]: shard s's output base (n entries); my: the sender's index.
-// Row-block s of src goes to peers.dst[s] + my * block_bytes.  Launches on the
-// current device, which must own `stream`; returns cudaGetLastError().
-extern "C" int dcs_all_to_all(const void* src, DcsPeers peers, int n, int my,
-                              long long block_bytes, void* stream) {
-  if (my < 0 || my >= n || n > DCS_MAX_PEERS || src == nullptr || block_bytes < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  DcsPairs pairs = {};
-  for (int s = 0; s < n; ++s) {
-    if (peers.dst[s] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    pairs.src[s] = static_cast<const char*>(src) + s * block_bytes;
-    pairs.dst[s] = peers.dst[s] + my * block_bytes;
-  }
-  return launch(pairs, n, block_bytes, stream);
+// K7b, every sender of one card: pair d moves `rows` rows of `row_bytes`
+// from pairs.src[d] (contiguous) to pairs.dst[d] (rows `dst_pitch` bytes
+// apart), d < n_pairs.  Launches on the current device, which must own
+// `stream`; returns cudaGetLastError().
+extern "C" int dcs_all_to_all(DcsPairs pairs, int n_pairs, long long rows,
+                              long long row_bytes, long long dst_pitch, void* stream) {
+  return launch(pairs, n_pairs, rows, row_bytes, dst_pitch, stream);
 }
 
 // K7a, every sender of one card: the whole block of nbytes at pairs.src[d]
 // goes to pairs.dst[d] (its right neighbour's output), d < n_pairs.
 extern "C" int dcs_ring(DcsPairs pairs, int n_pairs, long long nbytes, void* stream) {
-  return launch(pairs, n_pairs, nbytes, stream);
+  return launch(pairs, n_pairs, 1, nbytes, nbytes, stream);
 }
 
 // Let the current device's kernels address `peer`'s memory (both on this host,

@@ -14,7 +14,11 @@ paths run the chain after the coarse delay:
   as PyTorch ops (the JAX package runs those outside any Pallas kernel
   too).
 
-On a CPU tensor both paths run the plain per-stage ops.
+On a CPU tensor both paths run the plain per-stage ops.  Both return the
+wire layout, or with ``layout="operand"`` the X-engine's operand layout
+``(K, 2, S, B)`` (see :mod:`dc_sand_tpu_torch.ops.fengine_fused`): the
+fused kernel writes it itself, the unfused path permutes its wire spectra
+(:func:`~dc_sand_tpu_torch.ops.xcorr.wire_to_operand`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused, fengine_tail
 from dc_sand_tpu_torch.ops.pfb import pfb_fir
+from dc_sand_tpu_torch.ops.xcorr import wire_to_operand
 
 __all__ = ["f_engine", "coarse_delay"]
 
@@ -54,7 +59,7 @@ def coarse_delay(x: torch.Tensor, delays, max_delay: int) -> torch.Tensor:
 def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
              history: Optional[torch.Tensor] = None,
              coarse_delays=None, max_delay: int = 0,
-             frac_delay=None, phase=None, gains=None,
+             frac_delay=None, phase=None, gains=None, layout: str = "wire",
              impl: str = "auto", fused: bool = True) -> torch.Tensor:
     """Full F-engine on ``x: (..., t)`` int8 real streams.
 
@@ -64,9 +69,10 @@ def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
     (``coarse_delays`` must be None).
 
     Returns the wire format: int8 ``(..., b, k, 2)`` with ``gains``
-    (``(k, 2)`` float32 re/im), float32 ``(..., b, k, 2)`` without.
-    ``fused`` picks the path (module docstring); ``impl`` goes to the
-    kernel's wrapper (K1, or K6 when unfused).
+    (``(k, 2)`` float32 re/im), float32 ``(..., b, k, 2)`` without; with
+    ``layout="operand"`` (gains needed) int8 ``(k, 2, S, b)``.  ``fused``
+    picks the path (module docstring); ``impl`` goes to the kernel's
+    wrapper (K1, or K6 when unfused).
     """
     if history is not None and coarse_delays is not None:
         raise ValueError("split-I/O mode keeps coarse delay on the "
@@ -76,7 +82,8 @@ def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
     if fused:
         return fengine_fused(x, window, taps, n_chans, history=history,
                              frac_delay=frac_delay, phase=phase, gains=gains,
-                             impl=impl)
+                             layout=layout, impl=impl)
     fir = pfb_fir(x, window, taps, 2 * n_chans, history=history, impl=impl)
-    return fengine_tail(fir, n_chans, frac_delay=frac_delay, phase=phase,
+    wire = fengine_tail(fir, n_chans, frac_delay=frac_delay, phase=phase,
                         gains=gains)
+    return wire_to_operand(wire) if layout == "operand" else wire

@@ -10,18 +10,20 @@ and chunk ``(A*P, B, M)`` int8, coarse delay applied on the host feed.
 
 (the JAX step's argument order without ``coarse``) updates ``history``
 and ``acc`` IN PLACE, which takes the place of the JAX step's donated
-carry, and returns the chunk's outputs.  Per chunk the F-engine writes
-wire spectra ``(A*P, B, K, 2)``, int8, or float32 when the config does
-not requantise (fengine mode only): the fused kernel K1, or with
-``fused=False`` the standalone FIR kernel K6 and PyTorch ops (the JAX
-package's ``impl="pallas"`` path).  Then
+carry, and returns the chunk's outputs.  Per chunk the F-engine (the fused
+kernel K1, or with ``fused=False`` the standalone FIR kernel K6 and
+PyTorch ops, the JAX package's ``impl="pallas"`` path) writes in fengine
+and beam mode wire spectra ``(A*P, B, K, 2)``, int8, or float32 when the
+config does not requantise (fengine mode only), and in fx mode the
+X-engine's operand layout ``(K, 2, A*P, B)`` int8.  Then
 
 * fengine mode: returns ``{"spectra": (A, P, B, K, 2)}`` (a free view),
   ``acc`` is a rank-1 dummy, as in the JAX package;
-* fx mode: the corner-turn as PyTorch glue (one ``permute().contiguous()``,
-  :func:`dc_sand_tpu_torch.ops.xcorr.wire_to_a2`; on one device the
-  corner-turn's all-to-all is an identity) and the packed CMAC (K2/K3)
-  into ``acc``; returns ``{}``;
+* fx mode: the packed CMAC (K2/K3) into ``acc`` straight from the
+  F-engine's operand, viewed ``(K, 2*A*P, B)`` (on one device the
+  corner-turn's all-to-all is an identity, and the fused path has no
+  glue between the two kernels; the unfused one permutes its wire
+  spectra); returns ``{}``;
 * beam mode: the beam kernel (K4/K4p/K5) reads the wire spectra, viewed
   for free as ``(A, P, B, K, 2)``, and returns ``{"beams": (nb, P, B, K,
   2)}`` (float32, or int8 when ``cfg.beam_quant_scale > 0``), with
@@ -39,9 +41,11 @@ back in the global layout).  A mesh of one shard runs the one-device step
 behind that signature.  On more shards:
 
 * the F-engine runs on each shard's antennas and spectra;
-* fx: the corner-turn over fx (the all-to-all kernel K7b,
-  :func:`~dc_sand_tpu_torch.parallel.corner_turn_all_to_all`) and the
-  CMAC into the shard's ``(K/n_fx, ap, ap)`` channel block;
+* fx: the corner-turn over fx (the all-to-all kernel K7b in its pitched
+  mode, :func:`~dc_sand_tpu_torch.parallel.corner_turn_all_to_all`, one
+  launch a card, landing each shard's operand-layout blocks in the
+  receivers' operands) and the CMAC into the shard's ``(K/n_fx, ap, ap)``
+  channel block;
 * fengine: the spectra stay antenna-sharded;
 * beam: partial beams and incoherent beam per shard, summed over fx
   (``psum``), or with ``cfg.beam_parallel`` reduce-scattered over the beam
@@ -68,8 +72,7 @@ from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.beamform import beamform, quantize_beams
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.stokes import stokes
-from dc_sand_tpu_torch.ops.xcorr import (acc_shape, wire_to_a2,
-                                         xcorr_accumulate_a2)
+from dc_sand_tpu_torch.ops.xcorr import acc_shape, xcorr_accumulate_a2
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS,
                                         corner_turn_all_to_all, psum,
                                         psum_scatter, ring_tails)
@@ -170,6 +173,8 @@ def _window(window, cfg: ChainConfig, device) -> torch.Tensor:
 
 def _fengine(cfg: ChainConfig, w, chunk, history, frac, phase, gains,
              fused: bool) -> torch.Tensor:
+    """Wire spectra ``(S, B, K, 2)``, or in fx mode the operand layout
+    ``(K, 2, S, B)``."""
     s_l, b_l = chunk.shape[0], chunk.shape[1]
     return f_engine(chunk, w, cfg.n_taps, cfg.n_chans, history=history,
                     frac_delay=frac.reshape(s_l, b_l)
@@ -177,7 +182,8 @@ def _fengine(cfg: ChainConfig, w, chunk, history, frac, phase, gains,
                     phase=phase.reshape(s_l, b_l)
                     if cfg.apply_delay else None,
                     gains=gains if cfg.apply_requant else None,
-                    fused=fused)                           # (S, B, K, 2)
+                    layout="operand" if mode_for(cfg) == "fx" else "wire",
+                    fused=fused)
 
 
 def _carry(history, chunk) -> None:
@@ -291,7 +297,8 @@ def _make_one_step(cfg: ChainConfig, window, device: torch.device,
             return {"spectra": q.reshape(cfg.n_ants, cfg.n_pols, b_l,
                                          cfg.n_chans, 2)}
         if mode == "fx":
-            xcorr_accumulate_a2(acc, wire_to_a2(q), keep=0 if reset else 1)
+            xcorr_accumulate_a2(acc, q.reshape(cfg.n_chans, -1, b_l),
+                                keep=0 if reset else 1)
             return {}
         beams, inc = beamform(
             q.reshape(cfg.n_ants, cfg.n_pols, b_l, cfg.n_chans, 2), weights,
@@ -336,8 +343,7 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
                                TIME_AXIS, dim=1)
             hist = [h if head else halo
                     for h, halo, head in zip(histories, halos, heads)]
-        qs = [_fengine(cfg, windows[dev], c, h, fd, ph, g, fused).reshape(
-                  a_l, p, b_l, k, 2)
+        qs = [_fengine(cfg, windows[dev], c, h, fd, ph, g, fused)
               for dev, c, h, fd, ph, g in zip(devices, chunks, hist, fracs,
                                               phases, gains)]
         for d, (h, c) in enumerate(zip(histories, chunks)):
@@ -346,13 +352,14 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
             elif heads[d]:
                 h.copy_(halos[d])
         if mode == "fengine":
-            return {"spectra": qs}
+            return {"spectra": [q.reshape(a_l, p, b_l, k, 2) for q in qs]}
         if mode == "fx":
             a2 = corner_turn_all_to_all(qs, mesh)
             for acc, x in zip(accs, a2):
                 xcorr_accumulate_a2(acc, x, keep=0 if reset else 1)
             return {}
-        parts = [beamform(q, w, incoherent=cfg.incoherent_beam)
+        parts = [beamform(q.reshape(a_l, p, b_l, k, 2), w,
+                          incoherent=cfg.incoherent_beam)
                  for q, w in zip(qs, weights)]
         coh = [c for c, _ in parts]
         coh = (psum_scatter(coh, mesh, FX_AXIS) if cfg.beam_parallel

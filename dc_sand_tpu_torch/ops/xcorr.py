@@ -33,7 +33,7 @@ from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 
 __all__ = ["acc_shape", "xcorr_full", "extract_baselines", "extract_vis",
            "xcorr_accumulate", "xcorr_accumulate_a2",
-           "xcorr_accumulate_a2_torch", "wire_to_a2"]
+           "xcorr_accumulate_a2_torch", "wire_to_a2", "wire_to_operand"]
 
 # channels per block of the plain version: bounds its exact int64/float64
 # operand copy to about 512 MB
@@ -64,15 +64,23 @@ def _pack_mask(ap: int, device) -> torch.Tensor:
     return idx[:, None] <= idx[None, :]
 
 
+def wire_to_operand(q: torch.Tensor) -> torch.Tensor:
+    """Corner-turn glue: wire spectra ``(..., B, K, 2)`` -> the operand
+    layout ``(K, 2, S, B)`` (S the leading dims flattened), ``out[k, c,
+    s, b] = q[s, b, k, c]``.  One ``permute(...).contiguous()``: a full
+    read and write of the spectra, the moveaxis + concat of
+    ``dc_sand_tpu/ops/xcorr.py:219-223``.  The fused F-engine writes this
+    layout itself (``fengine_fused(..., layout="operand")``)."""
+    b, k = q.shape[-3], q.shape[-2]
+    return q.reshape(-1, b, k, 2).permute(2, 3, 0, 1).contiguous()
+
+
 def wire_to_a2(q: torch.Tensor) -> torch.Tensor:
-    """Corner-turn glue: wire spectra ``(S, B, K, 2)`` int8 (S = ap
-    streams) -> the stacked CMAC operand ``(K, 2ap, B)`` with
-    ``a2[k, c*ap + s, b] = q[s, b, k, c]`` (``[Ar; Ai]`` per channel).
-    One ``permute(...).contiguous()``: a full read and write of the
-    spectra, the moveaxis + concat of ``dc_sand_tpu/ops/xcorr.py:219-223``.
-    """
+    """Wire spectra ``(S, B, K, 2)`` int8 (S = ap streams) -> the stacked
+    CMAC operand ``(K, 2ap, B)`` with ``a2[k, c*ap + s, b] = q[s, b, k,
+    c]`` (``[Ar; Ai]`` per channel): :func:`wire_to_operand`, viewed."""
     s, b, k, _ = q.shape
-    return q.permute(2, 3, 0, 1).contiguous().reshape(k, 2 * s, b)
+    return wire_to_operand(q).reshape(k, 2 * s, b)
 
 
 def xcorr_full(q: torch.Tensor) -> torch.Tensor:

@@ -10,20 +10,25 @@ of shards along ``axis``, as the JAX ops do inside ``shard_map``:
   ring);
 * :func:`all_to_all` (K7b): the leading axis is cut into n row-blocks and
   output row-block s holds shard s's row-block ``my`` (``lax.all_to_all``
-  with ``split_axis=concat_axis=0, tiled=True``).
+  with ``split_axis=concat_axis=0, tiled=True``).  With ``rows > 1`` each
+  row-block is ``rows`` rows, and the output interleaves the senders'
+  rows: viewed ``(rows, n, C)``, its ``[q, s]`` is shard s's row q of
+  row-block ``my``.  That is the corner-turn's pitched mode
+  (:mod:`.corner_turn`): the blocks land straight in the receiver's CMAC
+  operand.
 
-On CUDA tensors they launch ``csrc/remote_dma.cu`` on the sender's
-device and current stream, each launch adding one to the op's
-``launches``: the all-to-all once per sending shard, the ring step once
-per CARD that holds a sender (the blocks of all its senders ride in one
-launch; on one card the whole ring is one launch).  The senders first
-wait for the receivers' streams (their outputs are allocated there), and
-every receiver's stream then waits for each of its senders, which takes
-the place of the TPU kernels' DMA semaphores.  Shards on different cards
-need peer access, which is enabled once per pair; a pair without it
-raises.  No ``copy_``, ``cat`` or NCCL stands in for the kernel.  On CPU
-tensors they run the plain versions (``*_torch``): index arithmetic and
-``.to(device)`` copies.
+On CUDA tensors they launch ``csrc/remote_dma.cu`` on each sending card's
+current stream, ONE launch per card that holds a sender (its pairs of
+sender and receiver ride in one launch, 16 at most; a card with more pairs
+launches once per 16), each launch adding one to the op's ``launches``: on
+one card a 4-shard all-to-all, or a whole ring, is one launch.  A card's
+stream first waits for its receivers' streams on other cards (their
+outputs are allocated there), and each such receiver's stream then waits
+for it, which takes the place of the TPU kernels' DMA semaphores.  Shards
+on different cards need peer access, which is enabled once per pair; a
+pair without it raises.  No ``copy_``, ``cat`` or NCCL stands in for the
+kernel.  On CPU tensors they run the plain versions (``*_torch``): index
+arithmetic and ``.to(device)`` copies.
 """
 
 from __future__ import annotations
@@ -74,55 +79,21 @@ def _enable_peer(src: torch.device, dst: torch.device) -> None:
     _peers_enabled.add((src, dst))
 
 
-def _launch_all(xs, outs, sends, entry) -> None:
-    """``sends[i]``: the shards sender ``i`` writes to.  Calls
-    ``entry(i, stream)`` once per sender, after its stream has waited for
-    its receivers' (where their outputs were allocated), and makes every
-    receiver's stream wait for its senders after."""
-    streams = [torch.cuda.current_stream(x.device) for x in xs]
-    for i, dsts in sends.items():
-        for j in dsts:
-            _enable_peer(xs[i].device, outs[j].device)
-            if streams[j] != streams[i]:
-                streams[i].wait_stream(streams[j])
-    for i in sends:
-        with torch.cuda.device(xs[i].device):
-            entry(i, streams[i].cuda_stream)
-    for i, dsts in sends.items():
-        for j in dsts:
-            if streams[j] != streams[i]:
-                streams[j].wait_stream(streams[i])
-
-
-def _peers(ptrs) -> _build.Peers:
-    if len(ptrs) > _build.MAX_PEERS:
-        raise ValueError(f"the peer-copy kernel takes at most "
-                         f"{_build.MAX_PEERS} shards a group, got {len(ptrs)}")
-    p = _build.Peers()
-    for k, ptr in enumerate(ptrs):
-        p.dst[k] = ptr
-    return p
-
-
 def _contiguous(xs) -> None:
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("the peer-copy kernel takes contiguous shards")
 
 
-def ring_permute_right(xs, mesh, axis: str, *, impl: str = "auto") -> list:
-    """One ring step over ``axis`` (K7a): shard k of each group receives
-    shard k-1's block, shard 0 shard n-1's.  Returns new tensors, each on
-    its receiver's device."""
-    _check(xs, mesh)
-    if _impl(impl, xs) == "torch":
-        return ring_permute_right_torch(xs, mesh, axis)
-    _contiguous(xs)
-    outs = [torch.empty_like(x) for x in xs]
-    nbytes = xs[0].numel() * xs[0].element_size()
-    lib = _build.library()
+def _launch_by_card(sends, xs, outs, launch) -> None:
+    """``sends``: ``(device, ((src, dst), ...))`` per card that holds a
+    sender, with the shard pairs whose sender sits on it.  Each card's
+    stream first waits for its receivers' streams on other cards, then
+    ``launch(pairs, stream)`` runs once per
+    :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs on it, and every such
+    receiver's stream waits for it after."""
     waits = []
     current = torch.cuda.current_device()
-    for dev, pairs in mesh.ring_sends(axis):
+    for dev, pairs in sends:
         stream = torch.cuda.current_stream(dev)
         for i, j in pairs:
             if xs[i].device != dev:
@@ -137,16 +108,38 @@ def ring_permute_right(xs, mesh, axis: str, *, impl: str = "auto") -> list:
         with (torch.cuda.device(dev) if dev.index != current
               else contextlib.nullcontext()):
             for at in range(0, len(pairs), _build.MAX_PEERS):
-                part = pairs[at:at + _build.MAX_PEERS]
-                arg = _build.Pairs()
-                for k, (i, j) in enumerate(part):
-                    arg.src[k] = xs[i].data_ptr()
-                    arg.dst[k] = outs[j].data_ptr()
-                _build.check(lib.dcs_ring(arg, len(part), nbytes,
-                                          stream.cuda_stream), "dcs_ring")
-                ring_permute_right.launches += 1
+                launch(pairs[at:at + _build.MAX_PEERS], stream.cuda_stream)
     for receiver, sender in waits:
         receiver.wait_stream(sender)
+
+
+def _pairs(ptrs) -> _build.Pairs:
+    """(source, destination) pointers -> the kernel's by-value argument."""
+    arg = _build.Pairs()
+    for k, (src, dst) in enumerate(ptrs):
+        arg.src[k] = src
+        arg.dst[k] = dst
+    return arg
+
+
+def ring_permute_right(xs, mesh, axis: str, *, impl: str = "auto") -> list:
+    """One ring step over ``axis`` (K7a): shard k of each group receives
+    shard k-1's block, shard 0 shard n-1's.  Returns new tensors, each on
+    its receiver's device."""
+    _check(xs, mesh)
+    if _impl(impl, xs) == "torch":
+        return ring_permute_right_torch(xs, mesh, axis)
+    _contiguous(xs)
+    outs = [torch.empty_like(x) for x in xs]
+    nbytes = xs[0].numel() * xs[0].element_size()
+    lib = _build.library()
+
+    def launch(pairs, stream):
+        arg = _pairs((xs[i].data_ptr(), outs[j].data_ptr()) for i, j in pairs)
+        _build.check(lib.dcs_ring(arg, len(pairs), nbytes, stream), "dcs_ring")
+        ring_permute_right.launches += 1
+
+    _launch_by_card(mesh.ring_sends(axis), xs, outs, launch)
     return outs
 
 
@@ -164,53 +157,69 @@ def ring_permute_right_torch(xs, mesh, axis: str) -> list:
     return outs
 
 
-def _rows(xs, n: int) -> int:
+def _block(xs, n: int, rows: int) -> int:
+    """Elements of a row-block; raises unless n row-blocks of ``rows``
+    rows each cut the shards."""
     if xs[0].dim() == 0 or xs[0].shape[0] % n:
         raise ValueError(f"leading dim {tuple(xs[0].shape)[:1]} not "
                          f"divisible by {n} shards")
-    return xs[0].shape[0] // n
+    block = xs[0].numel() // n
+    if rows < 1 or block % rows:
+        raise ValueError(f"a row-block of {block} elements does not cut "
+                         f"into {rows} rows")
+    return block
 
 
-def all_to_all(xs, mesh, axis: str, *, impl: str = "auto") -> list:
+def all_to_all(xs, mesh, axis: str, *, rows: int = 1,
+               impl: str = "auto") -> list:
     """Direct-send all-to-all on the leading axis over ``axis`` (K7b):
-    output row-block s of shard ``my`` is shard s's row-block ``my``.
-    Returns new tensors, each on its receiver's device."""
+    output row-block s of shard ``my`` is shard s's row-block ``my``; with
+    ``rows > 1``, each row-block cut into ``rows`` rows, the receivers'
+    outputs interleave the senders' rows (module docstring).  Returns new
+    tensors of the shards' shape, each on its receiver's device."""
     _check(xs, mesh)
     groups = mesh.groups(axis)
-    _rows(xs, len(groups[0]))
+    n = len(groups[0])
+    block = _block(xs, n, rows)
     if _impl(impl, xs) == "torch":
-        return all_to_all_torch(xs, mesh, axis)
+        return all_to_all_torch(xs, mesh, axis, rows=rows)
     _contiguous(xs)
     outs = [torch.empty_like(x) for x in xs]
-    n = len(groups[0])
-    block = xs[0].numel() * xs[0].element_size() // n
-    where = {}
+    esize = xs[0].element_size()
+    row_bytes = block // rows * esize
+    pitch = n * row_bytes if rows > 1 else row_bytes
+    pos = {i: k for group in groups for k, i in enumerate(group)}
+    by_dev = {}
     for group in groups:
-        peers = _peers([outs[j].data_ptr() for j in group])
-        for my, i in enumerate(group):
-            where[i] = (group, my, peers)
+        for i in group:
+            by_dev.setdefault(xs[i].device, []).extend((i, j) for j in group)
+    lib = _build.library()
 
-    def entry(i, stream):
-        _, my, peers = where[i]
-        _build.check(_build.library().dcs_all_to_all(
-            xs[i].data_ptr(), peers, n, my, block, stream), "dcs_all_to_all")
+    def launch(pairs, stream):
+        # sender i's row-block pos[j] -> receiver j, its rows from pos[i]
+        arg = _pairs((xs[i].data_ptr() + pos[j] * block * esize,
+                      outs[j].data_ptr() + pos[i] * row_bytes)
+                     for i, j in pairs)
+        _build.check(lib.dcs_all_to_all(arg, len(pairs), rows, row_bytes,
+                                        pitch, stream), "dcs_all_to_all")
         all_to_all.launches += 1
 
-    _launch_all(xs, outs, {i: g for i, (g, _, _) in where.items()}, entry)
+    _launch_by_card(tuple(by_dev.items()), xs, outs, launch)
     return outs
 
 
 all_to_all.launches = 0
 
 
-def all_to_all_torch(xs, mesh, axis: str) -> list:
+def all_to_all_torch(xs, mesh, axis: str, *, rows: int = 1) -> list:
     """Plain version of :func:`all_to_all`."""
     _check(xs, mesh)
     outs = [None] * len(xs)
     for group in mesh.groups(axis):
-        rows = _rows(xs, len(group))
-        for my, j in enumerate(group):
+        n = len(group)
+        _block(xs, n, rows)
+        for r, j in enumerate(group):
             dev = xs[j].device
-            outs[j] = torch.cat([xs[s][my * rows:(my + 1) * rows].to(dev)
-                                 for s in group])
+            parts = [xs[s].reshape(n, rows, -1)[r].to(dev) for s in group]
+            outs[j] = torch.stack(parts, 1).reshape(xs[j].shape)
     return outs

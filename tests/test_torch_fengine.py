@@ -9,8 +9,10 @@ import jax.numpy as jnp
 
 from dc_sand_tpu import golden
 from dc_sand_tpu.models.fengine import f_engine as jx_f_engine
+from dc_sand_tpu.ops.fengine_fused import fengine_fused as jx_fengine_fused
 from dc_sand_tpu.windows import pfb_window
 from dc_sand_tpu_torch.models.fengine import f_engine
+from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
 from dc_sand_tpu_torch.models.pipeline import make_step, history_shape
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.utils import np_c2ri, np_ri2c, snr_db
@@ -112,3 +114,50 @@ def test_step_carries_history_as_the_stream_tail(b):
     stream = torch.from_numpy(full[:, b + pad0:].reshape(s, -1).copy())
     want = f_engine(stream, w, taps, nch, gains=gains).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("split", [True, False])   # with and without history
+@pytest.mark.parametrize("taps", [4, 16])
+def test_operand_layout_matches_jax_fused_corner_turned(taps, split):
+    """``layout="operand"`` (the CMAC operand ``(K, 2, S, B)``) equals the
+    JAX fused F-engine's wire output (Pallas, interpret mode) corner-turned
+    as ``dc_sand_tpu/ops/xcorr.py:219-223`` does it (channel axis first,
+    then ``[Ar; Ai]`` stacked), modulo certified 1-LSB boundary flips."""
+    nch, s, b = 512, 2, 16
+    hist, chunk, fd, ph, g, w = _inputs(taps, nch, s, b, seed=30 + taps)
+    pad0 = taps_pad_for(taps) - taps + 1
+    stream = np.concatenate([hist[:, pad0:], chunk], 1).reshape(s, -1)
+    kw = dict(frac_delay=fd, phase=ph, gains=np_c2ri(g))
+    if split:
+        got = fengine_fused(torch.from_numpy(chunk), w, taps, nch,
+                            history=torch.from_numpy(hist),
+                            layout="operand",
+                            **{k: torch.from_numpy(v) for k, v in kw.items()})
+        wire = jx_fengine_fused(jnp.asarray(chunk), w, taps, nch,
+                                history=jnp.asarray(hist), interpret=True,
+                                strict=True,
+                                **{k: jnp.asarray(v) for k, v in kw.items()})
+    else:
+        got = fengine_fused(torch.from_numpy(stream), w, taps, nch,
+                            layout="operand",
+                            **{k: torch.from_numpy(v) for k, v in kw.items()})
+        wire = jx_fengine_fused(jnp.asarray(stream), w, taps, nch,
+                                interpret=True, strict=True,
+                                **{k: jnp.asarray(v) for k, v in kw.items()})
+    assert got.dtype == torch.int8 and got.shape == (nch, 2, s, b)
+    a = jnp.moveaxis(wire, 2, 0)                       # (K, S, B, 2)
+    want = np.asarray(jnp.concatenate([a[..., 0], a[..., 1]], axis=1))
+    pre = golden.f_engine(stream, w, taps, nch, frac_delay=fd,
+                          phase=ph) * g                # (S, B, K)
+    pre = np.moveaxis(pre, 2, 0)                        # (K, S, B)
+    _certify_flips(got.reshape(nch, 2 * s, b).numpy()
+                   .reshape(nch, 2, s, b).transpose(0, 2, 3, 1),
+                   want.reshape(nch, 2, s, b).transpose(0, 2, 3, 1), pre)
+
+
+def test_layouts_refused():
+    x = torch.zeros((2, 4 * 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="layout"):
+        fengine_fused(x, pfb_window(4, 64), 4, 32, layout="native")
+    with pytest.raises(ValueError, match="gains"):
+        fengine_fused(x, pfb_window(4, 64), 4, 32, layout="operand")

@@ -106,10 +106,15 @@ def _noise(gen, shape, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("taps,nch,b", [(4, 64, 16), (16, 1024, 24)])
+@pytest.mark.parametrize("taps,nch,b", [(4, 16, 5), (4, 64, 16),
+                                        (16, 1024, 24), (16, 4096, 19)])
 def test_fengine_kernel_matches_plain(cuda, taps, nch, b):
     """Kernel vs plain version: only single-LSB boundary flips, at most
-    1e-3 of the values (the two FFTs sum in different orders)."""
+    1e-3 of the values (the two FFTs sum in different orders), in both
+    layouts; the operand layout is bitwise ``wire_to_operand`` of the wire
+    output (M = 32 puts 64 sub-tiles in a CTA, B = 5 and 19 leave a
+    ragged last tile)."""
+    from dc_sand_tpu_torch.ops.xcorr import wire_to_operand
     gen = torch.Generator(device=cuda)
     gen.manual_seed(taps)
     s, m = 6, 2 * nch
@@ -126,6 +131,10 @@ def test_fengine_kernel_matches_plain(cuda, taps, nch, b):
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 1e-3
+    op = fengine_fused(chunk, w, taps, nch, impl="cuda", layout="operand",
+                       **kw)
+    assert op.shape == (nch, 2, s, b) and torch.equal(op,
+                                                      wire_to_operand(got))
 
 
 @pytest.mark.cuda
@@ -302,10 +311,10 @@ def _card_mesh(n, time_shards=1):
 @pytest.mark.parametrize("n,time_shards", [(4, 1), (4, 2), (2, 1), (1, 1)])
 def test_peer_copy_kernels_bitwise_equal_plain(cuda, shape, dtype, n,
                                                time_shards):
-    """K7a and K7b vs their plain versions over both axes of a mesh, at
-    16-byte and odd block sizes: bitwise; the all-to-all launches once
-    per sender, the ring once per card that holds a sender (on one card
-    the 4-shard ring, or both rings of the (2, 2) mesh, is one launch)."""
+    """K7a and K7b (block mode) vs their plain versions over both axes of
+    a mesh, at 16-byte and odd block sizes: bitwise; each launches once
+    per card that holds a sender (on one card the 4-shard all-to-all or
+    ring, or both rings of the (2, 2) mesh, is one launch)."""
     mesh = _card_mesh(n, time_shards)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n + shape[0])
@@ -325,8 +334,7 @@ def test_peer_copy_kernels_bitwise_equal_plain(cuda, shape, dtype, n,
             want = getattr(remote_dma, plain)(xs, mesh, axis)
             torch.cuda.synchronize()
             cards = len({str(d) for d in mesh.flat_devices})
-            assert op.launches - before == (
-                cards if op is ring_permute_right else n)
+            assert op.launches - before == cards
             if op is ring_permute_right:
                 assert len(mesh.ring_sends(axis)) == cards
             for g, w, x in zip(got, want, xs):
@@ -334,10 +342,41 @@ def test_peer_copy_kernels_bitwise_equal_plain(cuda, shape, dtype, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,s_l,b", [(8, 3, 5), (64, 16, 32), (4096, 1, 3)])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_all_to_all_corner_turn_mode_bitwise_equals_plain(cuda, n, k, s_l,
+                                                          b):
+    """K7b in its pitched corner-turn mode vs the plain version, n fx
+    shards of operand-layout int8 ``(K, 2, s_l, b)`` (odd rows take the
+    byte path, 16-byte rows the vector path), and the corner-turn built on
+    it: bitwise, one launch a card."""
+    from dc_sand_tpu_torch.parallel import (all_to_all_torch,
+                                            corner_turn_all_to_all)
+    mesh = _card_mesh(n)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * k + b)
+    xs = [torch.randint(-127, 128, (k, 2, s_l, b), generator=gen,
+                        device=cuda, dtype=torch.int8).to(dev)
+          for dev in mesh.flat_devices]
+    rows = 2 * k // n
+    before = all_to_all.launches
+    got = all_to_all(xs, mesh, "fx", rows=rows, impl="cuda")
+    want = all_to_all_torch(xs, mesh, "fx", rows=rows)
+    torch.cuda.synchronize()
+    assert all_to_all.launches - before == len(
+        {str(d) for d in mesh.flat_devices})
+    for g, w, x in zip(got, want, xs):
+        assert g.device == x.device and torch.equal(g, w)
+    a2 = corner_turn_all_to_all(xs, mesh)
+    for g, w in zip(a2, want):
+        assert torch.equal(g, w.reshape(k // n, 2 * n * s_l, b))
+
+
+@pytest.mark.cuda
 def test_sharded_runner_on_card_equals_one_device(cuda):
     """The fx runner on a 4-way fx mesh and on a (2, 2) SP mesh of the
     card(s) gives the one-device dumps bitwise, through K7b (and K7a in
-    SP, one launch a chunk and card)."""
+    SP), each one launch a chunk and card."""
     from dc_sand_tpu_torch import golden
     from dc_sand_tpu_torch.config import get_config, scaled_for_test
     from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
@@ -363,7 +402,8 @@ def test_sharded_runner_on_card_equals_one_device(cuda):
         assert len(got) == len(ref) == 2
         for a, b in zip(ref, got):
             np.testing.assert_array_equal(a.vis, b.vis)
-    assert all_to_all.launches - a2a == 2 * 4 * 4
-    # one ring launch a chunk and card that holds a sender
-    assert ring_permute_right.launches - ring == 4 * min(
-        4, torch.cuda.device_count())
+    # one all-to-all and one ring launch a chunk and card that holds a
+    # sender
+    cards = min(4, torch.cuda.device_count())
+    assert all_to_all.launches - a2a == 2 * 4 * cards
+    assert ring_permute_right.launches - ring == 4 * cards

@@ -24,7 +24,7 @@ from dc_sand_tpu.parallel.mesh import build_mesh as jax_build_mesh
 from dc_sand_tpu.parallel.remote_dma import (all_to_all_pallas,
                                              ring_permute_right as jax_ring)
 from dc_sand_tpu_torch.ops.stokes import stokes
-from dc_sand_tpu_torch.ops.xcorr import wire_to_a2
+from dc_sand_tpu_torch.ops.xcorr import wire_to_a2, wire_to_operand
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
                                         build_mesh, corner_turn_all_to_all,
                                         halo_exchange_left, psum,
@@ -39,14 +39,14 @@ except ImportError:
 D = 4
 
 
-def _flat(name):
-    return JaxMesh(np.array(jax.devices("cpu")[:D]), (name,))
+def _flat(name, n=D):
+    return JaxMesh(np.array(jax.devices("cpu")[:n]), (name,))
 
 
-def _jax_sharded(fn, name, x, spec_in, spec_out):
-    """``fn`` under shard_map over a flat D-device mesh on axis ``name``;
+def _jax_sharded(fn, name, x, spec_in, spec_out, n=D):
+    """``fn`` under shard_map over a flat n-device mesh on axis ``name``;
     returns the global result as numpy."""
-    mesh = _flat(name)
+    mesh = _flat(name, n)
     return np.asarray(jax.jit(shard_map_fn(
         fn, mesh=mesh, in_specs=(spec_in,), out_specs=spec_out,
         check_vma=False))(jnp.asarray(x)))
@@ -149,25 +149,31 @@ def test_ring_sender_grouping_covers_every_shard_once(n, time_shards, cards):
         assert len(mesh.ring_sends(TIME_AXIS)) == 1
 
 
-def test_corner_turn_bitwise_equals_jax():
-    """Each shard's CMAC operand equals ``wire_to_a2`` of its block of
-    JAX's corner-turn (XLA's and the Pallas route's, equal)."""
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_corner_turn_bitwise_equals_jax(n):
+    """Each shard's CMAC operand, from operand-layout shards ``(K, 2,
+    s_local, b)`` through K7b's pitched mode, equals ``wire_to_a2`` of its
+    block of JAX's corner-turn (XLA's and the Pallas route's, equal)."""
     a, pol, b, k = 8, 2, 3, 64
     q = _data(np.int8, (a, pol, b, k, 2), 3)
     want = _jax_sharded(lambda ql: jax_corner_turn(ql, J_FX), J_FX, q,
-                        P(J_FX), P(None, None, None, J_FX))
+                        P(J_FX), P(None, None, None, J_FX), n)
     pal = _jax_sharded(lambda ql: jax_corner_turn(
         ql, J_FX, impl="pallas", axis_names=(J_FX,), interpret=True), J_FX,
-        q, P(J_FX), P(None, None, None, J_FX))
+        q, P(J_FX), P(None, None, None, J_FX), n)
     np.testing.assert_array_equal(pal, want)
-    mesh = build_mesh(["cpu"] * D)
-    a2 = corner_turn_all_to_all(_shards(q), mesh)
-    for i, blk in enumerate(np.split(want, D, axis=3)):
+    mesh = build_mesh(["cpu"] * n)
+    shards = [wire_to_operand(x.reshape(-1, b, k, 2))
+              for x in _shards(q, n=n)]
+    a2 = corner_turn_all_to_all(shards, mesh)
+    for i, blk in enumerate(np.split(want, n, axis=3)):
         ref = wire_to_a2(torch.from_numpy(np.ascontiguousarray(
-            blk.reshape(a * pol, b, k // D, 2))))
+            blk.reshape(a * pol, b, k // n, 2))))
         assert torch.equal(a2[i], ref)
-    with pytest.raises(ValueError, match="channels"):
-        corner_turn_all_to_all(_shards(q[..., :62, :]), mesh)
+    if n > 1:
+        with pytest.raises(ValueError, match="channels"):
+            corner_turn_all_to_all([x[1:].contiguous() for x in shards],
+                                   mesh)
 
 
 def test_halo_exchange_bitwise_equals_jax():

@@ -6,7 +6,8 @@ arguments, one card).  It imports no jax.  Phases, each of which fails
 the run (non-zero exit) when it fails:
 
 1. build the six CUDA kernel sources from ``dc_sand_tpu_torch/csrc``, one
-   nvcc per source, all started together;
+   nvcc per source, all started together, and beside them the CMAC's
+   phases build;
 2. F-engine kernel (K1) vs its plain version at the fx64 chunk shape
    (128 streams x 2048 spectra x 8192 samples): every difference a
    single LSB, at most 1e-4 of the values, and each flip of the stream
@@ -15,7 +16,12 @@ the run (non-zero exit) when it fails:
    fx path feeds to the CMAC) bitwise equal to ``wire_to_a2`` of its wire
    layout; both layouts timed beside that corner-turn glue;
 3. CMAC kernel (K2/K3) vs its plain version at the fx64 shape
-   (K = 4096, ap = 128, B = 2048), keep 1 and 0: bitwise equal;
+   (K = 4096, ap = 128, B = 2048), keep 1 and 0: bitwise equal; keep 1
+   and 0 timed at B = 2048, 1024 (an SP shard's half chunk) and 256 (the
+   bench's), each beside its bound; the split of its time between its
+   phases, from its build with ``clock64`` counters
+   (``dc_sand_tpu_torch/bench/cmac_phases.py``, built in phase 1 beside
+   the others), whose results must be bitwise equal too;
 4. ``verify fx4`` at its full config through the port's runner: >50 dB
    against the float64 golden chain;
 5. ``verify fx64`` at full width (64 ants x 2 pols, 4096 channels) with
@@ -133,6 +139,8 @@ when no CUDA device is present.
 
 from __future__ import annotations
 
+import concurrent.futures
+import hashlib
 import json
 import statistics
 import sys
@@ -152,6 +160,7 @@ BEAM_QUANT_RMS = 30.0      # rms of y*s in LSB for the int8 epilogue check
 BENCH_STREAMS, BENCH_SPECTRA, BENCH_CHANS = 16, 512, 1024
 FLOAT_SNR_DB = 100.0       # two float32 F-engines, FFTs in other orders
 UNFUSED_SNR_DB = 60.0      # fused vs unfused fx64 dump: 1-LSB flips
+CMAC_SPECTRA = (2048, 1024, 256)   # phase 3's timings: fx64, SP, the bench
 
 
 def _events_ms(fn, n):
@@ -176,6 +185,12 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _digest(a) -> str:
+    """sha256 of a numpy array's bytes (C order): a dump's identity
+    across runs and commits (the chunks are made from a fixed seed)."""
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
 def _snr_db(ref, got) -> float:
     """10 log10(sum |ref|^2 / sum |ref - got|^2), in float64 on the card."""
     ref, got = ref.double(), got.double()
@@ -191,7 +206,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
     from dc_sand_tpu_torch import _build, golden
-    from dc_sand_tpu_torch.bench import harness
+    from dc_sand_tpu_torch.bench import cmac_phases, harness
     from dc_sand_tpu_torch.bench import probes
     from dc_sand_tpu_torch.bench.__main__ import main as bench_main
     from dc_sand_tpu_torch.bench.harness import (bound_ms, fengine_flops,
@@ -257,7 +272,11 @@ def main() -> int:
 
     # ---- 1. build ---------------------------------------------------------
     t = time.perf_counter()
-    _build.library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the CMAC's phases build (phase 3) beside the port's own builds
+        phases_build = pool.submit(cmac_phases.phases_library)
+        _build.library()
+        cmac_phases_lib = phases_build.result()
     print(f"[1 build] nvcc sm_90a, {time.perf_counter() - t:.1f} s", flush=True)
     for line in _build.build_log().splitlines():
         if "Used" in line or "spill" in line:
@@ -358,7 +377,7 @@ def main() -> int:
                        device=dev, dtype=torch.int8)
     acc0 = torch.randint(-2 ** 24, 2 ** 24, (nch, ap, ap), generator=gen,
                          device=dev, dtype=torch.int32)
-    cmac_err = 0
+    cmac_err, plain = 0, {}
     for keep in (1, 0):
         x, y = acc0.clone(), acc0.clone()
         xcorr_accumulate_a2(x, a2, keep=keep, impl="cuda")
@@ -367,6 +386,7 @@ def main() -> int:
         if not torch.equal(x, y):
             raise RuntimeError(f"CMAC kernel != plain version (keep={keep}): "
                                f"{int((x != y).sum())} elements differ")
+        plain[keep] = y
     # timed as the main path runs 3 of every 4 chunks: keep = 1, the
     # accumulator read and written
     scratch = acc0.clone()
@@ -376,15 +396,33 @@ def main() -> int:
     cmac_plain_ms = _events_ms(
         lambda: xcorr_accumulate_a2(scratch, a2, keep=1,
                                            impl="torch"), 1)
-    ops = 12 * 2 * 64 * 64 * b * nch   # 12 of the 16 64x64 tile products
-    # needed: vr and vi of every (i, j), two length-B dot products each
-    cmac_bound = bound_ms(_nbytes(a2, acc0, acc0),
-                          int8_ops=4 * ap * ap * b * nch)
+    ops = 10 * 2 * 64 * 64 * b * nch   # 10 of the 16 64x64 tile products
+    cmac_bound = cmac_phases.cmac_bound(nch, ap, b, 1)
     print(f"[3 cmac] bitwise equal (keep 1 and 0); kernel {cmac_ms:.3f} ms "
           f"({ops / cmac_ms / 1e9:.1f} int8 TOP/s executed), plain "
           f"{cmac_plain_ms:.3f} ms, bound {cmac_bound[0]:.3f} ms "
           f"({cmac_bound[1]}) ({card})", flush=True)
-    del a2, acc0, x, y, scratch
+    for bb in CMAC_SPECTRA:
+        part = a2.view(-1)[:nch * 2 * ap * bb].view(nch, 2 * ap, bb)
+        line = []
+        for keep in (1, 0):
+            ms = _events_ms(lambda: xcorr_accumulate_a2(
+                scratch, part, keep=keep, impl="cuda"), 5)
+            bound = cmac_phases.cmac_bound(nch, ap, bb, keep)
+            line.append(f"keep {keep} {ms:.3f} ms (bound {bound[0]:.3f}, "
+                        f"{bound[0] / ms:.2f} of it)")
+        print(f"[3 cmac] B {bb}: {'; '.join(line)} ({card})", flush=True)
+    # the split of the kernel's time between its phases, from its build
+    # with the clock64 counters, whose result must be the kernel's too
+    split = {}
+    for keep in (1, 0):
+        z = acc0.clone()
+        split[keep] = cmac_phases.phase_split(cmac_phases_lib, a2, z, keep)
+        if not torch.equal(z, plain[keep]):
+            raise RuntimeError("the CMAC's phases build != plain version")
+        print(f"[3 cmac] phase shares keep {keep}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split[keep].items()), flush=True)
+    del a2, acc0, x, y, z, plain, scratch, part
     torch.cuda.empty_cache()
 
     # ---- 4./5. verify fx4 and full-width fx64 against golden --------------
@@ -448,6 +486,7 @@ def main() -> int:
           f"coarse shift on the card and dump included, host-to-device copy "
           f"excluded); device step {dev_step_ms:.3f} ms = "
           f"{samples / dev_step_ms / 1e6:.2f} Gsamp/s ({card})", flush=True)
+    print(f"[6 fx64 production] dump digest {_digest(vis)}", flush=True)
     vis_fused = vis               # held for phase 13
     del runner, chunks, frames, zeros, args, dumps, vis
     torch.cuda.empty_cache()
@@ -728,6 +767,8 @@ def main() -> int:
                            "shape")
     vis_snr = snr_db(vis_fused[..., 0] + 1j * vis_fused[..., 1],
                      dumps[0].vis[..., 0] + 1j * dumps[0].vis[..., 1])
+    print(f"[13 fx64 unfused] dump digest {_digest(dumps[0].vis)}",
+          flush=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
     runner.run(lambda i: chunks[i % n_chunks], n_chunks)

@@ -33,11 +33,16 @@ from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 
 __all__ = ["acc_shape", "xcorr_full", "extract_baselines", "extract_vis",
            "xcorr_accumulate", "xcorr_accumulate_a2",
-           "xcorr_accumulate_a2_torch", "wire_to_a2", "wire_to_operand"]
+           "xcorr_accumulate_a2_torch", "wire_to_a2", "wire_to_operand",
+           "cmac_units", "cmac_plan_torch"]
 
 # channels per block of the plain version: bounds its exact int64/float64
 # operand copy to about 512 MB
 _PLAIN_BLOCK_ELEMS = 1 << 26
+
+# csrc/cmac.cu: kT (rows and columns of a work unit), kBK (spectra a stage)
+CMAC_TILE = 128
+CMAC_STAGE = 128
 
 
 def acc_shape(n_ants: int, n_pols: int, n_chans: int) -> tuple:
@@ -194,4 +199,101 @@ def xcorr_accumulate_a2_torch(acc: torch.Tensor, a2: torch.Tensor,
             blk.add_(packed)
         else:
             blk.copy_(packed)
+    return acc
+
+
+def cmac_units(n_chans: int, ap: int) -> list:
+    """The CMAC kernel's work units in its order (``csrc/cmac.cu``):
+    ``(k, bi, bj, kind)`` for channel k and the 128-row block bi, 128-column
+    block bj of its plane, kind ``"diag"`` (bi == bj: every unit when ap
+    <= 128), ``"upper"`` (vr only) or ``"lower"`` (vi only)."""
+    nb = -(-ap // CMAC_TILE)
+    return [(k, bi, bj, "diag" if bi == bj else
+             ("upper" if bi < bj else "lower"))
+            for k in range(n_chans) for bi in range(nb) for bj in range(nb)]
+
+
+def cmac_plan_torch(acc: torch.Tensor, a2: torch.Tensor,
+                    keep: int = 1) -> torch.Tensor:
+    """The CMAC kernel's schedule as PyTorch ops on the CPU, for tests:
+    ``acc = acc * keep + packed(a2)`` in place, computed as
+    ``csrc/cmac.cu`` computes it, so that an index error in its plan shows
+    here before it reaches the card.
+
+    It walks :func:`cmac_units` (all channels of a kind of unit at once),
+    reads each block through the tensor map's view ``(2K, ap, B)`` with
+    rows past ap and spectra past B zero-filled, sums each warpgroup's
+    products stage by stage in int64 (the kernel's int32 sums wrap the
+    same way modulo 2**32), forms vi of a diagonal unit as W - W^T with W
+    = Ai Ar^T (each W element above the diagonal written first to the
+    place of its transpose in the staging tile, which starts full of
+    stale values), and of a lower unit as Ai_I Ar_J^T - Ar_I Ai_J^T;
+    selects the packed element; and adds the staged tile to the
+    accumulator (``keep`` 1, the reduce-add) or stores it (0), clipped at
+    ap."""
+    if keep not in (0, 1):
+        raise ValueError(f"keep must be 0 or 1, got {keep!r}")
+    n_chans, tap, n_b = a2.shape
+    ap, t, h = tap // 2, CMAC_TILE, CMAC_TILE // 2
+    nb, n_st = -(-ap // t), -(-n_b // CMAC_STAGE)
+    x = torch.zeros((n_chans, 2, nb * t, n_st * CMAC_STAGE),
+                    dtype=torch.int64)
+    x[:, :, :ap, :n_b] = a2.reshape(n_chans, 2, ap, n_b).to(torch.int64)
+    gen = torch.Generator().manual_seed(ap * n_b)
+    lower = torch.ones(t, t, dtype=torch.bool).tril(-1)  # r > c
+
+    def stages(a, b):
+        """A (k, m, S) . B (k, n, S)^T, one stage at a time."""
+        out = 0
+        for st in range(n_st):
+            sl = slice(st * CMAC_STAGE, (st + 1) * CMAC_STAGE)
+            out = out + torch.bmm(a[..., sl], b[..., sl].transpose(1, 2))
+        return out
+
+    for _, bi, bj, kind in cmac_units(1, ap):   # every channel at once
+        ar, ai = (x[:, c, bi * t:(bi + 1) * t] for c in (0, 1))
+        cr, ci = (x[:, c, bj * t:(bj + 1) * t] for c in (0, 1))
+        stg = torch.randint(-2 ** 31, 2 ** 31, (n_chans, t, t),
+                            generator=gen, dtype=torch.int64)
+        if kind == "diag":
+            # warpgroup 0, rows 0-63
+            vr0 = stages(ar[:, :h], cr) + stages(ai[:, :h], ci)
+            w00 = stages(ai[:, :h], cr[:, :h])
+            # warpgroup 1, rows 64-127
+            w1 = stages(ai[:, h:], cr)
+            vr11 = stages(ar[:, h:], cr[:, h:]) + stages(ai[:, h:],
+                                                         ci[:, h:])
+            w01 = stages(ai[:, :h], cr[:, h:])
+            # 1. W above the diagonal to the place of its transpose
+            stg[:, :h, :h] = torch.where(lower[:h, :h],
+                                         w00.transpose(1, 2), stg[:, :h, :h])
+            stg[:, h:, :h] = w01.transpose(1, 2)
+            stg[:, h:, h:] = torch.where(lower[h:, h:],
+                                         w1[:, :, h:].transpose(1, 2),
+                                         stg[:, h:, h:])
+            # 2. the packed element
+            tile = torch.empty_like(stg)
+            tile[:, :h, :h] = torch.where(lower[:h, :h],
+                                          w00 - stg[:, :h, :h],
+                                          vr0[:, :, :h])
+            tile[:, :h, h:] = vr0[:, :, h:]
+            tile[:, h:, :h] = w1[:, :, :h] - stg[:, h:, :h]
+            tile[:, h:, h:] = torch.where(lower[h:, h:],
+                                          w1[:, :, h:] - stg[:, h:, h:],
+                                          vr11)
+        elif kind == "upper":
+            tile = stages(ar, cr) + stages(ai, ci)
+        else:   # each warpgroup: Ai_I Ar_J^T less Ar_I Ai_J^T by halves
+            tile = stages(ai, cr) - torch.cat(
+                [stages(ar, ci[:, :h]), stages(ar, ci[:, h:])], 2)
+        # 3. the tensor store or reduce-add, clipped at ap
+        rows = slice(bi * t, min((bi + 1) * t, ap))
+        cols = slice(bj * t, min((bj + 1) * t, ap))
+        got = tile[:, :rows.stop - rows.start, :cols.stop - cols.start]
+        got = (got + 2 ** 31) % 2 ** 32 - 2 ** 31   # int32 wrap
+        blk = acc[:, rows, cols]
+        if keep:
+            blk.add_(got.to(torch.int32))
+        else:
+            blk.copy_(got.to(torch.int32))
     return acc

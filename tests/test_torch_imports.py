@@ -187,8 +187,14 @@ def test_pfb_kernel_bitwise_equals_plain(cuda, taps, m, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("keep", [0, 1])
-@pytest.mark.parametrize("k,ap,b", [(3, 8, 16), (5, 72, 80), (4, 128, 256)])
+@pytest.mark.parametrize("k,ap,b", [(3, 8, 16), (5, 72, 80), (4, 128, 256),
+                                    (2, 1, 16), (3, 136, 16), (2, 160, 1040),
+                                    (5, 128, 1040), (2, 130, 48)])
 def test_cmac_kernel_bitwise_equals_plain(cuda, k, ap, b, keep):
+    """Every unit kind of the kernel (``ops/xcorr.py:cmac_units``): one
+    diagonal block (ap <= 128), rows and spectra past a block's or a
+    stage's end, and ap > 128 (diagonal, upper and lower blocks); ap not a
+    multiple of 4 (1, 130) stores element by element."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(k * ap + b)
     a2 = torch.randint(-127, 128, (k, 2 * ap, b), generator=gen,
@@ -200,6 +206,25 @@ def test_cmac_kernel_bitwise_equals_plain(cuda, k, ap, b, keep):
     xcorr_accumulate_a2(want, a2, keep=keep, impl="torch")
     assert torch.equal(got, want)
 
+
+@pytest.mark.cuda
+def test_cmac_kernel_refuses_what_it_cannot_take(cuda):
+    """B % 16 != 0 and an operand that is not 16-byte aligned raise before
+    a launch; a misaligned accumulator is taken (element-wise stores)."""
+    acc = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="B % 16"):
+        xcorr_accumulate_a2(acc, torch.zeros((2, 16, 24), dtype=torch.int8,
+                                             device=cuda), impl="cuda")
+    flat = torch.ones(2 * 16 * 32 + 1, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        xcorr_accumulate_a2(acc, flat[1:].view(2, 16, 32), impl="cuda")
+    a2 = flat[:-1].view(2, 16, 32)
+    big = torch.zeros((3, 8, 8), dtype=torch.int32, device=cuda)
+    odd = big.view(-1)[1:1 + 2 * 64].view(2, 8, 8)   # 4-byte aligned only
+    got = xcorr_accumulate_a2(odd, a2, keep=0, impl="cuda")
+    want = xcorr_accumulate_a2(torch.zeros_like(acc), a2, keep=0,
+                               impl="torch")
+    assert torch.equal(got, want)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qs", [0.0, 0.25])

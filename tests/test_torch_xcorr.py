@@ -106,3 +106,40 @@ def test_plain_cmac_blocks_channels_exactly(monkeypatch):
     blocked = torch.from_numpy(acc.copy())
     tx.xcorr_accumulate_a2_torch(blocked, torch.from_numpy(a2))
     np.testing.assert_array_equal(blocked.numpy(), whole.numpy())
+
+
+@pytest.mark.parametrize("keep", [1, 0])
+@pytest.mark.parametrize("k,ap,b", [(3, 8, 16), (5, 72, 80), (2, 128, 272),
+                                    (2, 160, 48), (1, 1, 16)])
+def test_cmac_plan_bitwise_vs_plain_and_jax(k, ap, b, keep):
+    """The CUDA kernel's schedule modelled on the CPU (``cmac_plan_torch``:
+    its work units, each warpgroup's products stage by stage, rows past ap
+    and spectra past B zero-filled, vi as W - W^T through the staging tile,
+    the packed select, keep as reduce-add or store) equals the plain
+    version and the JAX X-engine bitwise: one diagonal unit with a ragged
+    last stage (b 80, 272), a plane smaller than a unit (ap 1, 8, 72) and
+    ap > 128 (diagonal, upper and lower units)."""
+    a2, acc = _a2(k, ap, b, k * ap + b), _acc(k, ap, b)
+    base = acc if keep else np.zeros_like(acc)
+    want = np.asarray(jx.xcorr_accumulate_a2(jnp.asarray(base),
+                                             jnp.asarray(a2), impl="jnp"))
+    got = torch.from_numpy(acc.copy())
+    out = tx.cmac_plan_torch(got, torch.from_numpy(a2), keep=keep)
+    assert out is got
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = torch.from_numpy(acc.copy())
+    tx.xcorr_accumulate_a2_torch(plain, torch.from_numpy(a2), keep)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("ap", [1, 128, 129, 300])
+def test_cmac_units_cover_the_plane_once(ap):
+    """Every 128 x 128 block of every channel's plane is one unit, of the
+    kind its place asks for, in the kernel's channel-major order."""
+    units = tx.cmac_units(3, ap)
+    nb = -(-ap // 128)
+    assert len(units) == 3 * nb * nb == len({u[:3] for u in units})
+    assert [u[0] for u in units] == sorted(u[0] for u in units)
+    for _, bi, bj, kind in units:
+        assert kind == ("diag" if bi == bj else
+                        "upper" if bi < bj else "lower")

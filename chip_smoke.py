@@ -115,6 +115,25 @@ Phases 19-20 drive the bench path:
     zeroed before and showing K1 and the CMAC and no other kernel after;
     then its ``probes`` target, showing P1 and P2 and no other kernel.
 
+Phases 21-23 drive the checkpoint, the offline replay and the CLI:
+
+21. phase 6's runner and chunks run 2 chunks and ``save_state``; a new
+    runner built with a zero delay model ``load_state``s the file and
+    runs chunks 3-4: the dump's sha256 must be phase 6's; the same on
+    the 4-way fx mesh of phase 16; it prints the file's size and the
+    save and load times;
+22. ``run_batched`` of phase 6's window: one replay of one CUDA graph
+    (``graph_launches`` K1 4 and CMAC 4, ``graph_replays`` 1; the
+    counters read 5 and 5 with the uncaptured warm-up step, the others
+    0), the dump bitwise phase 6's; ms a chunk of ``run_batched`` and
+    ``run()`` on the same device-resident chunks, in turns, six each;
+    then the bench entry's ``runner`` target (streaming ``run`` against
+    ``run_batched`` at the JAX bench's shape);
+23. the CLI in process: ``info``; ``run fx4 --chunks 8 --batched
+    --checkpoint``, whose file a new runner loads and runs for two more
+    windows, equal to an uninterrupted run's dumps; ``verify fx4`` above
+    50 dB.
+
 Each kernel's time is a CUDA-event mean over back-to-back launches
 (``dc_sand_tpu_torch/bench/harness.py:time_cuda``; in phase 14 the median
 of five such means taken in turns with the yardstick); ``bound_ms`` is the
@@ -140,10 +159,14 @@ when no CUDA device is present.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import hashlib
+import io
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -211,6 +234,7 @@ def main() -> int:
     from dc_sand_tpu_torch.bench.__main__ import main as bench_main
     from dc_sand_tpu_torch.bench.harness import (bound_ms, fengine_flops,
                                                  time_cuda)
+    from dc_sand_tpu_torch.cli import main as cli_main
     from dc_sand_tpu_torch.bench.probes import read_probe, write_probe
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.ops.beamform import beamform
@@ -223,6 +247,8 @@ def main() -> int:
                                             ring_permute_right_torch)
     from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, noise_int8,
                                                 production_runner)
+    from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
+                                           save_state)
     from dc_sand_tpu_torch.utils.snr import snr_db
     from dc_sand_tpu_torch.verify import SNR_BOUND, verify_config
     from dc_sand_tpu_torch.windows import pfb_window
@@ -487,7 +513,8 @@ def main() -> int:
           f"excluded); device step {dev_step_ms:.3f} ms = "
           f"{samples / dev_step_ms / 1e6:.2f} Gsamp/s ({card})", flush=True)
     print(f"[6 fx64 production] dump digest {_digest(vis)}", flush=True)
-    vis_fused = vis               # held for phase 13
+    vis_fused = vis               # held for phases 13, 16, 17, 21, 22
+    step_ms_fx64 = step_ms
     del runner, chunks, frames, zeros, args, dumps, vis
     torch.cuda.empty_cache()
 
@@ -1074,6 +1101,144 @@ def main() -> int:
     probe_counts = ran("read_probe", "write_probe")
     print(f"[20 bench probes] launches {probe_counts} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
+
+    # ---- 21. checkpoint at full width: save after 2 chunks, resume ------
+    digest6 = _digest(vis_fused)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, mesh in (("one card", None),
+                            (f"{SHARDS}-way fx mesh", fx_mesh)):
+            cfg = get_config("fx64")
+            gen.manual_seed(FX64_SEED)
+            first, chunks = production_runner(
+                cfg, gen, shard_devs[0] if mesh else dev, mesh=mesh)
+            first.run(lambda i: chunks[i], 2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = save_state(first, os.path.join(tmp, "fx64"))
+            save_s = time.perf_counter() - t
+            size_mb = os.path.getsize(path) / 1e6
+            resumed = FXRunner(
+                cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
+                delay_model=DelayModel.zeros(cfg.n_ants, cfg.n_pols, 32),
+                device=None if mesh else dev, mesh=mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            load_state(resumed, path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            zero_counts()
+            dumps, _ = resumed.run(lambda i: chunks[i], 2)
+            torch.cuda.synchronize()
+            n_sh = 2 * (mesh.size if mesh else 1)
+            got_counts = counts(fengine=n_sh, cmac=n_sh,
+                                all_to_all=2 * n_cards if mesh else 0)
+            if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
+                raise RuntimeError(f"phase 21 ({label}): the resumed dump is "
+                                   "not phase 6's")
+            print(f"[21 checkpoint {label}] saved after chunk 2, resumed for "
+                  f"chunks 3-4: dump sha256 equal to phase 6's; file "
+                  f"{size_mb:.1f} MB, save {save_s:.3f} s, load {load_s:.3f} "
+                  f"s; launches {got_counts} ({card})", flush=True)
+            os.remove(path)
+            del first, resumed, chunks, dumps
+            torch.cuda.empty_cache()
+
+    # ---- 22. run_batched at fx64: one window, one CUDA-graph replay -------
+    cfg = get_config("fx64")
+    gen.manual_seed(FX64_SEED)
+    runner, chunks = production_runner(cfg, gen, dev)
+    n_chunks = len(chunks)
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    dumps, _ = runner.run_batched(lambda i: chunks[i % n_chunks], n_chunks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    # the wrappers count calls: one warm-up step, then the captured window
+    batched_counts = counts(fengine=n_chunks + 1, cmac=n_chunks + 1)
+    captured, replays = runner.graph_launches, runner.graph_replays
+    if (captured != {"fengine": n_chunks, "pfb": 0, "cmac": n_chunks}
+            or replays != 1):
+        raise RuntimeError(f"run_batched captured {captured} in {replays} "
+                           f"replays, want K1 and the CMAC {n_chunks} each "
+                           "in 1")
+    if len(dumps) != 1 or not np.array_equal(dumps[0].vis, vis_fused):
+        raise RuntimeError("run_batched's fx64 dump is not phase 6's")
+    # steady state: the same chunks through both, in turns, host clock
+    # around synchronised work (feed, coarse shift, steps, dump)
+    per_chunk = {"run_batched": [], "run": []}
+    for name in ("run_batched", "run", "run", "run_batched") * 3:
+        fn = getattr(runner, name)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(lambda i: chunks[i % n_chunks], n_chunks)
+        torch.cuda.synchronize()
+        per_chunk[name].append((time.perf_counter() - t) / n_chunks * 1e3)
+    print(f"[22 run_batched fx64] {n_chunks} chunks -> 1 dump bitwise equal "
+          f"to phase 6's in {replays} replay of one CUDA "
+          f"graph (K1 {captured['fengine']}, CMAC {captured['cmac']} "
+          f"captured); launches {batched_counts} (one warm-up step "
+          f"uncaptured); first call {first_s:.2f} s (build, capture); ms "
+          f"a chunk in turns, median run_batched "
+          f"{statistics.median(per_chunk['run_batched']):.3f} against run() "
+          f"{statistics.median(per_chunk['run']):.3f} (phase 6: "
+          f"{step_ms_fx64:.3f}); run_batched "
+          + ", ".join(f"{x:.3f}" for x in per_chunk["run_batched"])
+          + "; run() " + ", ".join(f"{x:.3f}" for x in per_chunk["run"])
+          + f"; device-resident chunks ({card})", flush=True)
+    del runner, chunks, dumps
+    torch.cuda.empty_cache()
+    zero_counts()
+    t = time.perf_counter()
+    if bench_main(["runner"]) != 0:
+        raise RuntimeError("the bench entry's runner target failed")
+    torch.cuda.synchronize()
+    runner_counts = ran("fengine", "cmac")
+    print(f"[22 bench runner] launches {runner_counts} "
+          f"({time.perf_counter() - t:.1f} s) ({card})", flush=True)
+
+    # ---- 23. the command line, in process ---------------------------------
+    def cli_lines(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            print(f"[23 cli {argv[0]}] {line}", flush=True)
+        if rc != 0:
+            raise RuntimeError(f"cli {' '.join(argv)}: exit code {rc}")
+        return lines
+
+    cli_lines(["info"])
+    cfg = get_config("fx4")
+    g = cfg.n_spectra_per_acc // cfg.spectra_per_chunk
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        lines = cli_lines(["run", "fx4", "--chunks", str(8 * g), "--batched",
+                           "--checkpoint", os.path.join(tmp, "cli")])
+        cli_counts = ran("fengine", "cmac")
+        path = lines[-1].removeprefix("state saved to ")
+        window = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
+        shape = (cfg.n_ants, cfg.n_pols, cfg.chunk_samples)
+
+        def source(i):
+            return golden.gaussian_noise_int8(shape, 20.0, i)
+
+        want, _ = FXRunner(cfg, window, device=dev).run(source, 10 * g)
+        resumed = FXRunner(cfg, window, device=dev)
+        load_state(resumed, path)
+        got, _ = resumed.run_batched(source, 2 * g)
+    if len(got) != 2 or not all(np.array_equal(a.vis, b.vis)
+                                for a, b in zip(got, want[8:])):
+        raise RuntimeError("cli run --checkpoint: the resumed dumps are not "
+                           "the uninterrupted run's")
+    print(f"[23 cli run] 8 windows batched, checkpoint resumed for 2 more: "
+          f"dumps equal to an uninterrupted run's; launches {cli_counts} "
+          f"({card})", flush=True)
+    lines = cli_lines(["verify", "fx4"])
+    snr = float(lines[0].split(": ")[1].split()[0])
+    if not snr > SNR_BOUND:
+        raise RuntimeError(f"cli verify fx4: {snr} dB <= {SNR_BOUND}")
 
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:

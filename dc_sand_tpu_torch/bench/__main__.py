@@ -30,8 +30,8 @@ from dc_sand_tpu_torch.config import get_config
 
 __all__ = ["main", "headline", "TARGETS"]
 
-TARGETS = ("fengine", "pfb", "fx", "beam-step", "xcorr", "beamform", "fft",
-           "membench", "probes", "collectives", "scaling")
+TARGETS = ("fengine", "pfb", "fx", "beam-step", "runner", "xcorr",
+           "beamform", "fft", "membench", "probes", "collectives", "scaling")
 
 
 def headline(device, *, n_chans: int = 4096, chans_1k: int = 1024,
@@ -98,6 +98,10 @@ def _target(name: str, args, dev) -> list:
     if name == "beam-step":
         return [pipelines.bench_beam_step(n_chans=args.scale or 4096, **sp,
                                           device=dev)]
+    if name == "runner":
+        return pipelines.bench_runner_modes(
+            n_chans=args.scale or 1024, device=dev,
+            **({"spectra": args.spectra} if args.spectra else {}))
     if name == "xcorr":
         k = args.scale or 4096
         prod_b = args.spectra or get_config("fx64").spectra_per_chunk

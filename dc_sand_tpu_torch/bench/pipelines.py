@@ -14,11 +14,13 @@ Not ported, each for its reason:
   (:func:`~dc_sand_tpu_torch.bench.harness.bound_ms`);
 * ``REALTIME_FLOOR_PER_CHIP``: a v5e-16's per-chip share; the records
   carry ``vs_array_realtime`` instead;
-* ``stage2`` and ``layout``: TPU knobs that stay in the reference;
-* ``bench_runner_modes``: it needs ``run_batched``, not ported yet.
+* ``stage2`` and ``layout``: TPU knobs that stay in the reference.
 """
 
 from __future__ import annotations
+
+import statistics
+import time
 
 import numpy as np
 import torch
@@ -31,10 +33,11 @@ from dc_sand_tpu_torch.models.pipeline import (chunk_shape, history_shape,
                                                make_step, zero_vis_acc)
 from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.profile_step import noise_int8
+from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
 
 __all__ = ["bench_fengine", "bench_fx_step", "bench_beam_step",
-           "ARRAY_REALTIME"]
+           "bench_runner_modes", "ARRAY_REALTIME"]
 
 # the whole array in real time: 64 antennas x 2 pols at 1712 Msps, real
 # samples per second
@@ -140,6 +143,69 @@ def bench_fx_step(n_ants: int = 64, n_pols: int = 2, n_chans: int = 1024,
     ).finish(dev, fp32_ops=fengine_flops(ap * b, cfg.fft_size, taps,
                                          rotate=True, quant=True),
              int8_ops=8 * k * ap * ap * b)
+
+
+def bench_runner_modes(n_ants: int = 16, n_pols: int = 2,
+                       n_chans: int = 1024, spectra: int = 64,
+                       n_chunks: int = 16, rounds: int = 5,
+                       device=None) -> list:
+    """Streaming ``run`` against offline ``run_batched`` on the same runner
+    config (fx64's with the shapes given, 4 chunks a dump window): the
+    launch and host overhead a window's CUDA graph takes away.  Each mode
+    has its runner, warmed up on one window's worth of chunks (the graph
+    is captured there); then the two run ``n_chunks`` more each in turns,
+    ``rounds`` times (the first of a round alternating), host clock
+    around synchronised work, numpy chunks fed from the host; every chunk
+    of a run differs.  Returns the two records, ``runner_batched`` first;
+    ``wall_s`` is the median time a chunk over the rounds (every round's
+    in ``extra["ms_per_chunk"]``), ``chunks_per_dispatch`` the chunks a
+    replay (1 for ``run``).  The bound counts one chunk's int8 samples
+    in, the F-engine's fp32 operations and the CMAC's int8 ones."""
+    dev = default_device(device)
+    cfg = get_config("fx64").replace(
+        n_ants=n_ants, n_pols=n_pols, n_chans=n_chans,
+        spectra_per_chunk=spectra, n_spectra_per_acc=4 * spectra)
+    g = cfg.n_spectra_per_acc // spectra
+    rng = np.random.default_rng(0)
+    n_cache = 4 * g
+    chunks = [rng.integers(-100, 100, (n_ants, n_pols, cfg.chunk_samples),
+                           dtype=np.int8) for _ in range(n_cache)]
+    window = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
+    ap = n_ants * n_pols
+    samples = ap * cfg.chunk_samples            # a chunk's
+    runners = {mode: FXRunner(cfg, window, device=dev)
+               for mode in ("batched", "streaming")}
+    fns = {"batched": runners["batched"].run_batched,
+           "streaming": runners["streaming"].run}
+    ms = {mode: [] for mode in fns}
+    for fn in fns.values():
+        fn(lambda i: chunks[i % n_cache], n_cache)      # warm-up, capture
+    for rnd in range(rounds):
+        for mode in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fns[mode](lambda i: chunks[(i + 1) % n_cache], n_chunks)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms[mode].append((time.perf_counter() - t0) / n_chunks * 1e3)
+    results = []
+    for mode, times in ms.items():
+        wall = statistics.median(times) / 1e3
+        results.append(BenchResult(
+            name=f"runner_{mode}",
+            metric="runner samples/s", value=samples / wall,
+            unit="samp/s", wall_s=wall, bytes_moved=samples,
+            extra={"n_ants": n_ants, "n_chans": n_chans,
+                   "spectra": spectra, "n_chunks": n_chunks,
+                   "chunks_per_dispatch": g if mode == "batched" else 1,
+                   "graph_replays": runners[mode].graph_replays,
+                   "ms_per_chunk": times},
+        ).finish(dev, fp32_ops=fengine_flops(ap * spectra, cfg.fft_size,
+                                             cfg.n_taps, rotate=True,
+                                             quant=True),
+                 int8_ops=8 * n_chans * ap * ap * spectra))
+    return results
 
 
 def bench_beam_step(n_ants: int = 64, n_pols: int = 2,

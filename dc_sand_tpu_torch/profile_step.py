@@ -9,8 +9,9 @@ For each run of ``--runs`` (default ``fx64,beam64,fx64_unfused``: fx64,
 beam64 and fx64 through the unfused F-engine, the standalone FIR kernel
 then PyTorch ops; ``fx64_mesh4`` is fx64 sharded over a 4-way fx mesh,
 shard i on ``cuda:(i mod the card count)``, so that the corner-turn's
-share of a sharded step shows) it builds the production runner
-(:func:`production_runner`: 64 ants x 2 pols, 4096 channels, the
+share of a sharded step shows; ``fx64_batched`` drives the windows with
+``run_batched``, one CUDA-graph replay a window) it builds the
+production runner (:func:`production_runner`: 64 ants x 2 pols, 4096 channels, the
 config's own chunk length, coarse and fractional delay and fringe on,
 seeded int8 noise made on the card; fx64 dumps 8192 spectra per 4
 2048-spectra chunks, beam64 forms 16 steered beams and the incoherent
@@ -24,9 +25,9 @@ over one window of chunks, then prints:
    memsets), so nested host-side ops are not counted twice;
 2. fx64 only: the dump alone (``extract_vis`` and the device-to-host
    copy), host clock, three times;
-3. ``run()`` fed with numpy chunks, so the pageable host-to-device copy
-   of each chunk (2.15 GB for fx64, 268 MB for beam64) is paid, and that
-   copy of one chunk alone.
+3. ``run()`` (or ``run_batched``) fed with numpy chunks, so the
+   pageable host-to-device copy of each chunk (2.15 GB for fx64, 268 MB
+   for beam64) is paid, and that copy of one chunk alone.
 
 The traces are written to ``DIR/<run>_trace.json`` (default
 ``build/profile_step``).
@@ -132,7 +133,8 @@ def _timed(fn) -> float:
 
 def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
     """Profile run ``name``: a config, then ``_unfused`` for the unfused
-    F-engine or ``_mesh<N>`` for an N-way fx mesh."""
+    F-engine, ``_mesh<N>`` for an N-way fx mesh or ``_batched`` for
+    ``run_batched``."""
     config, _, variant = name.partition("_")
     cfg = get_config(config)
     mesh = None
@@ -141,19 +143,20 @@ def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
         mesh = build_mesh([torch.device("cuda", i % n_cards)
                            for i in range(int(variant[4:]))])
         dev = mesh.flat_devices[0]
-    elif variant not in ("", "unfused"):
+    elif variant not in ("", "unfused", "batched"):
         raise SystemExit(f"unknown profile run {name!r}")
     runner, chunks = production_runner(cfg, gen, dev,
                                        fused=variant != "unfused", mesh=mesh)
+    run = runner.run_batched if variant == "batched" else runner.run
     n = len(chunks)
     samples = cfg.n_ants * cfg.n_pols * cfg.chunk_samples
-    runner.run(lambda i: chunks[i % n], n)            # warm, one window
+    run(lambda i: chunks[i % n], n)          # warm (and capture), one window
 
     # 1. one window under the profiler, device-resident chunks
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_ms = _timed(lambda: runner.run(lambda i: chunks[i % n], n))
+        wall_ms = _timed(lambda: run(lambda i: chunks[i % n], n))
     trace = out / f"{name}_trace.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
@@ -182,8 +185,8 @@ def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
     # 3. run() fed from numpy: a pageable host-to-device copy per chunk
     host = [c.cpu().numpy() for c in chunks]
     h2d_ms = _timed(lambda: torch.from_numpy(host[0]).to(dev))
-    fed_ms = _timed(lambda: runner.run(lambda i: host[i % n], n)) / n
-    print(f"[{name} numpy feed] run() per chunk {fed_ms:.3f} ms = "
+    fed_ms = _timed(lambda: run(lambda i: host[i % n], n)) / n
+    print(f"[{name} numpy feed] {run.__name__}() per chunk {fed_ms:.3f} ms = "
           f"{samples / fed_ms / 1e6:.3f} Gsamp/s; host-to-device copy of "
           f"one {host[0].nbytes / 1e9:.3f} GB chunk alone {h2d_ms:.3f} ms")
 
@@ -194,7 +197,7 @@ def main(argv=None) -> int:
                     help="directory for the traces")
     ap.add_argument("--runs", default="fx64,beam64,fx64_unfused",
                     help="comma-separated runs: a config name, with "
-                         "_unfused or _mesh<N> (e.g. fx64_mesh4)")
+                         "_unfused, _mesh<N> (e.g. fx64_mesh4) or _batched")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")

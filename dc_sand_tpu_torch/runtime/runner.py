@@ -24,6 +24,10 @@ order).
 Fault semantics as in the JAX runner: a dropped chunk is replaced by
 zeros — stream timing advances, the FIR history stays continuous, and
 the dump metadata records how many spectra actually integrated.
+
+:meth:`FXRunner.run_batched` replays recorded data a dump window at a
+time, on one CUDA device as one CUDA graph a window; the state saves and
+loads with :mod:`dc_sand_tpu_torch.runtime.checkpoint`.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ from dc_sand_tpu_torch.models.pipeline import (gather_acc, gather_outputs,
                                                mode_for, shard_inputs,
                                                zero_vis_acc)
 from dc_sand_tpu_torch.ops._dispatch import default_device
-from dc_sand_tpu_torch.ops.xcorr import extract_vis
+from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+from dc_sand_tpu_torch.ops.pfb import pfb_fir
+from dc_sand_tpu_torch.ops.xcorr import extract_vis, xcorr_accumulate_a2
 from dc_sand_tpu_torch.parallel import FX_AXIS, build_mesh
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 
@@ -136,6 +142,10 @@ class FXRunner:
         self._acc_spectra = 0       # spectra in current window (nominal)
         self._acc_integrated = 0    # spectra actually integrated
         self._acc_first_chunk = 0
+        # run_batched's CUDA graph of a dump window (one CUDA device)
+        self._graph = None
+        self.graph_replays = 0      # windows replayed from the graph
+        self.graph_launches = {}    # kernel launches captured a window
 
     @property
     def gains(self) -> torch.Tensor:
@@ -168,15 +178,17 @@ class FXRunner:
 
     # ------------------------------------------------------------------
     def run(self, source: Callable[[int], np.ndarray], n_chunks: int,
+            on_dump: Optional[Callable[[Dump], None]] = None,
             on_output: Optional[Callable[[int, dict], None]] = None,
             drop_chunks: Iterable[int] = ()):
         """Process ``n_chunks``; returns ``(dumps, counters)`` (dumps in
         fx mode only).
 
-        ``on_output(chunk_idx, outputs)`` receives each chunk's outputs
-        (fengine mode: ``"spectra"``; beam mode: ``"beams"`` and
-        ``"incoherent"``) as tensors ON THE RUNNER'S DEVICE; the consumer
-        copies what it needs.  The JAX
+        ``on_dump(dump)`` is called at each dump (fx mode), as it is
+        appended.  ``on_output(chunk_idx, outputs)`` receives each
+        chunk's outputs (fengine mode: ``"spectra"``; beam mode:
+        ``"beams"`` and ``"incoherent"``) as tensors ON THE RUNNER'S
+        DEVICE; the consumer copies what it needs.  The JAX
         runner hands over numpy arrays, but here that copy would set the
         pace: beam64 makes 268 MB of float32 beams per 256-spectra chunk,
         about 120 ms through pageable memory at the 2.2 GB/s measured for
@@ -193,8 +205,10 @@ class FXRunner:
             reset = self._acc_spectra == 0
             if reset:
                 self._acc_first_chunk = i
-            outputs = self._step(self.history, self.vis_acc,
-                                 *self._step_args(chunk, frac, phase), reset)
+            outputs = self._step(
+                self.history, self.vis_acc,
+                *self._step_args(chunk, torch.from_numpy(frac),
+                                 torch.from_numpy(phase)), reset)
             if on_output is not None and outputs:
                 on_output(i, gather_outputs(outputs, cfg, self.mesh,
                                             self.device))
@@ -204,24 +218,113 @@ class FXRunner:
             if not dropped:
                 self._acc_integrated += b
             if self._acc_spectra >= cfg.n_spectra_per_acc:
-                vis = extract_vis(self._acc_total(), cfg.n_ants, cfg.n_pols)
-                dumps.append(Dump(vis=vis.contiguous().cpu().numpy(),
-                                  n_spectra=self._acc_integrated,
-                                  n_spectra_nominal=self._acc_spectra,
-                                  first_chunk=self._acc_first_chunk))
-                self.counters.dumps += 1
+                dumps.append(self._dump(self._acc_integrated,
+                                        self._acc_spectra,
+                                        self._acc_first_chunk, on_dump))
                 self._acc_spectra = 0
                 self._acc_integrated = 0
         return dumps, self.counters
 
+    def run_batched(self, source: Callable[[int], np.ndarray],
+                    n_chunks: int,
+                    on_dump: Optional[Callable[[Dump], None]] = None,
+                    drop_chunks: Iterable[int] = ()):
+        """Offline replay of recorded data (fx mode): one whole dump
+        window of chunks a dispatch; returns ``(dumps, counters)``.
+
+        The counterpart of the JAX runner's ``run_batched``, whose
+        ``lax.scan`` runs a window's ``g = n_spectra_per_acc /
+        spectra_per_chunk`` steps in one dispatch.  It gives what
+        :meth:`run` gives, bitwise: the same feed (drops, delay model,
+        coarse shift, counters), carry and dumps, with ``on_dump`` called
+        at each, but no per-chunk ``on_output``.  ``n_chunks`` must be a
+        multiple of ``g`` and the run must start at a dump boundary.
+
+        On one CUDA device the window's ``g`` steps are captured once in
+        one CUDA graph, and each window is then the feed (outside the
+        graph, into static device buffers: the chunks ``(g, A*P, B, M)``
+        int8, their delays ``(g, A*P, B)`` float32, a copy of the gains),
+        one replay, and the dump.  The graph holds the addresses of the
+        carries ``history`` and ``vis_acc``: whatever replaces them
+        rather than copying into them (``load_state`` copies) has it
+        captured again.  Before the capture one step runs uncaptured on
+        copies of the carries, so that the kernels are built, loaded and
+        their tables cached.  A capture that fails raises.  Each wrapper
+        counts its launches when called, so the capture counts the
+        window's launches once (:attr:`graph_launches`) and the replays
+        count in :attr:`graph_replays`.
+
+        On a mesh and on the CPU it runs the step once a chunk, in a
+        loop, with no graph.
+        """
+        cfg = self.cfg
+        if self.mode != "fx":
+            raise ValueError("run_batched is fx-mode only (other modes "
+                             "emit per-chunk outputs; use run)")
+        b = cfg.spectra_per_chunk
+        if cfg.n_spectra_per_acc % b:
+            raise ValueError("n_spectra_per_acc must be a multiple of "
+                             "spectra_per_chunk for the batched path")
+        g = cfg.n_spectra_per_acc // b
+        if n_chunks % g:
+            raise ValueError(f"n_chunks must be dump-aligned "
+                             f"(multiple of {g})")
+        if self._acc_spectra:
+            raise ValueError("run_batched must start at a dump boundary")
+        graphed = self.device.type == "cuda" and self.mesh.size == 1
+        if graphed and self._graph is None:
+            self._graph = _WindowGraph(self, g)
+        drop = frozenset(drop_chunks)
+        dumps = []
+        for _ in range(n_chunks // g):
+            first_chunk = self.chunk_idx
+            integrated = 0
+            for k in range(g):
+                out = self._graph.chunks[k] if graphed else None
+                chunk, frac, phase, dropped = self._feed_chunk(
+                    self.chunk_idx, drop, source, out=out)
+                if not dropped:
+                    integrated += b
+                if graphed:
+                    self._graph.frac_host[k] = frac
+                    self._graph.phase_host[k] = phase
+                else:
+                    self._step(self.history, self.vis_acc,
+                               *self._step_args(chunk,
+                                                torch.from_numpy(frac),
+                                                torch.from_numpy(phase)),
+                               k == 0)
+            if graphed:
+                self._graph.replay(self)
+            dumps.append(self._dump(integrated, g * b, first_chunk,
+                                    on_dump))
+        return dumps, self.counters
+
+    def _dump(self, n_spectra: int, nominal: int, first_chunk: int,
+              on_dump) -> Dump:
+        """The window's dump from the accumulator, counted and handed to
+        ``on_dump``."""
+        cfg = self.cfg
+        vis = extract_vis(self._acc_total(), cfg.n_ants, cfg.n_pols)
+        d = Dump(vis=vis.contiguous().cpu().numpy(), n_spectra=n_spectra,
+                 n_spectra_nominal=nominal, first_chunk=first_chunk)
+        self.counters.dumps += 1
+        if on_dump is not None:
+            on_dump(d)
+        return d
+
     # ------------------------------------------------------------------
-    def _feed_chunk(self, i: int, drop: frozenset, source):
+    def _feed_chunk(self, i: int, drop: frozenset, source, out=None):
         """Per-chunk feed: fault injection, the chunk's transfer to the
         device, delay-model evaluation, the coarse delay, the frame view,
-        counter/clock bookkeeping."""
+        counter/clock bookkeeping.  Returns ``(chunk, frac, phase,
+        dropped)``: the chunk in frame form ``(A*P, B, M)`` on the
+        device (written into ``out``, a tensor of that shape, when
+        given) and the per-spectrum delays ``(A*P, B)`` float32 numpy."""
         cfg = self.cfg
         b = cfg.spectra_per_chunk
         a, p = cfg.n_ants, cfg.n_pols
+        shape = (a * p, b, cfg.fft_size)
         dropped = i in drop
         if dropped:
             chunk = torch.zeros((a, p, cfg.chunk_samples), dtype=torch.int8,
@@ -234,21 +337,22 @@ class FXRunner:
             chunk = torch.from_numpy(np.ascontiguousarray(chunk))
         if chunk.dtype != torch.int8:
             raise ValueError(f"source chunks must be int8, got {chunk.dtype}")
-        chunk = chunk.to(self.device)
         coarse, frac, phase = self.delay_model.evaluate_chunk(
             self.t0, b, cfg.fft_size)
         if self._tail is not None:
-            chunk = self._coarse_shift(chunk, coarse)
+            chunk = self._coarse_shift(chunk.to(self.device), coarse, out)
+        elif out is not None:
+            chunk = out.copy_(chunk.reshape(shape))
         # (A, P, T) -> (A*P, B, M): a free row-major view, the layout the
         # F-engine kernel reads
-        chunk = chunk.reshape(a * p, b, cfg.fft_size)
+        chunk = chunk.to(self.device).reshape(shape)
         self.counters.chunks_in += 1
         self.counters.samples_in += chunk.numel()
         self.counters.spectra_out += b
         self.t0 += cfg.chunk_samples
         self.chunk_idx += 1
-        return (chunk.contiguous(), torch.from_numpy(frac.reshape(a * p, b)),
-                torch.from_numpy(phase.reshape(a * p, b)), dropped)
+        return (chunk.contiguous(), frac.reshape(a * p, b),
+                phase.reshape(a * p, b), dropped)
 
     def _step_args(self, chunk, frac, phase) -> tuple:
         """The step's arguments after the carries: ``(chunk, frac, phase,
@@ -261,19 +365,85 @@ class FXRunner:
         """The packed ``(K, ap, ap)`` accumulator on the device."""
         return gather_acc(self.vis_acc, self.mesh, self.device)
 
-    def _coarse_shift(self, chunk: torch.Tensor, coarse: np.ndarray):
+    def _coarse_shift(self, chunk: torch.Tensor, coarse: np.ndarray,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Coarse delay: a read-pointer offset into ``[tail | chunk]``,
         coarse frozen at the chunk start (host-side delay values), one
-        slice per stream on the runner's device."""
+        slice per stream on the runner's device, into ``out`` when given
+        (any shape of the chunk's bytes)."""
         cfg = self.cfg
         md = self.max_delay
         c = cfg.chunk_samples
         chunk = chunk.reshape(cfg.n_ants, cfg.n_pols, c)
         buf = torch.cat([self._tail, chunk], dim=-1)
-        out = torch.empty_like(chunk)
+        out = (torch.empty_like(chunk) if out is None
+               else out.view(cfg.n_ants, cfg.n_pols, c))
         for idx in np.ndindex(cfg.n_ants, cfg.n_pols):
             off = md - int(coarse[idx])
             out[idx] = buf[idx][off:off + c]
         # .clone(): a view would pin the whole concat buffer between steps
         self._tail = buf[..., -md:].clone()
         return out
+
+
+def _launch_counts() -> dict:
+    """The launch counters of the kernels a one-device fx step runs."""
+    return {"fengine": fengine_fused.launches, "pfb": pfb_fir.launches,
+            "cmac": xcorr_accumulate_a2.launches}
+
+
+class _WindowGraph:
+    """One dump window of a one-device fx runner's steps as a CUDA graph,
+    with the static buffers it reads (:meth:`FXRunner.run_batched`): the
+    window's chunks in frame form, their delays (filled on the host,
+    copied up once a window) and the gains."""
+
+    def __init__(self, runner: FXRunner, g: int):
+        cfg, dev = runner.cfg, runner.device
+        s, b = cfg.n_ants * cfg.n_pols, cfg.spectra_per_chunk
+        self.chunks = torch.empty((g, s, b, cfg.fft_size), dtype=torch.int8,
+                                  device=dev)
+        self.frac_host = np.zeros((g, s, b), np.float32)
+        self.phase_host = np.zeros((g, s, b), np.float32)
+        self.frac = torch.zeros((g, s, b), device=dev)
+        self.phase = torch.zeros((g, s, b), device=dev)
+        self.gains = torch.empty_like(runner.gains)
+        self.graph = None
+        self._carry_ptrs = None
+
+    def _steps(self, runner: FXRunner, history, acc, n: int) -> None:
+        """The window's first ``n`` steps on the static buffers, the first
+        one resetting the accumulator."""
+        for k in range(n):
+            runner._step([history], [acc], [self.chunks[k]], [self.frac[k]],
+                         [self.phase[k]], [self.gains], runner._weights_sh,
+                         k == 0)
+
+    def _capture(self, runner: FXRunner) -> None:
+        history, acc = runner.history[0], runner.vis_acc[0]
+        dev = runner.device
+        # warm-up: one uncaptured step on copies of the carries builds and
+        # loads the kernels and caches their tables
+        self._steps(runner, history.clone(), acc.clone(), 1)
+        torch.cuda.synchronize(dev)
+        before = _launch_counts()
+        self.graph = None       # an old graph's memory goes first
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(graph):
+            self._steps(runner, history, acc, len(self.chunks))
+        runner.graph_launches = {k: v - before[k]
+                                 for k, v in _launch_counts().items()}
+        self.graph = graph
+        self._carry_ptrs = (history.data_ptr(), acc.data_ptr())
+
+    def replay(self, runner: FXRunner) -> None:
+        """Copy the window's delays and the gains up, capture if the
+        graph is missing or the carries moved, and replay."""
+        self.frac.copy_(torch.from_numpy(self.frac_host))
+        self.phase.copy_(torch.from_numpy(self.phase_host))
+        self.gains.copy_(runner.gains)
+        ptrs = (runner.history[0].data_ptr(), runner.vis_acc[0].data_ptr())
+        if self.graph is None or ptrs != self._carry_ptrs:
+            self._capture(runner)
+        self.graph.replay()
+        runner.graph_replays += 1

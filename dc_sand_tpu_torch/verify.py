@@ -30,11 +30,12 @@ SNR_BOUND = 50.0
 __all__ = ["verify_config", "SNR_BOUND"]
 
 
-def _golden_coarse_stream(cfg, stream, dm, n_chunks):
+def _golden_coarse_stream(cfg, stream, dm, n_chunks, ant_idx=None):
     """Per-chunk read-pointer coarse delay, replicating the runner's host
     feed path bitwise: chunk i is sliced from [zeros(md) | stream] at
     offset ``i*c + md - coarse_i`` with the coarse delay frozen at the
-    chunk start."""
+    chunk start.  ``ant_idx`` maps ``stream``'s (possibly subset) antenna
+    axis to the delay model's antennas."""
     md = dm.max_delay
     c_samp = cfg.chunk_samples
     xg = np.concatenate(
@@ -44,28 +45,46 @@ def _golden_coarse_stream(cfg, stream, dm, n_chunks):
         coarse, _, _ = dm.evaluate_chunk(
             i * c_samp, cfg.spectra_per_chunk, cfg.fft_size)
         for idx in np.ndindex(stream.shape[:-1]):
-            off = i * c_samp + md - int(coarse[idx])
+            midx = ((int(ant_idx[idx[0]]),) + idx[1:]
+                    if ant_idx is not None else idx)
+            off = i * c_samp + md - int(coarse[midx])
             out[idx][i * c_samp:(i + 1) * c_samp] = xg[idx][off:off + c_samp]
     return out
 
 
-def _golden_spectra(cfg, stream, dm, gains, n_chunks, window):
-    """Float64 golden F-engine spectra for ``stream``."""
+def _golden_spectra(cfg, stream, dm, gains, n_chunks, window,
+                    ant_idx=None):
+    """Float64 golden F-engine spectra for ``stream``; with ``ant_idx``
+    only for those antennas (indices into ``stream`` and the delay
+    model), in that order, one antenna at a time, so that the host holds
+    one antenna's float64 intermediates at a time (all antennas at once
+    at fx64's production cadence peak above 128 GB)."""
     fracs, phases = [], []
     for i in range(n_chunks):
         _, f, p = dm.evaluate_chunk(i * cfg.chunk_samples,
                                     cfg.spectra_per_chunk, cfg.fft_size)
         fracs.append(f)
         phases.append(p)
+    frac = np.concatenate(fracs, -1) if cfg.apply_delay else None
+    phase = np.concatenate(phases, -1) if cfg.apply_delay else None
     lead = (cfg.n_taps - 1) * cfg.fft_size
-    kw = dict(gains=gains if cfg.apply_requant else None)
-    if cfg.apply_delay:
-        stream = _golden_coarse_stream(cfg, stream, dm, n_chunks)
-        kw.update(frac_delay=np.concatenate(fracs, -1),
-                  phase=np.concatenate(phases, -1))
-    xg = np.concatenate(
-        [np.zeros(stream.shape[:-1] + (lead,)), stream], axis=-1)
-    return golden.f_engine(xg, window, cfg.n_taps, cfg.n_chans, **kw)
+
+    def chain(sub, orig_ants):
+        if cfg.apply_delay:
+            sub = _golden_coarse_stream(cfg, sub, dm, n_chunks,
+                                        ant_idx=orig_ants)
+        xg = np.concatenate(
+            [np.zeros(sub.shape[:-1] + (lead,)), sub], axis=-1)
+        kw = dict(gains=gains if cfg.apply_requant else None)
+        if cfg.apply_delay:
+            kw.update(frac_delay=frac[orig_ants], phase=phase[orig_ants])
+        return golden.f_engine(xg, window, cfg.n_taps, cfg.n_chans, **kw)
+
+    if ant_idx is None:
+        return chain(stream, np.arange(stream.shape[0]))
+    return np.concatenate(
+        [chain(stream[orig:orig + 1], np.array([orig]))
+         for orig in ant_idx], axis=0)
 
 
 def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
@@ -73,7 +92,8 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
                   spectra_per_chunk: Optional[int] = 16,
                   n_spectra_per_acc: Optional[int] = 32,
                   time_shards: int = 1, beam_parallel: bool = False,
-                  fused: bool = True):
+                  fused: bool = True, baseline_subset: Optional[int] = None,
+                  golden_ants: Optional[int] = None):
     """Run config ``name`` end-to-end on ``device`` (None: the current
     CUDA device; it raises without a card); returns ``(snrs,
     counters)`` — per-output SNRs in dB vs golden (fengine: ``{"spectra":
@@ -84,7 +104,8 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     ``scale``: optionally reduce n_chans; None = full size.
     ``spectra_per_chunk`` / ``n_spectra_per_acc``: clamp the streaming
     cadence (defaults); None runs the config's own cadence.  Every
-    spectrum, baseline and beam is graded.  The stream (``pfb1k``: a CW
+    spectrum, baseline and beam is graded, unless ``baseline_subset`` or
+    ``golden_ants`` (below) picks the baselines.  The stream (``pfb1k``: a CW
     tone, its contract input), delay model, gains and beam weights come
     from ``seed`` exactly as the JAX verify draws them.  ``fused``: the
     F-engine path (False is the JAX verify's ``impl="pallas"``).
@@ -94,6 +115,15 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     taps_pad`` spectra at least so that every time shard holds its
     overlap-save halo, and ``beam_parallel`` the beam-sharded B-engine,
     as the JAX verify does.
+
+    fx mode only, each mutually exclusive with the other (the device
+    still computes every baseline; the grading draws from ``seed`` as the
+    JAX verify does, so one seed grades the same baselines in both):
+    ``baseline_subset`` grades that many randomly chosen baselines;
+    ``golden_ants`` grades all pairs among that many randomly chosen
+    antennas and evaluates the golden spectra for those antennas only,
+    one at a time (12 antennas at fx64's production cadence: 78
+    baselines, a golden footprint of about 13 GB).
     """
     cfg = get_config(name)
     mode = mode_for(cfg)
@@ -120,6 +150,12 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
             f"n_spectra_per_acc ({cfg.n_spectra_per_acc}) must be a "
             f"multiple of spectra_per_chunk ({cfg.spectra_per_chunk}) "
             "for fx verification")
+    if golden_ants is not None:
+        if baseline_subset is not None:
+            raise ValueError("golden_ants and baseline_subset are "
+                             "mutually exclusive")
+        if mode != "fx":
+            raise ValueError("golden_ants applies to fx-mode configs")
     rng = np.random.default_rng(seed)
     a, p, k = cfg.n_ants, cfg.n_pols, cfg.n_chans
     window = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
@@ -155,18 +191,18 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
         on_output=lambda i, o: outputs.append(
             {name_: v.cpu().numpy() for name_, v in o.items()}))
 
-    spec_g = _golden_spectra(cfg, stream, dm, gains, n_chunks, window)
+    ants_sel = (np.sort(rng.choice(a, min(golden_ants, a), replace=False))
+                if golden_ants is not None else None)
+    spec_g = _golden_spectra(cfg, stream, dm, gains, n_chunks, window,
+                             ant_idx=ants_sel)
     snrs: Dict[str, float] = {}
     if mode == "fengine":
         got = np.concatenate([o["spectra"] for o in outputs], axis=2)
         snrs["spectra"] = snr_db(spec_g, np_ri2c(got))
         return snrs, counters
     if mode == "fx":
-        bpa = cfg.n_spectra_per_acc
-        vals = [snr_db(golden.xcorr(spec_g[:, :, i * bpa:(i + 1) * bpa]),
-                       d.vis[..., 0] + 1j * d.vis[..., 1])
-                for i, d in enumerate(dumps)]
-        snrs["visibilities"] = min(vals) if vals else float("nan")
+        snrs["visibilities"] = _grade_dumps(cfg, dumps, spec_g, rng,
+                                            ants_sel, baseline_subset)
         return snrs, counters
     beams = np.concatenate([o["beams"] for o in outputs], axis=2)
     beams_g = golden.beamform(spec_g, weights[..., 0] + 1j * weights[..., 1])
@@ -176,3 +212,36 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
             golden.incoherent_sum(spec_g),
             np.concatenate([o["incoherent"] for o in outputs], axis=1))
     return snrs, counters
+
+
+def _grade_dumps(cfg, dumps, spec_g, rng, ants_sel, baseline_subset):
+    """The least SNR of the dumps against the golden X-engine: every
+    baseline, all pairs among ``ants_sel`` (``spec_g`` then holds those
+    antennas only), or ``baseline_subset`` baselines drawn from ``rng``."""
+    bpa = cfg.n_spectra_per_acc
+    pairs = golden.baseline_pairs(cfg.n_ants)
+    loc = None
+    if ants_sel is not None:
+        pos = {int(x): li for li, x in enumerate(ants_sel)}
+        sel = [(bi, pos[int(i)], pos[int(j)])
+               for bi, (i, j) in enumerate(pairs)
+               if int(i) in pos and int(j) in pos]
+        bl_idx = np.array([bi for bi, _, _ in sel])
+        loc = [(li, lj) for _, li, lj in sel]
+    elif baseline_subset is not None and baseline_subset < len(pairs):
+        bl_idx = np.sort(rng.choice(len(pairs), baseline_subset,
+                                    replace=False))
+        loc = pairs[bl_idx]
+    else:
+        bl_idx = None
+    vals = []
+    for i, d in enumerate(dumps):
+        win = spec_g[:, :, i * bpa:(i + 1) * bpa]
+        got = d.vis[..., 0] + 1j * d.vis[..., 1]
+        if bl_idx is None:
+            vals.append(snr_db(golden.xcorr(win), got))
+            continue
+        vg = np.stack([np.einsum("pbk,qbk->pqk", win[i_], np.conj(win[j_]))
+                       for i_, j_ in loc])
+        vals.append(snr_db(vg, got[bl_idx]))
+    return min(vals) if vals else float("nan")

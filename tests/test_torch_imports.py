@@ -38,10 +38,12 @@ importlib.import_module("chip_smoke")
 print(" ".join(names))
 """
 
-# the bench layer and its entry, imported with the rest
+# the bench layer and its entry, the checkpoint and the command line,
+# imported with the rest
 BENCH_MODULES = ("bench", "bench.__main__", "bench.harness", "bench.probes",
                  "bench.kernels", "bench.pipelines", "bench.membench",
-                 "bench.collectives", "bench.scaling", "bench.regress")
+                 "bench.collectives", "bench.scaling", "bench.regress",
+                 "runtime.checkpoint", "cli")
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -50,7 +52,7 @@ def test_port_and_chip_smoke_import_without_jax():
                          cwd=REPO)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 38
+    assert len(names) >= 40
     assert {f"dc_sand_tpu_torch.{m}" for m in BENCH_MODULES} <= names
 
 

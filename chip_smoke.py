@@ -134,6 +134,33 @@ Phases 21-23 drive the checkpoint, the offline replay and the CLI:
     windows, equal to an uninterrupted run's dumps; ``verify fx4`` above
     50 dB.
 
+Phases 24-25 drive the ingest, the port's front end:
+
+24. fx64 at full width through the ingest, the main path of that slice:
+    one chunk of seeded int8 noise made on the card and copied to the host
+    once, packetized once into SPEAD-64-48 datagrams (8192-byte payloads)
+    and replayed for two dump windows (8 chunks) with advancing
+    timestamps into 4 ``NativeIngest`` assemblers of 16 antennas with
+    pinned slots, each fed by its own thread with ``submit_spead_burst``,
+    every stream's seeded integer coarse delay in [0, 32] set at packet
+    placement; ``multi_ingest_source`` copies each chunk on a copy stream
+    into the runner's buffer while the previous chunk steps (``Feeder``),
+    and the runner (d0 = d1 = 0, ``max_delay`` 0, phase 6's fringe) passes
+    the chunk through with no copy; both dumps must be bitwise those of
+    the same runner fed the same samples from the card with the delays as
+    its d0 and ``max_delay`` 32; launch counters K1 8, CMAC 8, all others
+    0; every assembler's late, bad and clipped counters 0.  It prints the
+    submit ms, the copy stream's ms a chunk (events) and GB/s, the device
+    step, the dump's pinned and pageable device-to-host copy, window 2's
+    wall ms a chunk and its share of the array in real time, and
+    ``bench_h2d`` pinned and pageable;
+25. the wire leg at fx4, 128 channels, 8-spectra chunks
+    (``dc_sand_tpu_torch/examples/udp_observation.py``, in process): UDP
+    sink -> localhost socket -> ``UdpSpeadReceiver`` -> ``NativeIngest``
+    -> ``multi_ingest_source`` -> the runner on the card; the dump bitwise
+    the device-fed run's, and its onward SPEAD copy over a second socket
+    bitwise; it prints the receiver's counters.
+
 Each kernel's time is a CUDA-event mean over back-to-back launches
 (``dc_sand_tpu_torch/bench/harness.py:time_cuda``; in phase 14 the median
 of five such means taken in turns with the yardstick); ``bound_ms`` is the
@@ -184,6 +211,7 @@ BENCH_STREAMS, BENCH_SPECTRA, BENCH_CHANS = 16, 512, 1024
 FLOAT_SNR_DB = 100.0       # two float32 F-engines, FFTs in other orders
 UNFUSED_SNR_DB = 60.0      # fused vs unfused fx64 dump: 1-LSB flips
 CMAC_SPECTRA = (2048, 1024, 256)   # phase 3's timings: fx64, SP, the bench
+INGEST_WORKERS = 4         # phase 24: one assembler a NIC queue, 16 ants each
 
 
 def _events_ms(fn, n):
@@ -240,12 +268,18 @@ def main() -> int:
     from dc_sand_tpu_torch.ops.beamform import beamform
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
     from dc_sand_tpu_torch.ops.pfb import pfb_fir, taps_pad_for
-    from dc_sand_tpu_torch.ops.xcorr import wire_to_a2, xcorr_accumulate_a2
+    from dc_sand_tpu_torch.ops.xcorr import (extract_vis, wire_to_a2,
+                                             xcorr_accumulate_a2)
     from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
                                             all_to_all_torch, build_mesh,
                                             ring_permute_right,
                                             ring_permute_right_torch)
-    from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, noise_int8,
+    from dc_sand_tpu_torch.bench import membench
+    from dc_sand_tpu_torch.bench.ingest_bench import spead_feed
+    from dc_sand_tpu_torch.bench.pipelines import ARRAY_REALTIME
+    from dc_sand_tpu_torch.examples import udp_observation
+    from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, INGEST_SEED,
+                                                ingest_setup, noise_int8,
                                                 production_runner)
     from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
                                            save_state)
@@ -1239,6 +1273,113 @@ def main() -> int:
     snr = float(lines[0].split(": ")[1].split()[0])
     if not snr > SNR_BOUND:
         raise RuntimeError(f"cli verify fx4: {snr} dB <= {SNR_BOUND}")
+
+    # ---- 24. fx64 at full width through the ingest ------------------------
+    # the slice's main path: SPEAD bursts -> 4 pinned assemblers of 16
+    # antennas (coarse delay at placement) -> the copy stream -> the runner
+    cfg = get_config("fx64")
+    a, p = cfg.n_ants, cfg.n_pols
+    g = cfg.n_spectra_per_acc // cfg.spectra_per_chunk
+    samples = a * p * cfg.chunk_samples
+    gen.manual_seed(INGEST_SEED)
+    chunk, host, delays, runner_dm, reference_dm = ingest_setup(cfg, gen,
+                                                                dev)
+    window = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
+    t = time.perf_counter()
+    feeder, ingests, submit_ms = spead_feed(
+        host, 2 * g, n_workers=INGEST_WORKERS, delays=delays, max_delay=32,
+        cfg=cfg, device=dev)
+    setup_s = time.perf_counter() - t
+    if not all(ing.pinned for ing in ingests):
+        raise RuntimeError("an assembler's slots are not pinned")
+    pinned_gb = sum(ing.n_slots for ing in ingests) * samples / len(
+        ingests) / 1e9
+    runner = FXRunner(cfg, window, delay_model=runner_dm, device=dev)
+    dump_at = []
+    torch.cuda.synchronize()
+    zero_counts()
+    try:
+        dumps, _ = runner.run(
+            feeder, 2 * g,
+            on_dump=lambda d: dump_at.append(time.perf_counter()))
+        torch.cuda.synchronize()
+    finally:
+        feeder.close()
+    ingest_counts = counts(fengine=2 * g, cmac=2 * g)
+    ingest_stats = [ing.stats() for ing in ingests]
+    for ing in ingests:
+        ing.close()
+    if any(st["packets_late"] or st["packets_bad"] or st["packets_clipped"]
+           for st in ingest_stats):
+        raise RuntimeError(f"the assemblers lost packets: {ingest_stats}")
+    ref_dumps, _ = FXRunner(cfg, window, delay_model=reference_dm,
+                            device=dev).run(lambda i: chunk, 2 * g)
+    if len(dumps) != 2 or not all(np.array_equal(d.vis, r.vis)
+                                  for d, r in zip(dumps, ref_dumps)):
+        raise RuntimeError("the fx64 dumps fed through the ingest are not "
+                           "the device-fed reference's")
+    window2_ms = (dump_at[1] - dump_at[0]) / g * 1e3
+    copy_ms = list(feeder.source.copy_ms)
+    frames = chunk.view(a * p, cfg.spectra_per_chunk, cfg.fft_size)
+    zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
+    args = runner._step_args(frames, zeros, zeros)
+    ingest_step_ms = _events_ms(
+        lambda: runner._step(runner.history, runner.vis_acc, *args, False), 4)
+    vis_dev = extract_vis(runner._acc_total(), a, p).contiguous()
+    pinned_vis = torch.empty(vis_dev.shape, dtype=vis_dev.dtype,
+                             pin_memory=True)
+    d2h = {"pinned": [], "pageable": []}
+    for kind in ("pinned", "pageable", "pageable", "pinned") * 2:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "pinned":
+            pinned_vis.copy_(vis_dev, non_blocking=True)
+        else:
+            vis_dev.cpu()
+        torch.cuda.synchronize()
+        d2h[kind].append((time.perf_counter() - t) * 1e3)
+    dump_mb = vis_dev.numel() * vis_dev.element_size() / 1e6
+    h2d = membench.bench_h2d(device=dev)
+    print(f"[24 fx64 ingest] {2 * g} chunks through {len(ingests)} pinned "
+          f"assemblers of {a // len(ingests)} antennas ({pinned_gb:.2f} GB "
+          f"of slots; packetize and pin {setup_s:.1f} s) -> 2 dumps bitwise "
+          f"equal to the device-fed reference (coarse delay at placement "
+          f"against on the card); launches {ingest_counts}; ingest "
+          f"counters {ingest_stats}", flush=True)
+    print(f"[24 fx64 ingest] dump digests {_digest(dumps[0].vis)} "
+          f"{_digest(dumps[1].vis)}", flush=True)
+    print(f"[24 fx64 ingest] submit ms ({len(ingests)} threads, median) "
+          f"{statistics.median(submit_ms):.3f}; host-to-device ms a chunk "
+          f"on the copy stream (events) median "
+          f"{statistics.median(copy_ms):.3f} = "
+          f"{samples / statistics.median(copy_ms) / 1e6:.2f} GB/s ("
+          + ", ".join(f"{x:.3f}" for x in copy_ms) + f"); device step "
+          f"{ingest_step_ms:.3f} ms; dump device-to-host of {dump_mb:.1f} MB "
+          f"pinned median {statistics.median(d2h['pinned']):.3f} ms = "
+          f"{dump_mb / statistics.median(d2h['pinned']):.2f} GB/s, pageable "
+          f"{statistics.median(d2h['pageable']):.3f} ms; window 2 wall "
+          f"{window2_ms:.3f} ms a chunk = {samples / window2_ms / 1e6:.2f} "
+          f"Gsamp/s, {samples / window2_ms * 1e3 / ARRAY_REALTIME:.4f} of the "
+          f"array in real time (feed overlapped); bench_h2d "
+          f"{h2d.bytes_moved / 1e6:.0f} MB pinned "
+          f"{h2d.extra['pinned_gb_s']:.2f} GB/s, pageable "
+          f"{h2d.value:.2f} GB/s ({card})", flush=True)
+    del runner, chunk, host, frames, zeros, args, dumps, ref_dumps, vis_dev
+    del pinned_vis, feeder
+    torch.cuda.empty_cache()
+
+    # ---- 25. the wire leg at a small shape --------------------------------
+    out = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(out):
+        rc = udp_observation.main([])
+    wire_counts = ran("fengine", "cmac")
+    for line in out.getvalue().splitlines():
+        print(f"[25 udp wire leg] {line}", flush=True)
+    if rc != 0:
+        raise RuntimeError("the wire leg's dump is not the device-fed run's, "
+                           "or its onward SPEAD copy is not bitwise")
+    print(f"[25 udp wire leg] launches {wire_counts} ({card})", flush=True)
 
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:

@@ -12,6 +12,9 @@ F-engine's phasor angles would flip too many int8 values.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.
+
+The host library of the ingest (``csrc/ingest.cpp``, no CUDA) builds the
+same way with ``g++`` (:func:`ingest_library`) into ``build/torch_ingest/``.
 """
 
 from __future__ import annotations
@@ -22,15 +25,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import types
 from pathlib import Path
 
 __all__ = ["library", "build_log", "check", "build_dir", "NVCC_FLAGS",
-           "Pairs", "MAX_PEERS"]
+           "Pairs", "MAX_PEERS", "ingest_library", "GXX_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -124,6 +129,30 @@ def library() -> types.SimpleNamespace:
             fn.restype = ctypes.c_int
             setattr(ns, name, fn)
     return ns
+
+
+@functools.lru_cache(maxsize=None)
+def ingest_library() -> Path:
+    """The ingest's host library, built from ``csrc/ingest.cpp`` with
+    ``g++`` if missing: ``build/torch_ingest/libingest_<hash>.so``, keyed by
+    the source and the flags, written under a temporary name of its
+    process and thread and renamed, so that builders running at once
+    never load a half-written file."""
+    src = _CSRC / "ingest.cpp"
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    digest.update(src.read_bytes())
+    out = build_dir().parent / "torch_ingest"
+    so = out / f"libingest_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(src), "-lpthread"]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stderr}")
+        os.replace(tmp, so)
+    return so
 
 
 def build_log() -> str:

@@ -31,7 +31,8 @@ from dc_sand_tpu_torch.config import get_config
 __all__ = ["main", "headline", "TARGETS"]
 
 TARGETS = ("fengine", "pfb", "fx", "beam-step", "runner", "xcorr",
-           "beamform", "fft", "membench", "probes", "collectives", "scaling")
+           "beamform", "fft", "membench", "probes", "ingest", "e2e",
+           "collectives", "scaling")
 
 
 def headline(device, *, n_chans: int = 4096, chans_1k: int = 1024,
@@ -126,6 +127,25 @@ def _target(name: str, args, dev) -> list:
                 for p in membench.PATTERNS] + [membench.bench_h2d(device=dev)]
     if name == "probes":
         return probes.bench_probes(device=dev)
+    if name == "ingest":
+        from dc_sand_tpu_torch.bench import ingest_bench as ib
+        return [ib.bench_ingest_host(delay_in_ingest=True, zero_copy=True,
+                                     n_workers=4, device=dev),
+                ib.bench_ingest_host(delay_in_ingest=True, zero_copy=True,
+                                     device=dev),
+                ib.bench_ingest_host(delay_in_ingest=True, device=dev),
+                ib.bench_ingest_host(delay_in_ingest=False, device=dev),
+                ib.bench_ingest_udp(device=dev),
+                ib.bench_ingest_udp(n_workers=4, device=dev),
+                ib.bench_ingest_runner(device=dev)]
+    if name == "e2e":
+        from dc_sand_tpu_torch.bench import ingest_bench as ib
+        kw = dict(spectra=args.spectra or 2048, n_chans=args.scale or 4096,
+                  device=dev)
+        # the whole chain fed from the host, then the same chunk loop on
+        # chunks staged on the card
+        return [ib.bench_e2e_atrate(**kw),
+                ib.bench_e2e_atrate(feed="device_replay", **kw)]
     # the collectives run on a mesh of --mesh shards, shard i on card
     # (i mod the card count); the scaling sweep over the cards present
     from dc_sand_tpu_torch.parallel import build_mesh

@@ -66,10 +66,12 @@ def bench_membench(pattern: str, *, mb: float = 256.0, iters: int = 64,
 
 
 def bench_h2d(mb: float = 64.0, iters: int = 8, device=None) -> BenchResult:
-    """Host-to-device feed bandwidth: numpy int8 chunks copied to the
-    device from pageable memory, as ``jax.device_put`` does in the JAX
-    file (pinned buffers belong to the ingest).  Host clock around the
-    copies and a synchronise."""
+    """Host-to-device feed bandwidth of int8 chunks of ``mb`` MB: from
+    pageable numpy memory, as ``jax.device_put`` does in the JAX file (the
+    record's value), and, on a card, from pinned memory with
+    ``non_blocking`` copies, as the ingest feeds the card
+    (``extra["pinned_gb_s"]``, ``extra["pinned_wall_s"]``; None on the
+    CPU).  Host clock around the copies and a synchronise."""
     dev = default_device(device)
     n = int(mb * 1e6)
     host = [np.random.default_rng(i).integers(-100, 100, n, dtype=np.int8)
@@ -79,14 +81,23 @@ def bench_h2d(mb: float = 64.0, iters: int = 8, device=None) -> BenchResult:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    torch.from_numpy(host[0]).to(dev, copy=True)     # warm one transfer
-    sync()
-    t = time.perf_counter()
-    outs = [torch.from_numpy(h).to(dev, copy=True) for h in host]
-    sync()
-    wall = (time.perf_counter() - t) / iters
-    del outs
+    def per_copy(srcs, **kw) -> float:
+        srcs[0].to(dev, copy=True, **kw)       # warm one transfer
+        sync()
+        t = time.perf_counter()
+        outs = [s.to(dev, copy=True, **kw) for s in srcs]
+        sync()
+        del outs
+        return (time.perf_counter() - t) / iters
+
+    wall = per_copy([torch.from_numpy(h) for h in host])
+    pinned_wall = None
+    if dev.type == "cuda":
+        pinned = [torch.from_numpy(h).pin_memory() for h in host]
+        pinned_wall = per_copy(pinned, non_blocking=True)
     return BenchResult(
         name="membench_h2d", metric="host->device bandwidth",
         value=n / wall / 1e9, unit="GB/s", wall_s=wall, bytes_moved=n,
+        extra={"pinned_gb_s": n / pinned_wall / 1e9 if pinned_wall else None,
+               "pinned_wall_s": pinned_wall},
     ).finish(dev)

@@ -10,7 +10,8 @@ beam64 and fx64 through the unfused F-engine, the standalone FIR kernel
 then PyTorch ops; ``fx64_mesh4`` is fx64 sharded over a 4-way fx mesh,
 shard i on ``cuda:(i mod the card count)``, so that the corner-turn's
 share of a sharded step shows; ``fx64_batched`` drives the windows with
-``run_batched``, one CUDA-graph replay a window) it builds the
+``run_batched``, one CUDA-graph replay a window; ``fx64_ingest`` feeds
+fx64 through the ingest, see :func:`_profile_ingest`) it builds the
 production runner (:func:`production_runner`: 64 ants x 2 pols, 4096 channels, the
 config's own chunk length, coarse and fractional delay and fringe on,
 seeded int8 noise made on the card; fx64 dumps 8192 spectra per 4
@@ -52,8 +53,8 @@ from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
 
-__all__ = ["noise_int8", "production_runner", "device_busy_us", "main",
-           "BEAM_CHUNKS"]
+__all__ = ["noise_int8", "production_runner", "production_delay_model",
+           "device_busy_us", "overlap_us", "main", "BEAM_CHUNKS"]
 
 # beam mode has no dump cadence: its window is a fixed count of chunks
 BEAM_CHUNKS = 8
@@ -75,6 +76,20 @@ def noise_int8(gen: torch.Generator, shape, device) -> torch.Tensor:
     return out
 
 
+def production_delay_model(cfg: ChainConfig,
+                           rng: np.random.Generator) -> DelayModel:
+    """The production runner's delay model, drawn from ``rng``: coarse
+    delays up to 31 samples (``max_delay`` 32), a delay rate, fringe
+    phases and rates."""
+    a, p = cfg.n_ants, cfg.n_pols
+    dm = DelayModel.zeros(a, p, max_delay=32)
+    dm.d0 = rng.uniform(0.0, 31.0, (a, p))
+    dm.d1 = rng.uniform(-1e-9, 1e-9, (a, p))
+    dm.p0 = rng.uniform(-np.pi, np.pi, (a, p))
+    dm.p1 = rng.uniform(-1e-6, 1e-6, (a, p))
+    return dm
+
+
 def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
                       fused: bool = True, mesh=None):
     """The runner at ``cfg``'s own cadence with a seeded delay model
@@ -87,11 +102,7 @@ def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
     runner is sharded over it."""
     rng = np.random.default_rng(6)
     a, p = cfg.n_ants, cfg.n_pols
-    dm = DelayModel.zeros(a, p, max_delay=32)
-    dm.d0 = rng.uniform(0.0, 31.0, (a, p))
-    dm.d1 = rng.uniform(-1e-9, 1e-9, (a, p))
-    dm.p0 = rng.uniform(-np.pi, np.pi, (a, p))
-    dm.p1 = rng.uniform(-1e-6, 1e-6, (a, p))
+    dm = production_delay_model(cfg, rng)
     weights = None
     if cfg.n_beams:
         n_chunks = BEAM_CHUNKS
@@ -131,11 +142,175 @@ def _timed(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
+def _spans(events, pred) -> list:
+    """The union of the intervals ``(ts, ts + dur)`` of the device events
+    whose name satisfies ``pred``, as sorted disjoint intervals."""
+    merged = []
+    for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                         if e.get("cat") in DEVICE_CATS and "dur" in e
+                         and pred(e["name"])):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return merged
+
+
+def overlap_us(a: list, b: list) -> float:
+    """Length of the intersection of two unions of intervals
+    (:func:`_spans`)."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _trace(name: str, what: str, n: int, fn, out: Path) -> list:
+    """``fn`` (``n`` chunks) under the profiler: prints the wall, the
+    device's busy time and idle share and the device time per kernel or
+    copy name; returns the trace's events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms = _timed(fn)
+    trace = out / f"{name}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    busy_ms = device_busy_us(events) / 1e3
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") in DEVICE_CATS and "dur" in e:
+            per_name[e["name"]][0] += e["dur"] / 1e3
+            per_name[e["name"]][1] += 1
+    print(f"[{name} trace] {n} chunks, {what}: wall {wall_ms:.3f} "
+          f"ms, device busy {busy_ms:.3f} ms (union of intervals), idle "
+          f"share {1 - busy_ms / wall_ms:.4f}")
+    print(f"{'device ms per chunk':>20} {'share of wall':>14} "
+          f"{'count':>6}  name")
+    for item, (ms, cnt) in sorted(per_name.items(), key=lambda x: -x[1][0]):
+        print(f"{ms / n:20.3f} {ms / wall_ms:14.4f} {cnt:6d}  {item[:90]}")
+    return events
+
+
+INGEST_SEED = 24    # the integer coarse delays of the ingest feed
+
+
+def ingest_setup(cfg: ChainConfig, gen: torch.Generator, device) -> tuple:
+    """The fx runner fed through the ingest (``fx64_ingest``, and the chip
+    smoke's phase 24): one chunk of seeded int8 noise made with ``gen`` on
+    ``device`` and its host copy, seeded integer coarse delays in ``[0,
+    32]`` (applied at packet placement), the runner's delay model (d0 =
+    d1 = 0, ``max_delay`` 0, the production runner's fringe) and the
+    reference's (d0 = those integers, ``max_delay`` 32, the same fringe),
+    for which the same samples fed from the card give the same dumps
+    bitwise: ``(chunk, host_chunk, delays, runner_dm, reference_dm)``."""
+    a, p = cfg.n_ants, cfg.n_pols
+    chunk = noise_int8(gen, (a, p, cfg.chunk_samples), device)
+    prod = production_delay_model(cfg, np.random.default_rng(6))
+    delays = np.random.default_rng(INGEST_SEED).integers(0, 33, (a, p))
+    runner_dm = DelayModel.zeros(a, p)
+    reference_dm = DelayModel.zeros(a, p, max_delay=32)
+    reference_dm.d0 = delays.astype(np.float64)
+    for dm in (runner_dm, reference_dm):
+        dm.p0, dm.p1 = prod.p0.copy(), prod.p1.copy()
+    return chunk, chunk.cpu().numpy(), delays, runner_dm, reference_dm
+
+
+def _overlap(name: str, events, n: int, more: str) -> None:
+    """Print the host-to-device copies' busy time a chunk in ``events``
+    and how much of it runs under K1 (``fengine_kernel``) and under any
+    kernel."""
+    h2d = _spans(events, lambda s: "HtoD" in s)
+    k1 = _spans(events, lambda s: "fengine_kernel" in s)
+    kern = _spans(events, lambda s: "kernel" in s or "Kernel" in s)
+    h2d_ms = sum(hi - lo for lo, hi in h2d) / 1e3
+    print(f"[{name} overlap] host-to-device copies busy {h2d_ms / n:.3f} ms "
+          f"a chunk; of it under K1 {overlap_us(h2d, k1) / 1e3 / n:.3f} ms, "
+          f"under any kernel {overlap_us(h2d, kern) / 1e3 / n:.3f} ms"
+          + (f"; {more}" if more else ""))
+
+
+def _profile_ingest(name: str, gen: torch.Generator, dev, out: Path) -> None:
+    """``fx64_ingest``: the fx64 runner fed through the ingest (4 pinned
+    assemblers of 16 antennas, SPEAD bursts placed by a thread each, the
+    copies on a copy stream, :func:`ingest_setup`); warms one window, then
+    traces the next two: the idle share, the host-to-device copies' busy
+    time and how much of it runs while K1 (``fengine_kernel``) or any
+    kernel runs; then the dump's pinned device-to-host copy alone; then
+    (``<name>_ahead``) three chunks placed before the clock, fed to a new
+    runner by a feed started inside the trace: the copies' overlap with
+    K1 when the placement does not set the pace."""
+    from dc_sand_tpu_torch.bench.ingest_bench import (retime, spead_bursts,
+                                                      spead_feed)
+    from dc_sand_tpu_torch.runtime.ingest import (Feeder, NativeIngest,
+                                                  multi_ingest_source)
+    cfg = get_config(name.partition("_")[0])
+    chunk, host, delays, runner_dm, _ = ingest_setup(cfg, gen, dev)
+    window = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
+    runner = FXRunner(cfg, window, delay_model=runner_dm, device=dev)
+    n = cfg.n_spectra_per_acc // cfg.spectra_per_chunk
+    feeder, ingests, submit_ms = spead_feed(host, 3 * n, delays=delays,
+                                            max_delay=32, cfg=cfg,
+                                            device=dev)
+    samples = cfg.n_ants * cfg.n_pols * cfg.chunk_samples
+    try:
+        runner.run(feeder, n)                # warm, one window
+        # two windows traced, so that the chunks the feed has ready when
+        # the trace starts weigh little
+        n *= 2
+        events = _trace(name, "fed through the ingest", n,
+                        lambda: runner.run(feeder, n), out)
+    finally:
+        feeder.close()
+    stats = [ing.stats() for ing in ingests]
+    for ing in ingests:
+        ing.close()
+    _overlap(name, events, n, "copy stream events ms " + ", ".join(
+        f"{t:.3f}" for t in feeder.source.copy_ms) + "; submit ms (each of "
+        f"4 threads) median {float(np.median(submit_ms)):.3f}; "
+        f"{samples / 1e9:.3f} GB a chunk; ingest counters {stats}")
+    vis = extract_vis(runner._acc_total(), cfg.n_ants, cfg.n_pols).contiguous()
+    pinned = torch.empty(vis.shape, dtype=vis.dtype, pin_memory=True)
+    dump_ms = [_timed(lambda: pinned.copy_(vis, non_blocking=True))
+               for _ in range(3)]
+    print(f"[{name} dump] pinned device-to-host copy of "
+          f"{vis.numel() * 4 / 1e6:.1f} MB ms: "
+          + ", ".join(f"{t:.3f}" for t in dump_ms))
+
+    # the same machinery with the placement out of the way: the 3 chunks
+    # the rings hold placed before the clock (no delays), the feed started
+    # inside the trace, so that each chunk's copy can run under the
+    # previous chunk's step
+    ahead = [NativeIngest(cfg.n_ants // 4, cfg.n_pols, cfg.chunk_samples,
+                          n_slots=3) for _ in range(4)]
+    for ing, (blob, lens) in zip(ahead, spead_bursts(host, 4)):
+        for i in range(3):
+            retime(blob, lens, i * cfg.chunk_samples)
+            ing.submit_spead_burst((blob, lens))
+    fresh = FXRunner(cfg, window, delay_model=runner_dm, device=dev)
+
+    def placed_ahead():
+        with Feeder(multi_ingest_source(ahead, cfg, device=dev), 3) as fd:
+            fresh.run(fd, 3)
+
+    events = _trace(f"{name}_ahead", "placed before the clock", 3,
+                    placed_ahead, out)
+    for ing in ahead:
+        ing.close()
+    _overlap(f"{name}_ahead", events, 3, "")
+
+
 def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
     """Profile run ``name``: a config, then ``_unfused`` for the unfused
-    F-engine, ``_mesh<N>`` for an N-way fx mesh or ``_batched`` for
-    ``run_batched``."""
+    F-engine, ``_mesh<N>`` for an N-way fx mesh, ``_batched`` for
+    ``run_batched`` or ``_ingest`` for the feed through the ingest."""
     config, _, variant = name.partition("_")
+    if variant == "ingest":
+        return _profile_ingest(name, gen, dev, out)
     cfg = get_config(config)
     mesh = None
     if variant.startswith("mesh"):
@@ -153,26 +328,8 @@ def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
     run(lambda i: chunks[i % n], n)          # warm (and capture), one window
 
     # 1. one window under the profiler, device-resident chunks
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_ms = _timed(lambda: run(lambda i: chunks[i % n], n))
-    trace = out / f"{name}_trace.json"
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    busy_ms = device_busy_us(events) / 1e3
-    per_name = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        if e.get("cat") in DEVICE_CATS and "dur" in e:
-            per_name[e["name"]][0] += e["dur"] / 1e3
-            per_name[e["name"]][1] += 1
-    print(f"[{name} trace] {n} chunks, device-resident: wall {wall_ms:.3f} "
-          f"ms, device busy {busy_ms:.3f} ms (union of intervals), idle "
-          f"share {1 - busy_ms / wall_ms:.4f}")
-    print(f"{'device ms per chunk':>20} {'share of wall':>14} "
-          f"{'count':>6}  name")
-    for item, (ms, cnt) in sorted(per_name.items(), key=lambda x: -x[1][0]):
-        print(f"{ms / n:20.3f} {ms / wall_ms:14.4f} {cnt:6d}  {item[:90]}")
+    _trace(name, "device-resident", n, lambda: run(lambda i: chunks[i % n], n),
+           out)
 
     # 2. the dump alone
     if runner.mode == "fx":
@@ -197,7 +354,8 @@ def main(argv=None) -> int:
                     help="directory for the traces")
     ap.add_argument("--runs", default="fx64,beam64,fx64_unfused",
                     help="comma-separated runs: a config name, with "
-                         "_unfused, _mesh<N> (e.g. fx64_mesh4) or _batched")
+                         "_unfused, _mesh<N> (e.g. fx64_mesh4), _batched or "
+                         "_ingest")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")

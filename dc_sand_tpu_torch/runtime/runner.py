@@ -306,7 +306,17 @@ class FXRunner:
         ``on_dump``."""
         cfg = self.cfg
         vis = extract_vis(self._acc_total(), cfg.n_ants, cfg.n_pols)
-        d = Dump(vis=vis.contiguous().cpu().numpy(), n_spectra=n_spectra,
+        vis = vis.contiguous()
+        if vis.is_cuda:
+            # through a fresh pinned buffer (the caching host allocator
+            # recycles it once the dump is dropped): a DMA at the link's
+            # rate, where a pageable copy is staged by the host.  Never
+            # one buffer across dumps, or a kept dump would change.
+            host = torch.empty(vis.shape, dtype=vis.dtype, pin_memory=True)
+            host.copy_(vis, non_blocking=True)
+            torch.cuda.current_stream(vis.device).synchronize()
+            vis = host
+        d = Dump(vis=vis.cpu().numpy(), n_spectra=n_spectra,
                  n_spectra_nominal=nominal, first_chunk=first_chunk)
         self.counters.dumps += 1
         if on_dump is not None:

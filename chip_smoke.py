@@ -161,6 +161,33 @@ Phases 24-25 drive the ingest, the port's front end:
     the device-fed run's, and its onward SPEAD copy over a second socket
     bitwise; it prints the receiver's counters.
 
+Phases 26-31 drive the fx path at any spectra count B and the rest of the
+single-process surface:
+
+26. the CMAC at fx64's K = 4096 and ap = 128 on unpadded operands of B =
+    1, 8, 24 and 2040 spectra (the wrapper pads them with zero spectra to
+    a multiple of 16), keep 0 and 1: bitwise equal to the plain version on
+    the unpadded operand, one launch a call; B = 2040 also at pitch 2048,
+    as K1 writes it; times beside phase 3's B = 2048;
+27. K1 in the operand layout at fx64 width (128 streams, M = 8192) at B =
+    24 and 2040, rows at a pitch of B rounded up to 16: the pad exactly
+    zero, ``[..., :B]`` bitwise the unpitched kernel output and within
+    phase 2's 1-LSB flip bound of the plain version; kernel times at B =
+    24, 2040 and 2048 (no pad, no memset);
+28. ``verify fx64`` at full width on 24-spectra chunks and 48-spectra
+    dumps: >50 dB against the float64 golden chain; K1 and the CMAC
+    launched, no other kernel;
+29. the four examples without ingest in process (fx_observation,
+    observe at 8-spectra chunks, beams, beam_pointing): each prints PASS;
+    observe's K1 and CMAC launches;
+30. ``dryrun_multichip(4, devices=["cuda:0"] * 4)``: every sharded mode
+    runs; the fx dumps and incoherent beams bitwise equal to the same
+    steps on one card, beams and time-sharded spectra >= 100 dB from
+    them; K1, the CMAC, the beam kernel, K6, K7a and K7b launched; each
+    mode's ms;
+31. the bench entry's ``fengine`` target with ``--profile DIR``: the
+    Chrome trace exists and names K1's launches.
+
 Each kernel's time is a CUDA-event mean over back-to-back launches
 (``dc_sand_tpu_torch/bench/harness.py:time_cuda``; in phase 14 the median
 of five such means taken in turns with the yardstick); ``bound_ms`` is the
@@ -212,6 +239,7 @@ FLOAT_SNR_DB = 100.0       # two float32 F-engines, FFTs in other orders
 UNFUSED_SNR_DB = 60.0      # fused vs unfused fx64 dump: 1-LSB flips
 CMAC_SPECTRA = (2048, 1024, 256)   # phase 3's timings: fx64, SP, the bench
 INGEST_WORKERS = 4         # phase 24: one assembler a NIC queue, 16 ants each
+RAGGED_SPECTRA = (1, 8, 24, 2040)  # phase 26: B not a multiple of 16
 
 
 def _events_ms(fn, n):
@@ -268,8 +296,8 @@ def main() -> int:
     from dc_sand_tpu_torch.ops.beamform import beamform
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
     from dc_sand_tpu_torch.ops.pfb import pfb_fir, taps_pad_for
-    from dc_sand_tpu_torch.ops.xcorr import (extract_vis, wire_to_a2,
-                                             xcorr_accumulate_a2)
+    from dc_sand_tpu_torch.ops.xcorr import (cmac_pitch, extract_vis,
+                                             wire_to_a2, xcorr_accumulate_a2)
     from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
                                             all_to_all_torch, build_mesh,
                                             ring_permute_right,
@@ -277,7 +305,10 @@ def main() -> int:
     from dc_sand_tpu_torch.bench import membench
     from dc_sand_tpu_torch.bench.ingest_bench import spead_feed
     from dc_sand_tpu_torch.bench.pipelines import ARRAY_REALTIME
-    from dc_sand_tpu_torch.examples import udp_observation
+    from dc_sand_tpu_torch.dryrun import dryrun_multichip, dryrun_reference
+    from dc_sand_tpu_torch.examples import (beam_pointing, fx_observation,
+                                            observe, udp_observation)
+    from dc_sand_tpu_torch.examples import beams as ex_beams
     from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, INGEST_SEED,
                                                 ingest_setup, noise_int8,
                                                 production_runner)
@@ -1380,6 +1411,187 @@ def main() -> int:
         raise RuntimeError("the wire leg's dump is not the device-fed run's, "
                            "or its onward SPEAD copy is not bitwise")
     print(f"[25 udp wire leg] launches {wire_counts} ({card})", flush=True)
+
+    # ---- 26. the CMAC at ragged B, fx64's K and ap ------------------------
+    ap, nch = FX64_STREAMS, FX64_M // 2
+    gen.manual_seed(26)
+    ragged_ms = {}
+    for bb in RAGGED_SPECTRA:
+        a2 = torch.randint(-127, 128, (nch, 2 * ap, bb), generator=gen,
+                           device=dev, dtype=torch.int8)
+        acc0 = torch.randint(-2 ** 24, 2 ** 24, (nch, ap, ap), generator=gen,
+                             device=dev, dtype=torch.int32)
+        for keep in (0, 1):
+            x, y = acc0.clone(), acc0.clone()
+            before = xcorr_accumulate_a2.launches
+            xcorr_accumulate_a2(x, a2, keep=keep, impl="cuda")
+            if xcorr_accumulate_a2.launches != before + 1:
+                raise RuntimeError("the CMAC wrapper did not count one launch "
+                                   f"a call at B={bb}")
+            xcorr_accumulate_a2(y, a2, keep=keep, impl="torch")
+            if not torch.equal(x, y):
+                raise RuntimeError(f"CMAC kernel != plain version at B={bb} "
+                                   f"(keep={keep}): {int((x != y).sum())} "
+                                   "elements differ")
+        ragged_ms[bb] = _events_ms(lambda: xcorr_accumulate_a2(
+            x, a2, keep=1, impl="cuda"), 5)
+    # B = 2040 as the fx step hands it over: K1's operand at pitch 2048
+    padded = torch.zeros((nch, 2 * ap, cmac_pitch(bb)), dtype=torch.int8,
+                         device=dev)
+    padded[..., :bb] = a2
+    z = xcorr_accumulate_a2(acc0.clone(), padded, keep=0, impl="cuda")
+    if not torch.equal(z, xcorr_accumulate_a2(acc0.clone(), a2, keep=0,
+                                              impl="torch")):
+        raise RuntimeError("CMAC on the pitched operand != plain version")
+    pitched_ms = _events_ms(lambda: xcorr_accumulate_a2(
+        z, padded, keep=1, impl="cuda"), 5)
+    print(f"[26 cmac ragged] K {nch}, ap {ap}, B {RAGGED_SPECTRA}, keep 0 and "
+          f"1: bitwise equal to the plain version, one launch a call; keep 1 "
+          + ", ".join(f"B {k} {v:.3f} ms" for k, v in ragged_ms.items())
+          + f" (unpadded operand: the wrapper's pad copy and the kernel); "
+          f"B {bb} at pitch {cmac_pitch(bb)} (K1's operand) {pitched_ms:.3f} "
+          f"ms; B {FX64_SPECTRA} {cmac_ms:.3f} ms (phase 3) ({card})",
+          flush=True)
+    del a2, acc0, x, y, z, padded
+    torch.cuda.empty_cache()
+
+    # ---- 27. K1 in the operand layout at a pitch, fx64 width --------------
+    s, m, nch = FX64_STREAMS, FX64_M, FX64_M // 2
+    gen.manual_seed(27)
+    hist = noise_int8(gen, (s, TAPS, m), dev)
+    window = torch.as_tensor(pfb_window(TAPS, m), dtype=torch.float32,
+                             device=dev)
+    pitched = {}
+    for bb in (24, 2040, FX64_SPECTRA):
+        chunk = noise_int8(gen, (s, bb, m), dev)
+        fd = torch.rand((s, bb), generator=gen, device=dev) - 0.5
+        ph = (torch.rand((s, bb), generator=gen, device=dev) - 0.5) * 2 * np.pi
+        kw = dict(history=hist, frac_delay=fd, phase=ph, gains=gains)
+
+        def k1_op(pitch=None):
+            return fengine_fused(chunk, window, TAPS, nch, impl="cuda",
+                                 layout="operand", pitch=pitch, **kw)
+
+        pitch = cmac_pitch(bb)
+        # the output reuses this block of stale bytes: the pad must be stored
+        junk = torch.full((nch * 2 * s * pitch,), 77, dtype=torch.int8,
+                          device=dev)
+        del junk
+        got = k1_op(pitch)
+        pitched[bb] = _events_ms(lambda: k1_op(pitch), 5)
+        if bb == FX64_SPECTRA:
+            continue
+        if got[..., bb:].any():
+            raise RuntimeError(f"K1's operand pad is not zero at B={bb}")
+        if not torch.equal(got[..., :bb], k1_op()):
+            raise RuntimeError(f"K1's pitched operand != its unpitched one at "
+                               f"B={bb}")
+        worst, flips = 0, 0
+        for i in range(0, s, PLAIN_BLOCK_STREAMS):
+            sl = slice(i, i + PLAIN_BLOCK_STREAMS)
+            want = fengine_fused(chunk[sl], window, TAPS, nch,
+                                 history=hist[sl], frac_delay=fd[sl],
+                                 phase=ph[sl], gains=gains, impl="torch")
+            d = (got[:, :, sl, :bb].permute(2, 3, 0, 1).to(torch.int16)
+                 - want.to(torch.int16)).abs()
+            worst, flips = max(worst, int(d.max())), flips + int((d > 0).sum())
+        frac = flips / (s * bb * nch * 2)
+        print(f"[27 fengine pitched] B {bb} at pitch {pitch}: pad zero, "
+              f"[..., :B] bitwise the unpitched kernel's, max |diff| "
+              f"{worst} LSB and flip fraction {frac:.3e} against the plain "
+              f"version", flush=True)
+        if worst > 1 or frac > MAX_FLIP_FRACTION:
+            raise RuntimeError(f"K1's pitched operand disagrees with its plain "
+                               f"version at B={bb}")
+    print(f"[27 fengine pitched] kernel, operand layout: B 24 at pitch 32 "
+          f"{pitched[24]:.3f} ms; B 2040 at pitch 2048 {pitched[2040]:.3f} "
+          f"ms; B {FX64_SPECTRA} {pitched[FX64_SPECTRA]:.3f} ms ({card})",
+          flush=True)
+    del hist, chunk, fd, ph, got, want, d
+    torch.cuda.empty_cache()
+
+    # ---- 28. verify fx64 at full width on 24-spectra chunks ---------------
+    zero_counts()
+    t = time.perf_counter()
+    snrs, counters = verify_config("fx64", device=dev, spectra_per_chunk=24,
+                                   n_spectra_per_acc=48)
+    verify_counts = ran("fengine", "cmac")
+    snr = snrs["visibilities"]
+    print(f"[28 verify fx64 ragged] 24-spectra chunks, 48-spectra dumps: "
+          f"visibilities {snr:.2f} dB vs golden over {counters.dumps} dumps "
+          f"({time.perf_counter() - t:.1f} s); launches {verify_counts} "
+          f"({card})", flush=True)
+    if not snr > SNR_BOUND:
+        raise RuntimeError(f"verify fx64 at 24 spectra: {snr:.2f} dB <= "
+                           f"{SNR_BOUND}")
+
+    # ---- 29. the four examples without ingest, in process -----------------
+    for ex in (fx_observation, observe, ex_beams, beam_pointing):
+        name = ex.__name__.rsplit(".", 1)[1]
+        out = io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stdout(out):
+            rc = ex.main([])
+        ex_counts = current()
+        for line in out.getvalue().splitlines():
+            if line.strip():
+                print(f"[29 {name}] {line}", flush=True)
+        if rc != 0 or "PASS" not in out.getvalue().split():
+            raise RuntimeError(f"example {name} did not pass on the card")
+        if name == "observe":
+            ran("fengine", "cmac")
+            print(f"[29 observe] launches: K1 {ex_counts['fengine']}, CMAC "
+                  f"{ex_counts['cmac']} (8-spectra chunks) ({card})",
+                  flush=True)
+
+    # ---- 30. dryrun_multichip on 4 shards of the card ---------------------
+    zero_counts()
+    dry = dryrun_multichip(SHARDS, devices=[f"cuda:{dev.index or 0}"] * SHARDS)
+    dry_counts = current()
+    ref = dryrun_reference(SHARDS, device=f"cuda:{dev.index or 0}")
+    for name, r in dry.items():
+        for key, v in r.outputs.items():
+            want = ref[name].outputs[key]
+            if v.shape != want.shape or not np.abs(v).max() > 0:
+                raise RuntimeError(f"dry run {name}: {key} {v.shape}, want "
+                                   f"{want.shape}, nonzero")
+            if key in ("vis", "incoherent"):
+                ok = np.array_equal(v, want)
+            else:
+                c = v[..., 0] + 1j * v[..., 1] if key == "beams" else v
+                cw = (want[..., 0] + 1j * want[..., 1] if key == "beams"
+                      else want)
+                ok = snr_db(cw, c) >= BEAM_SNR_DB
+            if not ok:
+                raise RuntimeError(f"dry run {name}: {key} on {SHARDS} shards "
+                                   "!= one card")
+    if not all(dry_counts[k] for k in ("fengine", "cmac", "beamform",
+                                       "all_to_all", "ring", "pfb")):
+        raise RuntimeError(f"the dry run missed a kernel: {dry_counts}")
+    print(f"[30 dryrun] {SHARDS} shards on one card: " + ", ".join(
+        f"{k} {r.ms:.1f} ms" for k, r in dry.items()) + "; fx dumps and "
+        f"incoherent beams bitwise one card's, beams and spectra >= "
+        f"{BEAM_SNR_DB} dB from it; launches {dry_counts} ({card})",
+        flush=True)
+
+    # ---- 31. bench fengine --profile --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench_main(["fengine", "--profile", tmp])
+        trace = Path(tmp) / "fengine_trace.json"
+        if rc != 0 or not trace.is_file():
+            raise RuntimeError("bench fengine --profile wrote no trace")
+        events = json.loads(trace.read_text())["traceEvents"]
+        k1_events = [e for e in events if e.get("cat") == "kernel"
+                     and "fengine_kernel" in e.get("name", "")]
+        if not k1_events:
+            raise RuntimeError("the bench's trace names no K1 launch")
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"[31 bench --profile] {trace.name}: {len(events)} events, "
+              f"{len(k1_events)} launches of {k1_events[0]['name']}; record "
+              f"{rec['name']} {rec['value']:.4g} {rec['unit']} ({card})",
+              flush=True)
 
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:

@@ -56,7 +56,7 @@ class Pairs(ctypes.Structure):
 # stream as c_void_p, byte counts as c_longlong)
 _SIGNATURES = {
     "fengine": {"dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _P]},
+                                _I, _I, _I, _I, _I, _I, _I, _P]},
     "cmac": {"dcs_cmac": [_P, _P, _I, _I, _I, _I, _P]},
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},

@@ -21,7 +21,9 @@ and prints no JSON; ``--device cpu`` runs on the CPU (the tests do).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 
 import torch
@@ -177,6 +179,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", type=int, default=4,
                     help="shards of the collectives' mesh (and CPU devices "
                          "of the scaling sweep)")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "to DIR/<target>_trace.json")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda":
@@ -186,13 +191,25 @@ def main(argv=None) -> int:
             return 1
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+    ctx = contextlib.nullcontext()
+    if args.profile:
+        from dc_sand_tpu_torch.profile_step import chrome_trace
+        trace = os.path.join(args.profile,
+                             f"{args.target or 'headline'}_trace.json")
+        ctx = chrome_trace(trace, cuda=dev.type == "cuda")
+    with ctx:
+        if args.target is None:
+            line, results = headline(dev)
+        else:
+            results = _target(args.target, args, dev)
     if args.target is None:
-        line, results = headline(dev)
         print(json.dumps(line), flush=True)
     else:
-        results = _target(args.target, args, dev)
         for res in results:
             print(res.to_json(), flush=True)
+    if args.profile:
+        print(f"dc_sand_tpu_torch.bench: trace written to {trace}",
+              file=sys.stderr)
     if args.out:
         for res in results:
             res.save(args.out)

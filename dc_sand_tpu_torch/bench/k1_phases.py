@@ -107,7 +107,7 @@ def main(argv=None) -> int:
             hist.data_ptr(), chunk.data_ptr(), w.data_ptr(),
             split_tw.data_ptr(), pass_tw.data_ptr(), fd.data_ptr(),
             ph.data_ptr(), gains.data_ptr(), out.data_ptr(), s, tp, b, b, m,
-            taps, tp - taps + 1, int(layout == "operand"),
+            taps, tp - taps + 1, int(layout == "operand"), b,
             torch.cuda.current_stream().cuda_stream),
             "dcs_fengine (phases build)")
         torch.cuda.synchronize()

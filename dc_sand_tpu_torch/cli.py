@@ -174,6 +174,8 @@ def cmd_bench(args, rest: list) -> int:
     argv = ([args.target] if args.target else []) + rest
     if args.cpu:
         argv += ["--device", "cpu"]
+    if args.profile:
+        argv += ["--profile", args.profile]
     return bench_main(argv)
 
 
@@ -233,6 +235,9 @@ def main(argv=None) -> int:
     pb.add_argument("target", nargs="?", choices=TARGETS)
     pb.add_argument("--cpu", action="store_true",
                     help="run on the CPU (--device cpu)")
+    pb.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the bench "
+                         "into DIR")
     pb.set_defaults(fn=cmd_bench)
 
     pg = sub.add_parser("regress",

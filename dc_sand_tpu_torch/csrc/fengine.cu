@@ -22,8 +22,12 @@
 //             stored as float32 instead.
 //
 // Output layouts: "wire" (S, n_out, K, 2), int8 or float32; "operand" (int8
-// only) (K, 2, S, n_out), the X-engine's stacked operand [Ar; Ai] for the
-// streams of the call, so the fx path needs no corner-turn permute.
+// only) (K, 2, S, pitch), the X-engine's stacked operand [Ar; Ai] for the
+// streams of the call, so the fx path needs no corner-turn permute.  Its
+// rows hold n_out spectra at a pitch the caller gives (the fx path: n_out
+// rounded up to the CMAC's 16), zeros in the pad: from M = 2048 the
+// cluster's gather stores them with the row's last run, below it (or for a
+// pitch past the grid's last spectrum) a 2D memset writes them first.
 //
 // What bounds it on the H100: at fx64 (M = 8192, 16 taps, 128 streams x 2048
 // spectra) the useful work is 0.17 TFLOP of fp32 (2.5 ms at 67 TFLOP/s) and
@@ -110,6 +114,7 @@ struct Params {
   const float2* gains;     // (K,) or null (float output)
   void* out;
   int n_streams, n_hist, n_chunk, n_out, m, taps, pad0;
+  int pitch;               // operand layout: bytes between a row's streams
   int groups;              // FIR column groups G = min(kThreads, M / 4)
   int subs;                // sub-tiles P = kThreads / G
   int n_pass;
@@ -484,9 +489,11 @@ fengine_kernel(const __grid_constant__ Params p) {
     // kCluster * kJ spectra, gathered from every CTA's stage
     const int rank = static_cast<int>(cluster.block_rank());
     const int j_clu = (blockIdx.x / kCluster) * kCluster * kJ;
-    const int n_clu = min(kCluster * kJ, p.n_out - j_clu);
+    // the run of a row this cluster stores: its spectra, and past n_out the
+    // pad's zeros up to the pitch (the stages hold zeros past n_out)
+    const int n_clu = min(kCluster * kJ, p.pitch - j_clu);
     const int per_rank = 2 * n_half / kCluster;
-    const size_t plane = static_cast<size_t>(p.n_streams) * p.n_out;
+    const size_t plane = static_cast<size_t>(p.n_streams) * p.pitch;
     for (int row = rank * per_rank + tid; row < (rank + 1) * per_rank; row += kThreads) {
       unsigned long long w[kCluster * kJ / 8] = {};
 #pragma unroll
@@ -499,7 +506,7 @@ fengine_kernel(const __grid_constant__ Params p) {
           w[off / 8 + 1] |= piece >> (8 * (8 - off % 8));
       }
       int8_t* dst = static_cast<int8_t*>(p.out) + static_cast<size_t>(row) * plane +
-                    static_cast<size_t>(s) * p.n_out + j_clu;
+                    static_cast<size_t>(s) * p.pitch + j_clu;
       if (n_clu == kCluster * kJ && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
 #pragma unroll
         for (int q = 0; q < kCluster * kJ / 16; ++q)
@@ -538,8 +545,9 @@ fengine_kernel(const __grid_constant__ Params p) {
             reinterpret_cast<char2*>(p.out)[(row0 + jj) * n_half + k] =
                 make_char2(static_cast<char>(re >> (8 * jj)), static_cast<char>(im >> (8 * jj)));
       } else if constexpr (kLayout == 1) {
-        const size_t plane = static_cast<size_t>(p.n_streams) * p.n_out;
-        int8_t* dst = static_cast<int8_t*>(p.out) + 2 * static_cast<size_t>(k) * plane + row0;
+        const size_t plane = static_cast<size_t>(p.n_streams) * p.pitch;
+        int8_t* dst = static_cast<int8_t*>(p.out) + 2 * static_cast<size_t>(k) * plane +
+                      static_cast<size_t>(s) * p.pitch + j_cta + sub * kJ;
         store_run(dst, re, n_valid);
         store_run(dst + plane, im, n_valid);
       }
@@ -591,18 +599,20 @@ int launch(const Params& p, dim3 grid, size_t smem, cudaStream_t st) {
 // of ops/fengine_fused.py:fft_plan; `frac` and `phase` both null (no rotation)
 // or both (S, n_out) float32; `gains` (K, 2) float32 or null (float output).
 // `layout` 0: `out` (S, n_out, K, 2), int8 with gains, float32 without;
-// layout 1 (gains needed): `out` (K, 2, S, n_out) int8.  M is a power of two
-// in [32, 8192], taps 1..16, S 1..65535.  Returns cudaGetLastError() after
-// the launch.
+// layout 1 (gains needed): `out` (K, 2, S, pitch) int8, spectra [n_out,
+// pitch) of each row zeros (pitch >= n_out; the wire layout ignores it).  M
+// is a power of two in [32, 8192], taps 1..16, S 1..65535.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* window,
                            const void* split_tw, const void* pass_tw, const void* frac,
                            const void* phase, const void* gains, void* out,
                            int n_streams, int n_hist, int n_chunk, int n_out, int m,
-                           int taps, int pad0, int layout, void* stream) {
+                           int taps, int pad0, int layout, int pitch, void* stream) {
   if (m < 32 || (m & (m - 1)) || m / 2 > kMaxHalf || n_streams < 1 ||
       n_streams > 65535 || n_out < 1 || taps < 1 || taps > kMaxTaps || pad0 < 0 ||
       n_out - 1 + pad0 + taps > n_hist + n_chunk || (layout != 0 && layout != 1) ||
-      (layout == 1 && gains == nullptr) || (frac == nullptr) != (phase == nullptr))
+      (layout == 1 && (gains == nullptr || pitch < n_out)) ||
+      (frac == nullptr) != (phase == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = {};
   p.hist = static_cast<const int8_t*>(hist);
@@ -621,6 +631,7 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
   p.m = m;
   p.taps = taps;
   p.pad0 = pad0;
+  p.pitch = layout == 1 ? pitch : n_out;
   p.groups = m / kCols < kThreads ? m / kCols : kThreads;
   p.subs = kThreads / p.groups;
   // the plan of fft_plan: radix-16 passes, then one of 2^(log2 N mod 4);
@@ -641,15 +652,24 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
   const int lo = phasor_lo(n_half);
   const size_t smem = static_cast<size_t>(p.subs) * kJ *
                       (stride + (frac != nullptr ? n_half / lo + lo : 0)) * sizeof(float2);
-  int tiles = (n_out + p.subs * kJ - 1) / (p.subs * kJ);
+  const int tiles = (n_out + p.subs * kJ - 1) / (p.subs * kJ);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gains == nullptr) return launch<2>(p, dim3(tiles, n_streams), smem, st);
   if (layout == 0) return launch<0>(p, dim3(tiles, n_streams), smem, st);
   // the operand layout: kCluster CTAs gather their tiles' kJ-byte runs into
-  // runs of kCluster * kJ bytes (M >= 2048, one sub-tile a CTA)
+  // runs of kCluster * kJ bytes (M >= 2048, one sub-tile a CTA), which
+  // reach the pitch when it lies within the grid's last cluster
+  const int clustered = (tiles + kCluster - 1) / kCluster * kCluster;
+  if (pitch != n_out && (p.subs > 1 || pitch > clustered * kJ)) {
+    // the pad spectra of every (k, c, stream) row, which the CMAC reads as
+    // zeros
+    const cudaError_t err = cudaMemset2DAsync(static_cast<int8_t*>(out) + n_out, pitch, 0,
+                                              pitch - n_out,
+                                              static_cast<size_t>(m) * n_streams, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (p.subs > 1) return launch<1>(p, dim3(tiles, n_streams), smem, st);
-  tiles = (tiles + kCluster - 1) / kCluster * kCluster;
-  return launch<3>(p, dim3(tiles, n_streams), smem, st);
+  return launch<3>(p, dim3(clustered, n_streams), smem, st);
 }
 
 #ifdef DCS_K1_PHASES

@@ -51,10 +51,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = default_device("cpu" if args.cpu else None)
 
-    # 16-spectra chunks (the JAX example: 8): the CMAC kernel takes
-    # spectra in multiples of 16
-    cfg = get_config("fx4").replace(n_chans=128, spectra_per_chunk=16,
-                                    n_spectra_per_acc=32,
+    cfg = get_config("fx4").replace(n_chans=128, spectra_per_chunk=8,
+                                    n_spectra_per_acc=16,
                                     apply_delay=False)
     a, p, c = cfg.n_ants, cfg.n_pols, cfg.chunk_samples
     n_chunks = 2

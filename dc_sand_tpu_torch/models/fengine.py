@@ -15,9 +15,10 @@ paths run the chain after the coarse delay:
   too).
 
 On a CPU tensor both paths run the plain per-stage ops.  Both return the
-wire layout, or with ``layout="operand"`` the X-engine's operand layout
-``(K, 2, S, B)`` (see :mod:`dc_sand_tpu_torch.ops.fengine_fused`): the
-fused kernel writes it itself, the unfused path permutes its wire spectra
+wire layout, ``layout="wire_flat"`` its ``(..., B, 2K)`` view, or with
+``layout="operand"`` the X-engine's operand layout ``(K, 2, S, pitch)``
+(see :mod:`dc_sand_tpu_torch.ops.fengine_fused`): the fused kernel writes
+it itself, the unfused path permutes its wire spectra
 (:func:`~dc_sand_tpu_torch.ops.xcorr.wire_to_operand`).
 """
 
@@ -60,7 +61,8 @@ def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
              history: Optional[torch.Tensor] = None,
              coarse_delays=None, max_delay: int = 0,
              frac_delay=None, phase=None, gains=None, layout: str = "wire",
-             impl: str = "auto", fused: bool = True) -> torch.Tensor:
+             pitch: Optional[int] = None, impl: str = "auto",
+             fused: bool = True) -> torch.Tensor:
     """Full F-engine on ``x: (..., t)`` int8 real streams.
 
     ``history`` (streaming split-I/O mode): ``x`` is the new chunk as
@@ -70,7 +72,8 @@ def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
 
     Returns the wire format: int8 ``(..., b, k, 2)`` with ``gains``
     (``(k, 2)`` float32 re/im), float32 ``(..., b, k, 2)`` without; with
-    ``layout="operand"`` (gains needed) int8 ``(k, 2, S, b)``.  ``fused``
+    ``layout="operand"`` (gains needed) int8 ``(k, 2, S, pitch)``, zeros
+    past b (``pitch`` default b).  ``fused``
     picks the path (module docstring); ``impl`` goes to the kernel's
     wrapper (K1, or K6 when unfused).
     """
@@ -82,8 +85,12 @@ def f_engine(x: torch.Tensor, window, taps: int, n_chans: int, *,
     if fused:
         return fengine_fused(x, window, taps, n_chans, history=history,
                              frac_delay=frac_delay, phase=phase, gains=gains,
-                             layout=layout, impl=impl)
+                             layout=layout, pitch=pitch, impl=impl)
     fir = pfb_fir(x, window, taps, 2 * n_chans, history=history, impl=impl)
     wire = fengine_tail(fir, n_chans, frac_delay=frac_delay, phase=phase,
                         gains=gains)
-    return wire_to_operand(wire) if layout == "operand" else wire
+    if layout == "operand":
+        return wire_to_operand(wire, pitch)
+    if layout == "wire_flat":
+        return wire.reshape(wire.shape[:-2] + (2 * n_chans,))
+    return wire

@@ -14,13 +14,15 @@ carry, and returns the chunk's outputs.  Per chunk the F-engine (the fused
 kernel K1, or with ``fused=False`` the standalone FIR kernel K6 and
 PyTorch ops, the JAX package's ``impl="pallas"`` path) writes in fengine
 and beam mode wire spectra ``(A*P, B, K, 2)``, int8, or float32 when the
-config does not requantise (fengine mode only), and in fx mode the
-X-engine's operand layout ``(K, 2, A*P, B)`` int8.  Then
+config does not requantise (the float kernel K1-float), and in fx mode the
+X-engine's operand layout ``(K, 2, A*P, Bp)`` int8, its rows padded with
+zero spectra to the CMAC's ``Bp`` (:func:`~dc_sand_tpu_torch.ops.xcorr.
+cmac_pitch`, B rounded up to 16), so that any B runs.  Then
 
 * fengine mode: returns ``{"spectra": (A, P, B, K, 2)}`` (a free view),
   ``acc`` is a rank-1 dummy, as in the JAX package;
 * fx mode: the packed CMAC (K2/K3) into ``acc`` straight from the
-  F-engine's operand, viewed ``(K, 2*A*P, B)`` (on one device the
+  F-engine's operand, viewed ``(K, 2*A*P, Bp)`` (on one device the
   corner-turn's all-to-all is an identity, and the fused path has no
   glue between the two kernels; the unfused one permutes its wire
   spectra); returns ``{}``;
@@ -29,6 +31,10 @@ X-engine's operand layout ``(K, 2, A*P, B)`` int8.  Then
   2)}`` (float32, or int8 when ``cfg.beam_quant_scale > 0``), with
   ``cfg.incoherent_beam`` ``"incoherent": (P, B, K)`` float32 and with
   ``cfg.beam_stokes`` ``"stokes": (nb, 4, B, K)`` from the float beams.
+  Without requantisation the float spectra go through the float beam
+  product (:func:`~dc_sand_tpu_torch.ops.beamform.beamform_torch`, four
+  real float32 contractions), which the JAX package too runs outside any
+  Pallas kernel.
   ``acc`` is a rank-1 dummy, as in the JAX package.
 
 With ``mesh`` (:mod:`dc_sand_tpu_torch.parallel`) the step runs SPMD over
@@ -72,7 +78,8 @@ from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.beamform import beamform, quantize_beams
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.stokes import stokes
-from dc_sand_tpu_torch.ops.xcorr import acc_shape, xcorr_accumulate_a2
+from dc_sand_tpu_torch.ops.xcorr import (acc_shape, cmac_pitch,
+                                         xcorr_accumulate_a2)
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS,
                                         corner_turn_all_to_all, psum,
                                         psum_scatter, ring_tails)
@@ -141,7 +148,7 @@ def check_mode(cfg: ChainConfig, mesh=None) -> None:
             raise ValueError(
                 f"beam_parallel needs n_beams ({cfg.n_beams}) divisible "
                 f"by the fx-axis size ({n_f})")
-    if not cfg.apply_requant and mode != "fengine":
+    if not cfg.apply_requant and mode == "fx":
         raise NotImplementedError(f"{mode} mode without requantisation is "
                                   "not ported")
     if cfg.time_shards > 1 and n_t != cfg.time_shards:
@@ -174,16 +181,17 @@ def _window(window, cfg: ChainConfig, device) -> torch.Tensor:
 def _fengine(cfg: ChainConfig, w, chunk, history, frac, phase, gains,
              fused: bool) -> torch.Tensor:
     """Wire spectra ``(S, B, K, 2)``, or in fx mode the operand layout
-    ``(K, 2, S, B)``."""
+    ``(K, 2, S, Bp)``, zeros past B."""
     s_l, b_l = chunk.shape[0], chunk.shape[1]
+    fx = mode_for(cfg) == "fx"
     return f_engine(chunk, w, cfg.n_taps, cfg.n_chans, history=history,
                     frac_delay=frac.reshape(s_l, b_l)
                     if cfg.apply_delay else None,
                     phase=phase.reshape(s_l, b_l)
                     if cfg.apply_delay else None,
                     gains=gains if cfg.apply_requant else None,
-                    layout="operand" if mode_for(cfg) == "fx" else "wire",
-                    fused=fused)
+                    layout="operand" if fx else "wire",
+                    pitch=cmac_pitch(b_l) if fx else None, fused=fused)
 
 
 def _carry(history, chunk) -> None:
@@ -297,7 +305,8 @@ def _make_one_step(cfg: ChainConfig, window, device: torch.device,
             return {"spectra": q.reshape(cfg.n_ants, cfg.n_pols, b_l,
                                          cfg.n_chans, 2)}
         if mode == "fx":
-            xcorr_accumulate_a2(acc, q.reshape(cfg.n_chans, -1, b_l),
+            xcorr_accumulate_a2(acc, q.reshape(cfg.n_chans, -1,
+                                               q.shape[-1]),
                                 keep=0 if reset else 1)
             return {}
         beams, inc = beamform(

@@ -7,5 +7,7 @@ from .fft import channelize  # noqa: F401
 from .phase import fine_delay_fringe  # noqa: F401
 from .quant import requantize, dequantize  # noqa: F401
 from .stokes import stokes  # noqa: F401
-from .xcorr import (acc_shape, extract_vis, xcorr_accumulate,  # noqa: F401
-                    xcorr_accumulate_a2, xcorr_full, extract_baselines)
+from .xcorr import (acc_shape, extract_vis, xcorr,  # noqa: F401
+                    xcorr_accumulate, xcorr_accumulate_a2, xcorr_full,
+                    extract_baselines)
+from .beamform import beamform, incoherent_sum  # noqa: F401

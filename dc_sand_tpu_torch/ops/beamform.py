@@ -32,7 +32,8 @@ import torch
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 
-__all__ = ["beamform", "beamform_torch", "incoherent_sum_torch",
+__all__ = ["beamform", "beamform_torch", "incoherent_sum",
+           "incoherent_sum_torch",
            "quantize_beams", "split3", "interleaved_weights",
            "beamform_split_torch"]
 
@@ -113,6 +114,17 @@ def incoherent_sum_torch(q: torch.Tensor) -> torch.Tensor:
     return (xr * xr + xi * xi).sum(dim=0)
 
 
+def incoherent_sum(x: torch.Tensor) -> torch.Tensor:
+    """``sum_ant |x|^2`` per (pol, b, k), float32: ``x (ant, pol, b, k,
+    2)`` int8 or float32 wire spectra, or complex ``(ant, pol, b, k)``
+    (the JAX package's ``ops.incoherent_sum``).  The beam kernel forms
+    the same sum beside the beams (:func:`beamform` with ``incoherent``);
+    alone it is :func:`incoherent_sum_torch`."""
+    if x.is_complex():
+        x = torch.view_as_real(x)
+    return incoherent_sum_torch(x)
+
+
 def beamform(q: torch.Tensor, weights: torch.Tensor, *,
              quant_scale: float = 0.0, incoherent: bool = False,
              impl: str = "auto") -> Tuple[torch.Tensor,
@@ -128,7 +140,11 @@ def beamform(q: torch.Tensor, weights: torch.Tensor, *,
 
     ``impl="auto"`` launches the CUDA kernel on CUDA tensors (each launch
     adds one to ``beamform.launches``) and runs the plain versions on CPU
-    tensors; ``"torch"`` names the plain versions on either device.
+    tensors; ``"torch"`` names the plain versions on either device.  Float
+    spectra (beam mode without requantisation) take the float product
+    :func:`beamform_torch` on either device and launch nothing: the JAX
+    package routes only int8 spectra to its Pallas kernel
+    (``dc_sand_tpu/ops/beamform.py:381-383``).
     """
     if q.dim() != 5 or q.shape[-1] != 2:
         raise ValueError(f"q must be (a, p, b, k, 2), got {tuple(q.shape)}")
@@ -139,7 +155,7 @@ def beamform(q: torch.Tensor, weights: torch.Tensor, *,
                          f"{tuple(weights.shape)}")
     if not quant_scale >= 0.0:
         raise ValueError(f"quant_scale must be >= 0, got {quant_scale}")
-    if resolve_impl(impl, q) == "torch":
+    if resolve_impl(impl, q) == "torch" or q.is_floating_point():
         y = beamform_torch(q, weights)
         if quant_scale:
             y = quantize_beams(y, quant_scale)

@@ -12,18 +12,23 @@ Input conventions: those of :mod:`dc_sand_tpu_torch.ops.pfb` (split I/O
 with ``history`` ``(..., taps_pad, M)`` and the chunk's frames ``(..., B,
 M)``, or one stream ``(..., T)``).
 
-Output layouts, channels in natural order in both:
+Output layouts, channels in natural order in each:
 
 * ``layout="wire"`` (the default): ``(..., B, K, 2)``, int8 with
   ``gains`` and float32 without (the JAX package's float-output mode,
   config ``pfb1k``).  Fengine mode, beam mode and the bench read it;
-* ``layout="operand"`` (int8 only): ``(K, 2, S, B)`` with ``out[k, c, s,
-  b] = wire[s, b, k, c]`` (S the leading dims flattened), the X-engine's
-  stacked operand ``a2 = [Ar; Ai]`` of :mod:`dc_sand_tpu_torch.ops.xcorr`
-  viewed as ``(K, 2S, B)``.  The fx path feeds it to the CMAC as it is, or
-  on a mesh to the corner-turn's all-to-all, with no permute between: the
-  counterpart of the JAX package's ``layout="native"``.  The plain version
-  is the wire output through :func:`~dc_sand_tpu_torch.ops.xcorr.wire_to_operand`.
+* ``layout="wire_flat"``: the same bytes viewed ``(..., B, 2K)``, re/im
+  pairs channel-major (``dc_sand_tpu/ops/fengine_fused.py:754``);
+* ``layout="operand"`` (int8 only): ``(K, 2, S, pitch)`` with ``out[k, c,
+  s, b] = wire[s, b, k, c]`` for ``b < B`` and zeros past B (S the leading
+  dims flattened; ``pitch`` >= B, default B), the X-engine's stacked
+  operand ``a2 = [Ar; Ai]`` of :mod:`dc_sand_tpu_torch.ops.xcorr` viewed
+  as ``(K, 2S, pitch)``.  The fx path asks for the CMAC's pitch
+  (:func:`~dc_sand_tpu_torch.ops.xcorr.cmac_pitch`, B rounded up to 16)
+  and feeds it to the CMAC as it is, or on a mesh to the corner-turn's
+  all-to-all, with no permute or pad between: the counterpart of the JAX
+  package's ``layout="native"``.  The plain version is the wire output
+  through :func:`~dc_sand_tpu_torch.ops.xcorr.wire_to_operand`.
 
 The kernel's FFT is a plan of Stockham passes (:func:`fft_plan`) whose
 twiddle tables are made here in float64; :func:`fft_plan_torch` runs the
@@ -51,7 +56,7 @@ __all__ = ["fengine_fused", "fengine_fused_torch", "fengine_tail",
            "fft_plan", "fft_plan_torch", "MAX_FFT_SIZE", "LAYOUTS"]
 
 MAX_FFT_SIZE = 8192   # the kernel holds its spectra's M/2 <= 4096 values
-LAYOUTS = ("wire", "operand")
+LAYOUTS = ("wire", "wire_flat", "operand")
 
 
 def _per_spectrum(v, lead, b_out, device):
@@ -64,15 +69,16 @@ def _per_spectrum(v, lead, b_out, device):
 
 def fengine_fused(x: torch.Tensor, window, taps: int, n_chans: int, *,
                   history: torch.Tensor = None, frac_delay=None, phase=None,
-                  gains=None, layout: str = "wire",
+                  gains=None, layout: str = "wire", pitch: int = None,
                   impl: str = "auto") -> torch.Tensor:
     """Fused F-engine; see the module docstring for the conventions.
 
     ``frac_delay``/``phase``: per spectrum, broadcastable to ``(..., B)``
     (no rotation when both are None).  ``gains``: ``(K, 2)`` float32
     re/im.  Returns int8 ``(..., B, K, 2)`` with gains, float32 ``(...,
-    B, K, 2)`` spectra without, or with ``layout="operand"`` (gains
-    needed) int8 ``(K, 2, S, B)``.
+    B, K, 2)`` spectra without, ``(..., B, 2K)`` with
+    ``layout="wire_flat"``, or with ``layout="operand"`` (gains needed)
+    int8 ``(K, 2, S, pitch)``, zeros past B.
 
     ``impl``: ``"auto"`` launches the kernel on CUDA tensors and runs the
     plain version on CPU tensors; ``"torch"`` names the plain version on
@@ -87,9 +93,10 @@ def fengine_fused(x: torch.Tensor, window, taps: int, n_chans: int, *,
     if resolve_impl(impl, x) == "torch":
         return fengine_fused_torch(x, window, taps, n_chans, history=history,
                                    frac_delay=frac_delay, phase=phase,
-                                   gains=gains, layout=layout)
+                                   gains=gains, layout=layout, pitch=pitch)
     m = 2 * n_chans
     lead, fa, fb, pad0, b_out = frames_of(x, history, taps, m)
+    pitch = _pitch(pitch, b_out, layout)
     dev = x.device
     if m < 32 or m & (m - 1) or m > MAX_FFT_SIZE:
         raise ValueError(f"the F-engine kernel takes M = 2*n_chans a power "
@@ -126,7 +133,7 @@ def fengine_fused(x: torch.Tensor, window, taps: int, n_chans: int, *,
                            lead, b_out, dev)
         ph = _per_spectrum(0.0 if phase is None else phase, lead, b_out, dev)
     operand = layout == "operand"
-    shape = (n_chans, 2, s, b_out) if operand else (s, b_out, n_chans, 2)
+    shape = (n_chans, 2, s, pitch) if operand else (s, b_out, n_chans, 2)
     out = torch.empty(shape, device=dev,
                       dtype=torch.float32 if g is None else torch.int8)
     split_tw, pass_tw = _tables(m, dev)
@@ -138,7 +145,8 @@ def fengine_fused(x: torch.Tensor, window, taps: int, n_chans: int, *,
             None if ph is None else ph.data_ptr(),
             None if g is None else g.data_ptr(), out.data_ptr(), s,
             fa.shape[1], 0 if fb is None else fb.shape[1], b_out, m, taps,
-            pad0, int(operand), torch.cuda.current_stream(dev).cuda_stream)
+            pad0, int(operand), pitch,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dcs_fengine")
     if g is None:
         fengine_fused.float_launches += 1
@@ -146,11 +154,29 @@ def fengine_fused(x: torch.Tensor, window, taps: int, n_chans: int, *,
         fengine_fused.launches += 1
     if operand:
         return out
-    return out.reshape(tuple(lead) + (b_out, n_chans, 2))
+    return _wire(out, lead, layout)
 
 
 fengine_fused.launches = 0
 fengine_fused.float_launches = 0
+
+
+def _pitch(pitch, b_out: int, layout: str) -> int:
+    """The operand layout's spectra a row (default ``b_out``)."""
+    if pitch is None:
+        return b_out
+    if layout != "operand" or pitch < b_out:
+        raise ValueError(f"pitch takes the operand layout and at least its "
+                         f"{b_out} spectra, got {pitch} ({layout})")
+    return int(pitch)
+
+
+def _wire(res: torch.Tensor, lead, layout: str) -> torch.Tensor:
+    """Wire spectra ``(S, B, K, 2)`` with the leading dims ``lead`` back,
+    ``(..., B, K, 2)``, or viewed ``(..., B, 2K)`` for ``"wire_flat"``."""
+    b, k = res.shape[-3], res.shape[-2]
+    tail = (b, 2 * k) if layout == "wire_flat" else (b, k, 2)
+    return res.reshape(tuple(lead) + tail)
 
 
 def fft_plan(n: int) -> tuple:
@@ -244,16 +270,22 @@ def fft_plan_torch(y: torch.Tensor) -> torch.Tensor:
 
 def fengine_fused_torch(x: torch.Tensor, window, taps: int, n_chans: int, *,
                         history: torch.Tensor = None, frac_delay=None,
-                        phase=None, gains=None,
-                        layout: str = "wire") -> torch.Tensor:
+                        phase=None, gains=None, layout: str = "wire",
+                        pitch: int = None) -> torch.Tensor:
     """Plain version of the fused F-engine: the plain FIR, then
     :func:`fengine_tail`, as separate float32 PyTorch ops on the same
-    conventions; ``layout="operand"`` permutes the wire result."""
+    conventions; ``layout="operand"`` permutes the wire result into rows of
+    ``pitch`` spectra, zeros past B."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     fir = pfb_fir(x, window, taps, 2 * n_chans, history=history,
                   impl="torch")
     res = fengine_tail(fir, n_chans, frac_delay=frac_delay, phase=phase,
                        gains=gains)
-    return wire_to_operand(res) if layout == "operand" else res
+    pitch = _pitch(pitch, res.shape[-3], layout)
+    if layout == "operand":
+        return wire_to_operand(res, pitch)
+    return _wire(res, res.shape[:-3], layout)
 
 
 def fengine_tail(fir: torch.Tensor, n_chans: int, *, frac_delay=None,

@@ -31,10 +31,10 @@ from dc_sand_tpu_torch.golden.chain import baseline_pairs
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 
-__all__ = ["acc_shape", "xcorr_full", "extract_baselines", "extract_vis",
-           "xcorr_accumulate", "xcorr_accumulate_a2",
+__all__ = ["acc_shape", "xcorr", "xcorr_full", "extract_baselines",
+           "extract_vis", "xcorr_accumulate", "xcorr_accumulate_a2",
            "xcorr_accumulate_a2_torch", "wire_to_a2", "wire_to_operand",
-           "cmac_units", "cmac_plan_torch"]
+           "cmac_pitch", "cmac_units", "cmac_plan_torch"]
 
 # channels per block of the plain version: bounds its exact int64/float64
 # operand copy to about 512 MB
@@ -43,6 +43,16 @@ _PLAIN_BLOCK_ELEMS = 1 << 26
 # csrc/cmac.cu: kT (rows and columns of a work unit), kBK (spectra a stage)
 CMAC_TILE = 128
 CMAC_STAGE = 128
+# csrc/cmac.cu: the operand's spectra a row, a multiple of this (its tensor
+# map's 16-byte row stride)
+CMAC_ALIGN = 16
+
+
+def cmac_pitch(n_b: int) -> int:
+    """Spectra a row of the operand the CMAC kernel takes for ``n_b``
+    spectra: ``n_b`` rounded up to :data:`CMAC_ALIGN`.  Zero spectra in the
+    pad add nothing to vr or vi, so the padded operand's sums are exact."""
+    return -(-n_b // CMAC_ALIGN) * CMAC_ALIGN
 
 
 def acc_shape(n_ants: int, n_pols: int, n_chans: int) -> tuple:
@@ -69,15 +79,23 @@ def _pack_mask(ap: int, device) -> torch.Tensor:
     return idx[:, None] <= idx[None, :]
 
 
-def wire_to_operand(q: torch.Tensor) -> torch.Tensor:
+def wire_to_operand(q: torch.Tensor, pitch: int = None) -> torch.Tensor:
     """Corner-turn glue: wire spectra ``(..., B, K, 2)`` -> the operand
-    layout ``(K, 2, S, B)`` (S the leading dims flattened), ``out[k, c,
-    s, b] = q[s, b, k, c]``.  One ``permute(...).contiguous()``: a full
-    read and write of the spectra, the moveaxis + concat of
+    layout ``(K, 2, S, pitch)`` (S the leading dims flattened), ``out[k, c,
+    s, b] = q[s, b, k, c]`` for ``b < B`` and zeros past B (``pitch``
+    >= B, default B).  One ``permute(...).contiguous()``: a full read and
+    write of the spectra, the moveaxis + concat of
     ``dc_sand_tpu/ops/xcorr.py:219-223``.  The fused F-engine writes this
     layout itself (``fengine_fused(..., layout="operand")``)."""
     b, k = q.shape[-3], q.shape[-2]
-    return q.reshape(-1, b, k, 2).permute(2, 3, 0, 1).contiguous()
+    t = q.reshape(-1, b, k, 2).permute(2, 3, 0, 1)
+    if pitch is None or pitch == b:
+        return t.contiguous()
+    if pitch < b:
+        raise ValueError(f"pitch {pitch} is below the {b} spectra")
+    out = q.new_zeros(t.shape[:-1] + (pitch,))
+    out[..., :b] = t
+    return out
 
 
 def wire_to_a2(q: torch.Tensor) -> torch.Tensor:
@@ -129,6 +147,18 @@ def extract_vis(acc: torch.Tensor, n_ants: int, n_pols: int) -> torch.Tensor:
     return extract_baselines(full, n_ants, n_pols)
 
 
+def xcorr(q: torch.Tensor) -> torch.Tensor:
+    """Channel-major quantised spectra -> integrated visibilities, in one
+    shot: ``q: (k, ant, pol, b, 2)`` int8 -> ``(n_bl, pol, pol, k, 2)``
+    int32, :func:`xcorr_accumulate` into a fresh packed plane then
+    :func:`extract_vis`.  Headroom: |V| <= 2 * 127**2 * b, so keep ``b``
+    below ~66k spectra."""
+    k, n_ants, n_pols = q.shape[:3]
+    acc = torch.empty(acc_shape(n_ants, n_pols, k), dtype=torch.int32,
+                      device=q.device)
+    return extract_vis(xcorr_accumulate(acc, q, keep=0), n_ants, n_pols)
+
+
 def xcorr_accumulate(acc: torch.Tensor, q: torch.Tensor, keep: int = 1,
                      impl: str = "auto") -> torch.Tensor:
     """One chunk of integration into the packed plane, in place, from
@@ -149,7 +179,9 @@ def xcorr_accumulate_a2(acc: torch.Tensor, a2: torch.Tensor, keep: int = 1,
     ``xcorr_accumulate_native``).  ``impl="auto"`` launches the CUDA
     kernel on CUDA tensors (each launch adds one to
     ``xcorr_accumulate_a2.launches``) and runs the plain version on CPU
-    tensors.
+    tensors.  The kernel reads rows of a multiple of 16 spectra: any other
+    B is copied first into a zeroed operand of :func:`cmac_pitch` spectra
+    a row (the fx step's operand comes padded from the F-engine).
     """
     if keep not in (0, 1):
         raise ValueError(f"keep must be 0 or 1, got {keep!r}")
@@ -165,12 +197,15 @@ def xcorr_accumulate_a2(acc: torch.Tensor, a2: torch.Tensor, keep: int = 1,
         raise ValueError(f"acc must be contiguous int32 ({n_chans}, {ap}, "
                          f"{ap}) on {dev}, got {acc.dtype} "
                          f"{tuple(acc.shape)} on {acc.device}")
-    if n_b % 16 or a2.data_ptr() % 16:
-        raise ValueError(f"the CMAC kernel needs B % 16 == 0 and a 16-byte "
-                         f"aligned operand, got B={n_b}")
-    if not 1 <= n_chans <= 65535:
-        raise ValueError(f"the CMAC kernel takes 1..65535 channels, "
-                         f"got {n_chans}")
+    if a2.data_ptr() % 16:
+        raise ValueError("the CMAC kernel needs a 16-byte aligned operand")
+    if not 1 <= n_chans <= 65535 or n_b < 1:
+        raise ValueError(f"the CMAC kernel takes 1..65535 channels and B >= "
+                         f"1, got {n_chans} channels, B={n_b}")
+    if n_b % CMAC_ALIGN:
+        padded = a2.new_zeros((n_chans, tap, cmac_pitch(n_b)))
+        padded[..., :n_b] = a2
+        a2, n_b = padded, padded.shape[-1]
     with torch.cuda.device(dev):   # a launch needs its stream's device
         err = _build.library().dcs_cmac(
             a2.data_ptr(), acc.data_ptr(), n_chans, ap, n_b, int(keep),

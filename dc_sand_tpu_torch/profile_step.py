@@ -31,12 +31,14 @@ over one window of chunks, then prints:
    for beam64) is paid, and that copy of one chunk alone.
 
 The traces are written to ``DIR/<run>_trace.json`` (default
-``build/profile_step``).
+``build/profile_step``).  :func:`chrome_trace` is the profiler context the
+bench entry's ``--profile DIR`` uses too.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from collections import defaultdict
@@ -54,7 +56,8 @@ from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
 
 __all__ = ["noise_int8", "production_runner", "production_delay_model",
-           "device_busy_us", "overlap_us", "main", "BEAM_CHUNKS"]
+           "device_busy_us", "overlap_us", "chrome_trace", "main",
+           "BEAM_CHUNKS"]
 
 # beam mode has no dump cadence: its window is a fixed count of chunks
 BEAM_CHUNKS = 8
@@ -169,16 +172,27 @@ def overlap_us(a: list, b: list) -> float:
     return total
 
 
+@contextlib.contextmanager
+def chrome_trace(path, cuda: bool = True):
+    """``torch.profiler`` over the block (CPU activity, and the card's with
+    ``cuda``); its Chrome trace is written to ``path`` (directories made)
+    when the block ends."""
+    from torch.profiler import ProfilerActivity, profile
+    path = Path(path)
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        yield prof
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+
+
 def _trace(name: str, what: str, n: int, fn, out: Path) -> list:
     """``fn`` (``n`` chunks) under the profiler: prints the wall, the
     device's busy time and idle share and the device time per kernel or
     copy name; returns the trace's events."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_ms = _timed(fn)
     trace = out / f"{name}_trace.json"
-    prof.export_chrome_trace(str(trace))
+    with chrome_trace(trace):
+        wall_ms = _timed(fn)
     events = json.loads(trace.read_text())["traceEvents"]
     busy_ms = device_busy_us(events) / 1e3
     per_name = defaultdict(lambda: [0.0, 0])

@@ -173,11 +173,13 @@ def test_verify_beam64_scaled_on_cpu():
     (dict(beam_stokes=True, n_pols=1), ValueError, "dual-pol"),
     (dict(beam_parallel=True), ValueError, "requires a mesh"),
     (dict(time_shards=2), ValueError, "SP mode needs a mesh"),
-    (dict(apply_requant=False), NotImplementedError, "requantisation")])
+    (dict(apply_requant=False, n_beams=0, run_xengine=True),
+     NotImplementedError, "requantisation")])
 def test_modes_not_ported_raise(change, exc, match):
     """What the one-device step refuses: the JAX step's validation errors
     (Stokes of single-pol beams; beam-parallel and time-sharded modes
-    without a mesh) and beam mode without requantisation, not ported."""
+    without a mesh) and fx mode without requantisation, not ported (beam
+    mode without it runs: ``tests/test_torch_surface.py``)."""
     cfg = _beam_cfg().replace(**change)
     w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
     with pytest.raises(exc, match=match):

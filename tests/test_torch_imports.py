@@ -39,13 +39,16 @@ print(" ".join(names))
 """
 
 # the bench layer and its entry, the checkpoint, the command line, the
-# ingest and its benches and examples, imported with the rest
+# ingest and its benches, the examples and the dry run, imported with the
+# rest
 BENCH_MODULES = ("bench", "bench.__main__", "bench.harness", "bench.probes",
                  "bench.kernels", "bench.pipelines", "bench.membench",
                  "bench.collectives", "bench.scaling", "bench.regress",
                  "runtime.checkpoint", "cli", "runtime.ingest",
                  "bench.ingest_bench", "examples", "examples.spead_loopback",
-                 "examples.udp_observation")
+                 "examples.udp_observation", "examples.fx_observation",
+                 "examples.observe", "examples.beams",
+                 "examples.beam_pointing", "dryrun", "profile_step")
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -213,12 +216,20 @@ def test_cmac_kernel_bitwise_equals_plain(cuda, k, ap, b, keep):
 
 @pytest.mark.cuda
 def test_cmac_kernel_refuses_what_it_cannot_take(cuda):
-    """B % 16 != 0 and an operand that is not 16-byte aligned raise before
-    a launch; a misaligned accumulator is taken (element-wise stores)."""
+    """B % 16 != 0 runs (the wrapper pads the operand with zero spectra),
+    bitwise equal to the plain version and in one launch; an operand that
+    is not 16-byte aligned raises before a launch; a misaligned
+    accumulator is taken (element-wise stores)."""
     acc = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="B % 16"):
-        xcorr_accumulate_a2(acc, torch.zeros((2, 16, 24), dtype=torch.int8,
-                                             device=cuda), impl="cuda")
+    for b in (24, 8):
+        ragged = torch.randint(-127, 128, (2, 16, b), dtype=torch.int8,
+                               device=cuda)
+        launches = xcorr_accumulate_a2.launches
+        got = xcorr_accumulate_a2(acc.clone(), ragged, keep=0, impl="cuda")
+        assert xcorr_accumulate_a2.launches == launches + 1
+        want = xcorr_accumulate_a2(acc.clone(), ragged, keep=0,
+                                   impl="torch")
+        assert torch.equal(got, want)
     flat = torch.ones(2 * 16 * 32 + 1, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         xcorr_accumulate_a2(acc, flat[1:].view(2, 16, 32), impl="cuda")

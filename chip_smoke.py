@@ -188,6 +188,38 @@ single-process surface:
 31. the bench entry's ``fengine`` target with ``--profile DIR``: the
     Chrome trace exists and names K1's launches.
 
+Phases 32-34 drive the multi-process mode: the script runs itself again
+(``--rank``) as two ``torch.distributed`` ranks on the card
+(``dc_sand_tpu_torch/parallel/launch.py``: ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` 127.0.0.1 and a free ``MASTER_PORT``), two fx shards a
+rank, each rank feeding its own antennas (``local_antenna_range``); the
+corner-turn (K7b), the halo (K7a) and the beam sums reach the other
+rank's buffers through CUDA IPC mappings.  A rank checks its part and
+prints ``RESULT`` lines; a rank's failure fails the run:
+
+32. fx64 at full width across the ranks, phase 6's chunks: each rank's
+    dump sha256 phase 6's; per rank K1 8, CMAC 8, all-to-all 4 (one a
+    chunk), ring 0; ``run()`` ms a chunk beside phase 16's, the gloo
+    barriers' host ms a chunk, and a traced run's device busy time, whose
+    sum over the ranks gives the idle share; then K7b across the ranks at
+    phase 14's corner-turn shape bitwise its plain version over gloo, one
+    launch a call a rank, timed beside it and ``copy_`` into the peers'
+    mappings;
+33. beam64 across the ranks, replicated and beam-parallel, phase 9's
+    chunks: >= 100 dB from one card's beams (each rank runs that
+    reference), the beam-parallel share equal to the replicated beams';
+    K7a across the ranks on a (time 2, fx 2) mesh (the time ring crosses
+    them) at phase 15's halo shape, bitwise its plain version, timed;
+    fx64 in SP mode with the time axis within each rank: dump sha256
+    phase 6's, ring 4 and all-to-all 4 a rank;
+34. the per-rank checkpoint at fx64: 2 chunks, each rank saves its own
+    file; new processes load them and run chunks 3-4 to phase 6's sha256;
+    then ``cli verify fx4 --distributed --mesh 4`` (> 50 dB on every
+    rank) and ``cli bench collectives --distributed`` in those processes.
+
+Two processes on one card time-slice it: their times are not a scaling
+measurement.
+
 Each kernel's time is a CUDA-event mean over back-to-back launches
 (``dc_sand_tpu_torch/bench/harness.py:time_cuda``; in phase 14 the median
 of five such means taken in turns with the yardstick); ``bound_ms`` is the
@@ -204,9 +236,11 @@ The second-to-last line is ``{"kernels": [...]}``: launches from the
 main-path phases (6 for K1 in the operand layout and the CMAC, 9 for K1
 in the wire layout and the beam kernel, 12's fused pfb1k for K1-float, 13
 for K6, 16 and 17 together for the ring and the all-to-all in
-corner-turn mode, 20's probes target for P1 and P2), times from phases
-2, 3, 7, 10, 11, 14, 15 and 19 (the probes with the L2 flushed); the last
-is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+corner-turn mode, 20's probes target for P1 and P2, and for
+``all_to_all_ipc`` and ``ring_ipc``, the same kernels across processes,
+both ranks' launches in phases 32 and 33), times from phases 2, 3, 7,
+10, 11, 14, 15, 19, 32 and 33 (the probes with the L2 flushed; the IPC
+rows rank 0's); the last is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when no CUDA device is present.
 """
 
@@ -239,6 +273,7 @@ FLOAT_SNR_DB = 100.0       # two float32 F-engines, FFTs in other orders
 UNFUSED_SNR_DB = 60.0      # fused vs unfused fx64 dump: 1-LSB flips
 CMAC_SPECTRA = (2048, 1024, 256)   # phase 3's timings: fx64, SP, the bench
 INGEST_WORKERS = 4         # phase 24: one assembler a NIC queue, 16 ants each
+RANKS = 2                  # phases 32-34: processes on the card, 2 shards each
 RAGGED_SPECTRA = (1, 8, 24, 2040)  # phase 26: B not a multiple of 16
 
 
@@ -274,6 +309,406 @@ def _snr_db(ref, got) -> float:
     """10 log10(sum |ref|^2 / sum |ref - got|^2), in float64 on the card."""
     ref, got = ref.double(), got.double()
     return float(10 * ((ref * ref).sum() / ((ref - got) ** 2).sum()).log10())
+
+
+def _wrappers() -> dict:
+    """Each kernel's wrapper, by the name of its launch counter."""
+    from dc_sand_tpu_torch.bench.probes import read_probe, write_probe
+    from dc_sand_tpu_torch.ops.beamform import beamform
+    from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+    from dc_sand_tpu_torch.ops.pfb import pfb_fir
+    from dc_sand_tpu_torch.ops.xcorr import xcorr_accumulate_a2
+    from dc_sand_tpu_torch.parallel import all_to_all, ring_permute_right
+    return {"fengine": (fengine_fused, "launches"),
+            "fengine_float": (fengine_fused, "float_launches"),
+            "pfb": (pfb_fir, "launches"),
+            "cmac": (xcorr_accumulate_a2, "launches"),
+            "beamform": (beamform, "launches"),
+            "all_to_all": (all_to_all, "launches"),
+            "ring": (ring_permute_right, "launches"),
+            "read_probe": (read_probe, "launches"),
+            "write_probe": (write_probe, "launches")}
+
+
+def _zero_counts() -> None:
+    for fn, attr in _wrappers().values():
+        setattr(fn, attr, 0)
+
+
+def _current_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _wrappers().items()}
+
+
+def _counts(**want) -> dict:
+    """The launch counters, checked against ``want`` (every counter not
+    named must read 0)."""
+    got = _current_counts()
+    if got != {k: want.get(k, 0) for k in got}:
+        raise RuntimeError(f"launch counts {got}, want {want} and 0 for the "
+                           "others")
+    return got
+
+
+def _rank_result(phase, **values) -> None:
+    """One rank's numbers for the parent: a ``RESULT`` JSON line."""
+    print("RESULT " + json.dumps({"phase": phase, **values}), flush=True)
+
+
+def _fx64_mesh_run(dev, mesh, digest6, label, trace=None) -> dict:
+    """fx64 at production cadence over a multi-process ``mesh``, this
+    rank's antennas of phase 6's chunks: the dump must be phase 6's; the
+    launch counts, ``run()``'s steady ms a chunk and the barriers' host ms
+    a chunk; with ``trace`` (a path) a third run under ``torch.profiler``
+    gives this rank's device intervals and that run's host window, both
+    in microseconds of the host's clock."""
+    import torch
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.parallel import SharedBuffers, local_antenna_range
+    from dc_sand_tpu_torch.profile_step import production_runner
+    n_t = mesh.shape["time"]
+    cfg = get_config("fx64").replace(time_shards=n_t)
+    a0, a1 = local_antenna_range(cfg.n_ants)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(FX64_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, mesh=mesh)
+    n = len(chunks)
+
+    def source(i):
+        return chunks[i % n][a0:a1]
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    dumps, _ = runner.run(source, n)
+    torch.cuda.synchronize()
+    local = len(mesh.local_shards)
+    launches = _counts(fengine=n * local, cmac=n * local, all_to_all=n,
+                       ring=n if n_t > 1 else 0)
+    if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
+        raise RuntimeError(f"{label}: the dump is not phase 6's")
+    b0, c0 = SharedBuffers.barrier_s, SharedBuffers.barriers
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(source, n)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / n * 1e3
+    barrier_ms = (SharedBuffers.barrier_s - b0) / n * 1e3
+    barriers = (SharedBuffers.barriers - c0) / n
+    print(f"[{label}] rank {mesh.rank}: {n} chunks of its antennas "
+          f"[{a0}, {a1}) -> 1 dump, sha256 phase 6's; launches {launches}; "
+          f"steady run() per chunk {step_ms:.3f} ms, of it {barriers:.1f} "
+          f"gloo barriers {barrier_ms:.3f} ms host time", flush=True)
+    out = {"launches": launches, "step_ms": step_ms,
+           "barrier_ms": barrier_ms, "barriers": barriers}
+    if trace is not None:
+        from dc_sand_tpu_torch.profile_step import DEVICE_CATS, chrome_trace
+        with chrome_trace(trace):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runner.run(source, n)
+            torch.cuda.synchronize()
+            out["window_us"] = (t0 * 1e6, time.time() * 1e6)
+        doc = json.loads(Path(trace).read_text())
+        base = doc.get("baseTimeNanoseconds", 0) / 1e3
+        out["spans_us"] = [(base + e["ts"], base + e["ts"] + e["dur"])
+                           for e in doc["traceEvents"]
+                           if e.get("cat") in DEVICE_CATS and "dur" in e]
+    return out
+
+
+def _idle_share(runs) -> tuple:
+    """``(idle share, busy ms, wall ms)`` of the card over the ranks'
+    traced runs: one minus the union of every rank's device intervals
+    over the span of their host windows; the share is None when the
+    traces' clocks do not line up with the host's (less than 0.9 of the
+    intervals inside the window)."""
+    lo = min(x["window_us"][0] for x in runs)
+    hi = max(x["window_us"][1] for x in runs)
+    spans = sorted((max(a, lo), min(b, hi)) for x in runs
+                   for a, b in x["spans_us"])
+    total = sum(b - a for x in runs for a, b in x["spans_us"])
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
+    inside = sum(max(0.0, b - a) for a, b in spans)
+    share = 1 - busy / (hi - lo) if total and inside >= 0.9 * total else None
+    return share, busy / 1e3, (hi - lo) / 1e3
+
+
+def _ipc_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label):
+    """One K7 kernel across the ranks against its plain version (gloo):
+    bitwise, one launch a call a rank; its CUDA-event ms, the plain
+    version's, ``Tensor.copy_`` of the same blocks into the peers'
+    mappings (the library yardstick) and the bound of the whole call."""
+    import torch
+    from dc_sand_tpu_torch.bench.harness import bound_ms
+    from dc_sand_tpu_torch.parallel import (SharedBuffers, all_to_all,
+                                            all_to_all_torch,
+                                            ring_permute_right_torch)
+    every = xs_of()
+    mine = [every[d] for d in mesh.local_shards]
+    nbytes = sum(_nbytes(x) for x in every)
+    del every
+    bufs = SharedBuffers(mesh, out_shape, torch.int8)
+    kw = {"rows": rows} if op is all_to_all else {}
+    before = op.launches
+    got = op(mine, mesh, axis, out=bufs, impl="cuda", **kw)
+    if op.launches != before + 1:
+        raise RuntimeError(f"{label}: {op.launches - before} launches, want 1")
+    plain = all_to_all_torch if op is all_to_all else \
+        ring_permute_right_torch
+    want = plain(mine, mesh, axis, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError(f"{label}: the kernel across processes != its "
+                           "plain version")
+    del got, want
+    groups = mesh.groups(axis)
+    pos = {i: k for g in groups for k, i in enumerate(g)}
+    n = len(groups[0])
+    blocks = []
+    for k, i in enumerate(mesh.local_shards):
+        group = next(g for g in groups if i in g)
+        if op is all_to_all:
+            for j in group:
+                blocks.append((bufs.views[j].view(rows, n, -1)[:, pos[i]],
+                               mine[k].view(n, rows, -1)[pos[j]]))
+        else:
+            blocks.append((bufs.views[group[(pos[i] + 1) % n]], mine[k]))
+
+    def copy_blocks():
+        bufs.ready()
+        for dst, src in blocks:
+            dst.copy_(src)
+        bufs.done()
+
+    ms, lib_ms = _turns_ms((lambda: op(mine, mesh, axis, out=bufs,
+                                       impl="cuda", **kw), copy_blocks), 3)
+    plain_ms = _events_ms(lambda: plain(mine, mesh, axis, **kw), 1)
+    bound = bound_ms(2 * nbytes)
+    print(f"[{label}] rank {mesh.rank}: bitwise equal to the plain version "
+          f"(gloo), one launch a call; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, copy_ into the peers' mappings {lib_ms:.4f} "
+          f"ms, bound {bound[0]:.4f} ms ({bound[1]}) for the whole call "
+          f"(two ranks time-slicing one card)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def _phases_32_33(dev, digest6, tmp) -> None:
+    """This rank's part of phases 32, 33 and 34's save."""
+    import torch
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.ops.pfb import taps_pad_for
+    from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
+                                            build_global_mesh,
+                                            local_antenna_range,
+                                            ring_permute_right)
+    from dc_sand_tpu_torch.profile_step import noise_int8, production_runner
+    from dc_sand_tpu_torch.runtime import save_state
+    mesh = build_global_mesh([dev] * 2)
+    rank = mesh.rank
+    # ---- 32. fx64 across the ranks, K7b through the peers' mappings -----
+    fx = _fx64_mesh_run(dev, mesh, digest6, "32 fx64 2 ranks",
+                        trace=os.path.join(tmp, f"fx64_rank{rank}.json"))
+    _rank_result(32, run=fx)
+    nch, s_l = FX64_M // 2, FX64_STREAMS // SHARDS
+    shape = (nch, 2, s_l, FX64_SPECTRA)
+    gen = torch.Generator(device=dev)
+
+    def operands():
+        gen.manual_seed(32)
+        return [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(SHARDS)]
+
+    k7b = _ipc_kernel_check(mesh, all_to_all, operands, shape, FX_AXIS,
+                            2 * nch // SHARDS, "32 all_to_all across ranks")
+    _rank_result(32, k7b=k7b)
+    torch.cuda.empty_cache()
+    # ---- 33. beam64 across the ranks; K7a across them; SP fx64 ----------
+    base = get_config("beam64")
+    a0, a1 = local_antenna_range(base.n_ants)
+    gen.manual_seed(BEAM_SEED)
+    ref_runner, chunks = production_runner(base, gen, dev)
+    ref = []
+    ref_runner.run(lambda i: chunks[i], len(chunks),
+                   on_output=lambda i, o: ref.append(o))
+    del ref_runner, chunks
+    outs = {}
+    nb_l = BEAMS // SHARDS
+    _, fs = mesh.local_block()
+    share = slice(fs[0] * nb_l, (fs[-1] + 1) * nb_l)
+    for ep in (False, True):
+        cfg = base.replace(beam_parallel=ep)
+        gen.manual_seed(BEAM_SEED)
+        runner, chunks = production_runner(cfg, gen, dev, mesh=mesh)
+        n = len(chunks)
+        got = []
+        torch.cuda.synchronize()
+        _zero_counts()
+        t = time.perf_counter()
+        runner.run(lambda i: chunks[i][a0:a1], n,
+                   on_output=lambda i, o: got.append(o))
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t) / n * 1e3
+        launches = _counts(fengine=2 * n, beamform=2 * n)
+        outs[ep] = got
+        snr_b = min(_snr_db(r["beams"][share if ep else slice(None)],
+                            o["beams"]) for r, o in zip(ref, got))
+        snr_i = min(_snr_db(r["incoherent"], o["incoherent"])
+                    for r, o in zip(ref, got))
+        label = "33 beam64 2 ranks" + (" beam-parallel" if ep else "")
+        print(f"[{label}] rank {rank}: {n} chunks; beams {snr_b:.2f} dB, "
+              f"incoherent {snr_i:.2f} dB from one card's; launches "
+              f"{launches}; run() per chunk {run_ms:.3f} ms (first run)",
+              flush=True)
+        if not (snr_b >= BEAM_SNR_DB and snr_i >= BEAM_SNR_DB):
+            raise RuntimeError(f"{label}: the beams across ranks disagree "
+                               "with one card's")
+        _rank_result(33, ep=ep, snr_beams=snr_b, snr_incoherent=snr_i,
+                     launches=launches, run_ms=run_ms)
+        del runner, chunks
+    if not all(torch.equal(r["beams"][share], e["beams"])
+               for r, e in zip(outs[False], outs[True])):
+        raise RuntimeError("33: the beam-parallel beams != the replicated "
+                           "beams' share")
+    del outs, ref, got
+    torch.cuda.empty_cache()
+    sp = build_global_mesh([dev] * 2, time_shards=2)
+    halo = (FX64_STREAMS // 2, taps_pad_for(TAPS), FX64_M)
+
+    def halos():
+        gen.manual_seed(33)
+        return [noise_int8(gen, halo, dev) for _ in range(SHARDS)]
+
+    k7a = _ipc_kernel_check(sp, ring_permute_right, halos, halo,
+                            TIME_AXIS, 1, "33 ring across ranks")
+    _rank_result(33, k7a=k7a)
+    sp_local = build_global_mesh([dev] * 2, time_shards=2, time_local=True)
+    spx = _fx64_mesh_run(dev, sp_local, digest6, "33 fx64 SP 2 ranks")
+    _rank_result(33, sp_run=spx)
+    torch.cuda.empty_cache()
+    # ---- 34. (first half) 2 chunks, then each rank saves its own file ---
+    cfg = get_config("fx64")
+    gen.manual_seed(FX64_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, mesh=mesh)
+    runner.run(lambda i: chunks[i][a0:a1], 2)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = save_state(runner, os.path.join(tmp, "fx64"))
+    save_s = time.perf_counter() - t
+    _rank_result(34, saved=path, save_s=save_s,
+                 mb=os.path.getsize(path) / 1e6)
+
+
+def _phase_34(dev, digest6, tmp) -> None:
+    """Phase 34 in new processes: load this rank's file, run chunks 3-4;
+    then ``cli verify fx4 --distributed --mesh 4`` and ``cli bench
+    collectives --distributed``."""
+    import torch
+    from dc_sand_tpu_torch.cli import main as cli_main
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.parallel import (build_global_mesh,
+                                            local_antenna_range)
+    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.runtime import DelayModel, FXRunner, load_state
+    from dc_sand_tpu_torch.windows import pfb_window
+    mesh = build_global_mesh([dev] * 2)
+    cfg = get_config("fx64")
+    a0, a1 = local_antenna_range(cfg.n_ants)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(FX64_SEED)
+    _, chunks = production_runner(cfg, gen, dev)
+    resumed = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
+                       delay_model=DelayModel.zeros(cfg.n_ants, cfg.n_pols,
+                                                    32), mesh=mesh)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    load_state(resumed, os.path.join(tmp, "fx64"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    _zero_counts()
+    dumps, _ = resumed.run(lambda i: chunks[i][a0:a1], 2)
+    torch.cuda.synchronize()
+    launches = _counts(fengine=4, cmac=4, all_to_all=2)
+    if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
+        raise RuntimeError("34: the resumed dump is not phase 6's")
+    print(f"[34 checkpoint 2 ranks] rank {mesh.rank}: loaded its file in a "
+          f"new process ({load_s:.3f} s), chunks 3-4 -> dump sha256 phase "
+          f"6's; launches {launches}", flush=True)
+    _rank_result(34, load_s=load_s, launches=launches)
+    del resumed, chunks, dumps
+    torch.cuda.empty_cache()
+    for argv in (["verify", "fx4", "--distributed", "--mesh", "4"],
+                 ["bench", "collectives", "--distributed", "--mesh", "4"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        for line in out.getvalue().splitlines():
+            print(f"[34 cli {argv[0]}] rank {mesh.rank}: {line}", flush=True)
+        if rc != 0:
+            raise RuntimeError(f"cli {' '.join(argv)}: exit code {rc}")
+        if argv[0] == "verify":
+            snr = float(out.getvalue().split("fx4:visibilities: ")[1].split()[0])
+            if not snr > 50.0:
+                raise RuntimeError(f"cli verify fx4 --distributed: {snr} dB")
+            _rank_result(34, verify_db=snr)
+        elif mesh.rank == 0:
+            records = [json.loads(x) for x in out.getvalue().splitlines()
+                       if x.startswith("{")]
+            if not any(r["extra"].get("link") == "CUDA IPC"
+                       for r in records):
+                raise RuntimeError("bench collectives --distributed timed "
+                                   "nothing across the ranks")
+            _rank_result(34, collectives={
+                r["name"]: r["wall_s"] * 1e3 for r in records})
+
+
+def _rank_main(argv) -> int:
+    """A rank of phases 32-34: ``--rank {32-33,34} DIGEST6 DIR``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from dc_sand_tpu_torch.parallel import ipc
+    from dc_sand_tpu_torch.parallel.distributed import (init_distributed,
+                                                        local_rank)
+    if not torch.cuda.is_available():
+        raise RuntimeError("a rank of phases 32-34 found no CUDA device")
+    init_distributed()
+    dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    which, digest6, tmp = argv
+    (_phases_32_33 if which == "32-33" else _phase_34)(dev, digest6, tmp)
+    ipc.close_all()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(args, timeout) -> list:
+    """Run this script's ``--rank`` entry as :data:`RANKS` ranks on the
+    card; returns each rank's ``RESULT`` dicts after echoing its lines;
+    raises if a rank failed."""
+    from dc_sand_tpu_torch.parallel.launch import run_ranks
+    results = run_ranks([sys.executable, str(Path(__file__).resolve()),
+                         "--rank", *args], RANKS, timeout=timeout)
+    parsed = []
+    for rank, res in enumerate(results):
+        mine = []
+        for line in res.output.splitlines():
+            if line.startswith("RESULT "):
+                mine.append(json.loads(line[len("RESULT "):]))
+            elif line.strip():
+                print(f"    rank {rank}| {line}", flush=True)
+        parsed.append(mine)
+    bad = [r for r, res in enumerate(results) if res.returncode != 0]
+    if bad:
+        raise RuntimeError(f"ranks {bad} of `--rank {' '.join(args)}` "
+                           f"failed (exit codes "
+                           f"{[results[r].returncode for r in bad]})")
+    return parsed
 
 
 def main() -> int:
@@ -318,31 +753,7 @@ def main() -> int:
     from dc_sand_tpu_torch.verify import SNR_BOUND, verify_config
     from dc_sand_tpu_torch.windows import pfb_window
 
-    def zero_counts():
-        fengine_fused.launches = fengine_fused.float_launches = 0
-        pfb_fir.launches = xcorr_accumulate_a2.launches = 0
-        beamform.launches = all_to_all.launches = 0
-        ring_permute_right.launches = 0
-        read_probe.launches = write_probe.launches = 0
-
-    def current():
-        return {"fengine": fengine_fused.launches,
-                "fengine_float": fengine_fused.float_launches,
-                "pfb": pfb_fir.launches, "cmac": xcorr_accumulate_a2.launches,
-                "beamform": beamform.launches,
-                "all_to_all": all_to_all.launches,
-                "ring": ring_permute_right.launches,
-                "read_probe": read_probe.launches,
-                "write_probe": write_probe.launches}
-
-    def counts(**want):
-        """The launch counters, checked against ``want`` (every counter
-        not named must read 0)."""
-        got = current()
-        if got != {k: want.get(k, 0) for k in got}:
-            raise RuntimeError(f"launch counts {got}, want {want} and 0 "
-                               "for the others")
-        return got
+    zero_counts, current, counts = _zero_counts, _current_counts, _counts
 
     def ran(*names):
         """The launch counters, checked: each of ``names`` above 0, every
@@ -357,6 +768,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = harness.card()
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     print(card, flush=True)
@@ -1020,7 +1432,7 @@ def main() -> int:
     del xs
 
     # ---- 16./17. fx64 on a 4-way fx mesh and on a (2, 2) SP mesh ----------
-    mesh_launches = {}
+    mesh_launches, mesh_step_ms = {}, {}
     for phase, time_shards in ((16, 1), (17, 2)):
         cfg = get_config("fx64").replace(time_shards=time_shards)
         mesh = build_mesh(shard_devs, time_shards=time_shards)
@@ -1049,6 +1461,7 @@ def main() -> int:
         runner.run(lambda i: chunks[i % n_chunks], n_chunks)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t) / n_chunks * 1e3
+        mesh_step_ms[phase] = step_ms
         frames = chunks[0].reshape(a * p, cfg.spectra_per_chunk, cfg.fft_size)
         zeros = torch.zeros((a * p, cfg.spectra_per_chunk), device=dev)
         args = runner._step_args(frames, zeros, zeros)
@@ -1593,6 +2006,58 @@ def main() -> int:
               f"{rec['name']} {rec['value']:.4g} {rec['unit']} ({card})",
               flush=True)
 
+    # ---- 32.-34. two processes on the card -------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = [a + b for a, b in zip(
+            _spawn_ranks(["32-33", digest6, tmp], timeout=600),
+            _spawn_ranks(["34", digest6, tmp], timeout=300))]
+    ranks_s = time.perf_counter() - t
+
+    def pick(rank, phase, key):
+        return next(r[key] for r in ranks[rank]
+                    if r["phase"] == phase and key in r)
+
+    runs = {label: [pick(r, ph, key) for r in range(RANKS)]
+            for label, ph, key in (("fx", 32, "run"), ("sp", 33, "sp_run"))}
+    k7b, k7a = pick(0, 32, "k7b"), pick(0, 33, "k7a")
+    idle, busy_ms, traced_ms = _idle_share(runs["fx"])
+    print(f"[32 fx64 {RANKS} ranks] every rank's dump sha256 phase 6's; "
+          f"launches a rank {[x['launches'] for x in runs['fx']]}; steady "
+          f"run() per chunk " + ", ".join(
+              f"rank {r} {x['step_ms']:.3f} ms ({x['barriers']:.1f} barriers, "
+              f"{x['barrier_ms']:.3f} ms host)" for r, x in
+              enumerate(runs["fx"])) + f"; traced run: device busy (union "
+          f"over the ranks) {busy_ms:.3f} ms of {traced_ms:.3f} ms, idle "
+          f"share " + (f"{idle:.4f}" if idle is not None else "not measured "
+                       "(the traces' clocks do not line up)")
+          + f", beside phase 16's "
+          f"{mesh_step_ms[16]:.3f} ms in one process; K7b across the ranks "
+          f"{k7b['ms']:.4f} ms (plain over gloo {k7b['plain_ms']:.3f}, copy_ "
+          f"into the peers' mappings {k7b['library_ms']:.4f}) beside phase "
+          f"14's {a2a_ms:.4f} ms in one process; {RANKS} processes "
+          f"time-slice one card: not a scaling number ({card})", flush=True)
+    print(f"[33 beam64 {RANKS} ranks] beams "
+          + ", ".join(f"{'beam-parallel' if x['ep'] else 'replicated'} "
+                      f"{x['snr_beams']:.2f} dB" for r in range(RANKS)
+                      for x in ranks[r] if x["phase"] == 33 and "ep" in x)
+          + f" from one card's; K7a across the ranks {k7a['ms']:.4f} ms "
+          f"(plain {k7a['plain_ms']:.3f}, copy_ {k7a['library_ms']:.4f}) "
+          f"beside phase 15's {ring_ms:.4f}; SP fx64 (time within each "
+          f"rank) dumps phase 6's, run() per chunk "
+          + ", ".join(f"{x['step_ms']:.3f}" for x in runs["sp"])
+          + f" ms ({card})", flush=True)
+    print(f"[34 checkpoint {RANKS} ranks] files of "
+          + ", ".join(f"{pick(r, 34, 'mb'):.1f} MB (save "
+                      f"{pick(r, 34, 'save_s'):.3f} s, load "
+                      f"{pick(r, 34, 'load_s'):.3f} s)" for r in range(RANKS))
+          + f", resumed in new processes to phase 6's sha256; cli verify fx4 "
+          f"--distributed --mesh 4 {pick(0, 34, 'verify_db'):.2f} dB; bench "
+          f"collectives ms {pick(0, 34, 'collectives')}; phases 32-34 "
+          f"{ranks_s:.1f} s ({card})", flush=True)
+
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:
             raise RuntimeError(f"the port must not import {banned}")
@@ -1634,11 +2099,23 @@ def main() -> int:
               "dc_sand_tpu/parallel/remote_dma.py:85",
               sum(c["all_to_all"] for c in mesh_launches.values()), 0,
               a2a_ms, a2a_plain_ms, a2a_bound, a2a_lib_ms),
+        entry("all_to_all_ipc", "remote_dma.cu",
+              "dc_sand_tpu/parallel/remote_dma.py:85",
+              sum(x["launches"]["all_to_all"] for v in runs.values()
+                  for x in v), 0, k7b["ms"], k7b["plain_ms"],
+              (k7b["bound_ms"], k7b["bound_by"]), k7b["library_ms"]),
+        entry("ring_ipc", "remote_dma.cu",
+              "dc_sand_tpu/parallel/remote_dma.py:51",
+              sum(x["launches"]["ring"] for x in runs["sp"]), 0, k7a["ms"],
+              k7a["plain_ms"], (k7a["bound_ms"], k7a["bound_by"]),
+              k7a["library_ms"]),
         entry("read_probe", "probes.cu", "scripts/sweep_s10_micro.py:26",
               probe_counts["read_probe"], 0, *probe_times["read_probe"]),
         entry("write_probe", "probes.cu", "scripts/sweep_s10_micro.py:49",
               probe_counts["write_probe"], 0, *probe_times["write_probe"]),
     ]
+    print(f"[total] phases 1-34 in {time.perf_counter() - t_start:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1647,4 +2124,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(_rank_main(sys.argv[2:]))
     sys.exit(main())

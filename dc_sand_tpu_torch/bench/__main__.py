@@ -149,10 +149,24 @@ def _target(name: str, args, dev) -> list:
         return [ib.bench_e2e_atrate(**kw),
                 ib.bench_e2e_atrate(feed="device_replay", **kw)]
     # the collectives run on a mesh of --mesh shards, shard i on card
-    # (i mod the card count); the scaling sweep over the cards present
-    from dc_sand_tpu_torch.parallel import build_mesh
+    # (i mod the card count); with --distributed --mesh/world shards a rank
+    # on its own card, beside (rank 0) the one-process mesh on that card;
+    # the scaling sweep over the cards present
+    from dc_sand_tpu_torch.parallel import build_global_mesh, build_mesh
+    from dc_sand_tpu_torch.parallel.distributed import (process_count,
+                                                        process_index)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if name == "collectives":
+        if args.distributed:
+            n = args.mesh // process_count()
+            mesh = build_global_mesh([dev] * n)
+            out = [collectives.bench_collective(op, mesh)
+                   for op in collectives.COLLECTIVES]
+            if process_index() == 0:
+                one = build_mesh([dev] * args.mesh)
+                out += [collectives.bench_collective(op, one)
+                        for op in ("all_to_all_pallas", "ppermute_pallas")]
+            return out
         devs = ([torch.device("cuda", i % n_cards) for i in range(args.mesh)]
                 if n_cards else ["cpu"] * args.mesh)
         mesh = build_mesh(devs)
@@ -182,15 +196,29 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler Chrome trace of the run "
                          "to DIR/<target>_trace.json")
+    ap.add_argument("--distributed", action="store_true",
+                    help="collectives across the torch.distributed ranks "
+                         "of the launcher's environment (RANK, WORLD_SIZE, "
+                         "MASTER_ADDR, MASTER_PORT), --mesh shards in all; "
+                         "rank 0 prints the records")
     args = ap.parse_args(argv)
+    if args.distributed and args.target != "collectives":
+        ap.error("--distributed applies to the collectives target")
     dev = torch.device(args.device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             print("dc_sand_tpu_torch.bench: no CUDA device is present; "
                   "nothing measured", file=sys.stderr)
             return 1
-        if dev.index is None:
+        if args.distributed:
+            from dc_sand_tpu_torch.parallel.distributed import local_rank
+            dev = torch.device("cuda",
+                               local_rank() % torch.cuda.device_count())
+        elif dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+    if args.distributed:
+        from dc_sand_tpu_torch.parallel.distributed import init_distributed
+        init_distributed()
     ctx = contextlib.nullcontext()
     if args.profile:
         from dc_sand_tpu_torch.profile_step import chrome_trace
@@ -202,6 +230,12 @@ def main(argv=None) -> int:
             line, results = headline(dev)
         else:
             results = _target(args.target, args, dev)
+    if args.distributed:
+        from dc_sand_tpu_torch.parallel import ipc
+        from dc_sand_tpu_torch.parallel.distributed import process_index
+        ipc.close_all()
+        if process_index():
+            results = []
     if args.target is None:
         print(json.dumps(line), flush=True)
     else:

@@ -16,6 +16,15 @@ The byte count is the JAX file's per-shard wire traffic (what leaves or
 enters each shard).  The record carries ``devices`` (shards on the fx
 axis) beside ``cards`` (distinct devices) and ``link``: shards that share
 one card copy through its memory, not over NVLink.
+
+On a mesh over several processes (``bench collectives --distributed``,
+the JAX bench's ``--distributed`` over global devices) each rank times its
+own part: the kernels write through the peers' CUDA IPC mappings, the
+sums read them, each call ordered by two gloo barriers (in the time), and
+the plain versions go over gloo.  ``link`` then says ``CUDA IPC`` (or
+``gloo`` on the CPU), and ``processes`` how many ranks share the mesh.
+Two ranks on one card time-slice it: their times are not a scaling
+measurement.
 """
 
 from __future__ import annotations
@@ -23,9 +32,9 @@ from __future__ import annotations
 import torch
 
 from dc_sand_tpu_torch.bench.harness import BenchResult, time_cuda
-from dc_sand_tpu_torch.parallel import (FX_AXIS, all_to_all,
-                                        all_to_all_torch, psum, psum_scatter,
-                                        ring_permute_right,
+from dc_sand_tpu_torch.parallel import (FX_AXIS, SharedBuffers, all_shards,
+                                        all_to_all, all_to_all_torch, psum,
+                                        psum_scatter, ring_permute_right,
                                         ring_permute_right_torch)
 
 __all__ = ["bench_collective", "COLLECTIVES"]
@@ -34,11 +43,12 @@ COLLECTIVES = ("all_to_all", "ppermute", "psum", "psum_scatter",
                "all_gather", "all_to_all_pallas", "ppermute_pallas")
 
 
-def _all_gather(xs, mesh) -> list:
-    outs = [None] * len(xs)
-    for group in mesh.groups(FX_AXIS):
-        for j in group:
-            outs[j] = torch.cat([xs[s].to(xs[j].device) for s in group])
+def _all_gather(xs, mesh, buffers) -> list:
+    every = all_shards(xs, mesh, buffers)
+    outs = []
+    for x, j in zip(xs, mesh.local_shards):
+        group = next(g for g in mesh.groups(FX_AXIS) if j in g)
+        outs.append(torch.cat([every[s].to(x.device) for s in group]))
     return outs
 
 
@@ -50,31 +60,37 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
     n_rows = max(d, int(mb_per_chip * 1e6 / (4 * 1024)))
     n_rows -= n_rows % d
     local_bytes = n_rows * 1024 * 4
+    if op not in COLLECTIVES:
+        raise ValueError(f"unknown collective {op!r}; "
+                         f"available: {COLLECTIVES}")
+    devices = mesh.local_devices
+    first = devices[0]
+    # across processes on the card: the shards' buffers every rank maps
+    shared = (SharedBuffers(mesh, (n_rows, 1024), torch.float32)
+              if mesh.multiprocess and first.type == "cuda" else None)
     ops = {
         "all_to_all": (lambda xs: all_to_all_torch(xs, mesh, FX_AXIS),
                        local_bytes * (d - 1) / d),
-        "all_to_all_pallas": (lambda xs: all_to_all(xs, mesh, FX_AXIS),
+        "all_to_all_pallas": (lambda xs: all_to_all(xs, mesh, FX_AXIS,
+                                                    out=shared),
                               local_bytes * (d - 1) / d),
         "ppermute": (lambda xs: ring_permute_right_torch(xs, mesh, FX_AXIS),
                      local_bytes),
-        "ppermute_pallas": (lambda xs: ring_permute_right(xs, mesh, FX_AXIS),
+        "ppermute_pallas": (lambda xs: ring_permute_right(xs, mesh, FX_AXIS,
+                                                          out=shared),
                             local_bytes),
         # reduce-scatter + all-gather
-        "psum": (lambda xs: psum(xs, mesh, FX_AXIS),
+        "psum": (lambda xs: psum(xs, mesh, FX_AXIS, buffers=shared),
                  local_bytes * 2 * (d - 1) / d),
         # the EP beam reduction: half a psum's wire
-        "psum_scatter": (lambda xs: psum_scatter(xs, mesh, FX_AXIS),
+        "psum_scatter": (lambda xs: psum_scatter(xs, mesh, FX_AXIS,
+                                                 buffers=shared),
                          local_bytes * (d - 1) / d),
-        "all_gather": (lambda xs: _all_gather(xs, mesh),
+        "all_gather": (lambda xs: _all_gather(xs, mesh, shared),
                        local_bytes * (d - 1)),
     }
-    if op not in ops:
-        raise ValueError(f"unknown collective {op!r}; "
-                         f"available: {COLLECTIVES}")
     fn, wire = ops[op]
-    devices = mesh.flat_devices
     xs = [torch.zeros((n_rows, 1024), device=dev) for dev in devices]
-    first = devices[0]
     others = sorted({dev for dev in devices if dev != first}, key=str)
 
     def call():
@@ -87,12 +103,17 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
 
     wall = time_cuda(call, warmup=2, iters=iters, device=first)
     cards = len(set(devices))
-    link = ("host memory" if first.type == "cpu" else "NVLink" if cards > 1
-            else "one card's memory")
+    if mesh.multiprocess:
+        link = "CUDA IPC" if shared is not None else "gloo"
+    else:
+        link = ("host memory" if first.type == "cpu" else "NVLink"
+                if cards > 1 else "one card's memory")
+    procs = mesh.process_count
     return BenchResult(
-        name=f"collective_{op}_{d}dev",
+        name=f"collective_{op}_{d}dev" + (f"_{procs}proc" if procs > 1
+                                          else ""),
         metric=f"{op} per-shard bandwidth", value=wire / wall / 1e9,
         unit="GB/s", wall_s=wall, bytes_moved=wire,
         extra={"devices": d, "cards": cards, "link": link,
-               "local_mb": local_bytes / 1e6},
+               "processes": procs, "local_mb": local_bytes / 1e6},
     ).finish(first)

@@ -18,9 +18,21 @@ same) or ``unfused`` (K6 and PyTorch ops).  ``bench`` hands its
 arguments to :func:`dc_sand_tpu_torch.bench.__main__.main` (``--cpu``
 becomes ``--device cpu``).
 
+``--distributed`` (every subcommand) joins the ``torch.distributed``
+ranks of the launcher's environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``; ``torchrun`` sets them), prints
+``distributed: {...}`` and runs over the global mesh of ``--mesh N``
+shards (default: one a rank), ``N / world`` on each rank, on
+``cuda:(LOCAL_RANK mod the card count)`` or on CPU shards with ``--cpu``;
+with ``--time-shards`` the time axis runs within each rank
+(``time_local``), as the multi-process runner needs.  Each rank feeds its
+own antennas and prints its own lines::
+
+    torchrun --nproc-per-node 2 -m dc_sand_tpu_torch.cli verify fx4 \
+        --distributed --mesh 4
+
 Not ported: ``--stage2`` and the ``*_interpret`` impls (knobs of the TPU
-kernels), the TPU backend probe, ``bench --profile`` and
-``--distributed`` (the multi-process runner is not ported).
+kernels) and the TPU backend probe.
 """
 
 from __future__ import annotations
@@ -50,16 +62,39 @@ def _add_common(p) -> None:
                         "the mesh's time axis")
     p.add_argument("--beam-parallel", action="store_true",
                    help="shard the beams over the mesh's fx axis")
+    _add_distributed(p)
+
+
+def _add_distributed(p) -> None:
+    p.add_argument("--distributed", action="store_true",
+                   help="several processes: join the torch.distributed "
+                        "ranks of the launcher's environment and run over "
+                        "the global mesh")
 
 
 def _placement(args) -> tuple:
     """``(device, mesh)`` of the command, one of them None: the CPU with
     ``--cpu``, else the current card; a mesh with ``--mesh`` or
-    ``--time-shards``."""
+    ``--time-shards``; with ``--distributed`` the global mesh of
+    ``--mesh`` shards over the ranks (:func:`main` joined them)."""
     import torch
     from dc_sand_tpu_torch.ops._dispatch import default_device
-    from dc_sand_tpu_torch.parallel import build_mesh
+    from dc_sand_tpu_torch.parallel import build_global_mesh, build_mesh
     n = args.mesh or (args.time_shards if args.time_shards > 1 else 0)
+    if args.distributed:
+        from dc_sand_tpu_torch.parallel.distributed import (local_rank,
+                                                            process_count)
+        world = process_count()
+        if n % world:
+            raise ValueError(f"--mesh {n} does not divide over {world} ranks")
+        if args.cpu:
+            devices = ["cpu"] * (n // world)
+        else:
+            default_device(None)              # raises without a card
+            devices = [f"cuda:{local_rank() % torch.cuda.device_count()}"] \
+                * (n // world)
+        return None, build_global_mesh(devices, args.time_shards,
+                                       time_local=True)
     if args.cpu:
         devices = ["cpu"] * n
     else:
@@ -130,6 +165,7 @@ def cmd_run(args) -> int:
     import numpy as np
     from dc_sand_tpu_torch import golden
     from dc_sand_tpu_torch.config import get_config, scaled_for_test
+    from dc_sand_tpu_torch.parallel import local_antenna_range
     from dc_sand_tpu_torch.runtime import FXRunner, save_state
     from dc_sand_tpu_torch.windows import pfb_window
 
@@ -148,10 +184,13 @@ def cmd_run(args) -> int:
     runner = FXRunner(cfg, window, weights=weights, device=device,
                       mesh=mesh, fused=args.impl != "unfused")
     shape = (cfg.n_ants, cfg.n_pols, cfg.chunk_samples)
+    # each rank of a multi-process mesh feeds its own antennas
+    a0, a1 = (local_antenna_range(cfg.n_ants)
+              if mesh is not None and mesh.multiprocess else (0, cfg.n_ants))
 
     def source(i):
         # quantize_adc(gaussian_noise(shape, 20, seed=i)), bit for bit
-        return golden.gaussian_noise_int8(shape, 20.0, i)
+        return golden.gaussian_noise_int8(shape, 20.0, i)[a0:a1]
 
     run_fn = runner.run_batched if args.batched else runner.run
     dumps, counters = run_fn(source, args.chunks,
@@ -174,6 +213,8 @@ def cmd_bench(args, rest: list) -> int:
     argv = ([args.target] if args.target else []) + rest
     if args.cpu:
         argv += ["--device", "cpu"]
+    if args.distributed:
+        argv += ["--distributed"]
     if args.profile:
         argv += ["--profile", args.profile]
     return bench_main(argv)
@@ -238,6 +279,7 @@ def main(argv=None) -> int:
     pb.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler Chrome trace of the bench "
                          "into DIR")
+    _add_distributed(pb)
     pb.set_defaults(fn=cmd_bench)
 
     pg = sub.add_parser("regress",
@@ -256,7 +298,17 @@ def main(argv=None) -> int:
         return cmd_bench(args, rest)
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    return args.fn(args)
+    if not getattr(args, "distributed", False):
+        return args.fn(args)
+    from dc_sand_tpu_torch.parallel import ipc
+    from dc_sand_tpu_torch.parallel.distributed import init_distributed
+    info = init_distributed()
+    print(f"distributed: {info}", flush=True)
+    if not args.mesh:
+        args.mesh = info["process_count"] * max(args.time_shards, 1)
+    rc = args.fn(args)
+    ipc.close_all()
+    return rc
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 
 PyTorch counterpart of ``dryrun_multichip`` in ``__graft_entry__.py``.  On
 a mesh of ``n`` shards (:func:`~dc_sand_tpu_torch.parallel.build_mesh`;
-the default is ``n`` CPU shards, on one card ``["cuda:0"] * n``) it runs
+the default puts shard i on ``cuda:(i mod the card count)``, all on
+``cuda:0`` with one card, and raises without a card; the tests pass
+``["cpu"] * n``) it runs
 one chunk through :class:`~dc_sand_tpu_torch.runtime.FXRunner` in each
 mode, from beam64 cut to ``16 n`` channels, ``2 n`` antennas and 8-spectra
 chunks, with a delay model of ``max_delay`` 8:
@@ -48,6 +50,7 @@ import torch
 
 from dc_sand_tpu_torch.config import ChainConfig, get_config
 from dc_sand_tpu_torch.models.fx import make_time_sharded_fengine
+from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.parallel import build_mesh
 from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
@@ -148,10 +151,14 @@ def _run(cfg, inp: dict, mesh) -> ModeResult:
 
 def dryrun_multichip(n_devices: int, devices=None) -> dict:
     """Run one step of every sharded mode (:func:`dryrun_modes`) on a mesh
-    of ``n_devices`` shards over ``devices`` (default ``["cpu"] *
-    n_devices``; one card: ``["cuda:0"] * n_devices``).  Returns ``name
-    -> ModeResult``."""
-    devices = list(devices) if devices is not None else ["cpu"] * n_devices
+    of ``n_devices`` shards over ``devices`` (default: shard i on
+    ``cuda:(i mod the card count)``, raising without a card; the CPU:
+    ``["cpu"] * n_devices``).  Returns ``name -> ModeResult``."""
+    if devices is None:
+        default_device(None)                  # raises without a card
+        devices = [f"cuda:{i % torch.cuda.device_count()}"
+                   for i in range(n_devices)]
+    devices = list(devices)
     if len(devices) != n_devices:
         raise ValueError(f"{len(devices)} devices for {n_devices} shards")
     results = {}
@@ -161,12 +168,13 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     return results
 
 
-def dryrun_reference(n_devices: int, device="cpu") -> dict:
+def dryrun_reference(n_devices: int, device=None) -> dict:
     """Every mode of :func:`dryrun_multichip` on ``n_devices`` shards, run
-    on one ``device`` from the same inputs (``time_shards`` 1, beams
-    replicated).  Returns ``name -> ModeResult``."""
+    on one ``device`` (default: the current card, raising without one)
+    from the same inputs (``time_shards`` 1, beams replicated).  Returns
+    ``name -> ModeResult``."""
     results = {}
-    mesh = build_mesh([device])
+    mesh = build_mesh([default_device(device)])
     for name, (cfg, _) in dryrun_modes(n_devices).items():
         inp = _inputs(name, cfg, n_devices)
         if cfg is not None:
@@ -185,15 +193,11 @@ def main(argv=None) -> int:
                     help="CPU shards (the default is the card, every shard "
                          "on cuda:0)")
     args = ap.parse_args(argv)
-    if args.cpu:
-        devices = ["cpu"] * args.n
-    elif torch.cuda.is_available():
-        devices = [f"cuda:{i % torch.cuda.device_count()}"
-                   for i in range(args.n)]
-    else:
+    if not args.cpu and not torch.cuda.is_available():
         print("no CUDA device is present; pass --cpu", file=sys.stderr)
         return 1
-    results = dryrun_multichip(args.n, devices)
+    results = dryrun_multichip(args.n, ["cpu"] * args.n if args.cpu
+                               else None)
     for name, r in results.items():
         shapes = ", ".join(f"{k} {tuple(v.shape)}"
                            for k, v in r.outputs.items())

@@ -58,6 +58,15 @@ behind that signature.  On more shards:
   axis (``psum_scatter``, each fx shard its ``nb/n_fx`` beams).  The beam
   kernel's int8 epilogue is off: beams are quantised after the sum.
 
+On a mesh over several processes (:func:`~dc_sand_tpu_torch.parallel.
+build_global_mesh`) every list holds this rank's shards only
+(:attr:`~dc_sand_tpu_torch.parallel.Mesh.local_shards`), as a JAX process
+sees only its addressable shards, and the chunk it cuts holds this rank's
+antennas only.  On the card the step allocates, once, the buffers that
+other ranks write into or read (:class:`~dc_sand_tpu_torch.parallel.ipc.
+SharedBuffers`): the receivers' CMAC operands for K7b, the halos for K7a,
+the partial and incoherent beams for the sums.
+
 SP mode (``cfg.time_shards > 1``, the counterpart of ``_make_sp_step``) cuts
 each chunk into time shards: every shard sends its last ``taps_pad`` frames
 one step right around the time ring (K7a,
@@ -80,9 +89,9 @@ from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.stokes import stokes
 from dc_sand_tpu_torch.ops.xcorr import (acc_shape, cmac_pitch,
                                          xcorr_accumulate_a2)
-from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS,
-                                        corner_turn_all_to_all, psum,
-                                        psum_scatter, ring_tails)
+from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
+                                        all_shards, corner_turn_all_to_all,
+                                        psum, psum_scatter, ring_tails)
 
 __all__ = ["make_step", "mode_for", "check_mode", "zero_vis_acc",
            "history_shape", "chunk_shape", "shard_inputs", "gather_acc",
@@ -204,20 +213,25 @@ def _carry(history, chunk) -> None:
 
 
 def shard_inputs(mesh, *xs, time: bool = True) -> tuple:
-    """Cut frame-form tensors ``(A*P, B, ...)`` to the shards of ``mesh``:
-    fx shard f takes rows ``f*A*P/n_fx ...`` and, with ``time``, time
-    shard t spectra ``t*B/n_t ...``, each moved to its shard's device.
-    Returns one list per tensor in shard order (a list of None for None);
-    a slice that is the whole tensor on its own device is not copied."""
-    n_t, n_f = _split(mesh)
+    """Cut frame-form tensors ``(A*P, B, ...)`` to this process's shards
+    of ``mesh``: fx shard f takes rows ``f*A*P/n_fx ...`` and, with
+    ``time``, time shard t spectra ``t*B/n_t ...``, each moved to its
+    shard's device.  On a mesh over several processes the tensors hold
+    this rank's rows only, those of its fx columns.  Returns one list per
+    tensor in the order of :attr:`Mesh.local_shards` (a list of None for
+    None); a slice that is the whole tensor on its own device is not
+    copied."""
+    n_t, _ = _split(mesh)
+    _, fs = mesh.local_block()
     out = tuple([] for _ in xs)
-    for d, dev in enumerate(mesh.flat_devices):
+    for d, dev in zip(mesh.local_shards, mesh.local_devices):
         t, f = mesh.coords(d)
+        f -= fs[0]
         for o, x in zip(out, xs):
             if x is None:
                 o.append(None)
                 continue
-            s_l = x.shape[0] // n_f
+            s_l = x.shape[0] // len(fs)
             b_l = x.shape[1] // n_t if time else x.shape[1]
             t_b = t if time else 0
             o.append(x[f * s_l:(f + 1) * s_l, t_b * b_l:(t_b + 1) * b_l]
@@ -225,33 +239,49 @@ def shard_inputs(mesh, *xs, time: bool = True) -> tuple:
     return out
 
 
-def gather_acc(accs, mesh, device) -> torch.Tensor:
+def gather_acc(accs, mesh, device, buffers=None) -> torch.Tensor:
     """The packed ``(K, ap, ap)`` accumulator on ``device`` from the
     shards' carries: the channel blocks in order, each the sum of its time
-    shards' partials (exact int32 adds)."""
+    shards' partials (exact int32 adds).  On a mesh over several
+    processes every rank gets the whole plane, as the JAX runner's dump
+    all-gather gives it: on the card ``accs`` are this rank's buffers of
+    ``buffers`` (:class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`)
+    and the peers' are read through their IPC mappings, after which the
+    ranks agree that the reads are done before any accumulator is written
+    again; on the CPU they come over gloo."""
     n_t, n_f = _split(mesh)
+    every = all_shards(accs, mesh, buffers)
     blocks = []
     for f in range(n_f):
-        acc = accs[f].to(device)
+        acc = every[f].to(device)
         for t in range(1, n_t):
-            acc = acc + accs[t * n_f + f].to(device)
+            acc = acc + every[t * n_f + f].to(device)
         blocks.append(acc)
-    return _cat(blocks, 0)
+    total = _cat(blocks, 0)
+    if mesh.multiprocess and buffers is not None:
+        buffers.ready()
+    return total
 
 
 def gather_outputs(outputs: dict, cfg: ChainConfig, mesh, device) -> dict:
     """Per-shard outputs -> global layout on ``device``: antenna shards
     (spectra) and beam-parallel beam shards joined in order, time shards
     joined along the spectra axis; replicated outputs taken from each time
-    row's first shard."""
-    n_t, n_f = _split(mesh)
+    row's first shard.  On a mesh over several processes, this rank's
+    block of them: its antennas' spectra, its share of beam-parallel
+    beams, its time rows (as a JAX process hands over the addressable
+    shards of an array it cannot gather)."""
+    n_f = _split(mesh)[1]
+    ts, fs = mesh.local_block()
+    loc = {d: k for k, d in enumerate(mesh.local_shards)}
     sharded = {"spectra": True, "beams": bool(cfg.beam_parallel),
                "stokes": bool(cfg.beam_parallel), "incoherent": False}
     out = {}
     for key, xs in outputs.items():
         rows = []
-        for t in range(n_t):
-            row = xs[t * n_f:(t + 1) * n_f if sharded[key] else t * n_f + 1]
+        for t in ts:
+            row = [xs[loc[t * n_f + f]]
+                   for f in (fs if sharded[key] else fs[:1])]
             rows.append(_cat([x.to(device) for x in row], 0))
         out[key] = _cat(rows, 1 if key == "incoherent" else 2)
     return out
@@ -335,13 +365,41 @@ def _each(fn, xs) -> list:
     return [done[id(x)] for x in xs]
 
 
+def _shared_buffers(cfg: ChainConfig, mesh) -> dict:
+    """The buffers other ranks write into or read, by role, on a mesh over
+    several processes on the card (none otherwise); every rank allocates
+    and registers them in one order."""
+    devices = mesh.local_devices
+    if not mesh.multiprocess or devices[0].type != "cuda":
+        return {}
+    mode = mode_for(cfg)
+    n_t, n_f = _split(mesh)
+    s_l, p, k = cfg.n_ants // n_f * cfg.n_pols, cfg.n_pols, cfg.n_chans
+    b_l, m = cfg.spectra_per_chunk // n_t, cfg.fft_size
+    bufs = {}
+    if n_t > 1:
+        bufs["halo"] = SharedBuffers(mesh, (s_l, taps_pad_for(cfg.n_taps), m),
+                                     torch.int8)
+    if mode == "fx":
+        bufs["operand"] = SharedBuffers(mesh, (k, 2, s_l, cmac_pitch(b_l)),
+                                        torch.int8)
+    if mode == "beam":
+        bufs["beams"] = SharedBuffers(mesh, (cfg.n_beams, p, b_l, k, 2),
+                                      torch.float32)
+        if cfg.incoherent_beam:
+            bufs["incoherent"] = SharedBuffers(mesh, (p, b_l, k),
+                                               torch.float32)
+    return bufs
+
+
 def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
     mode = mode_for(cfg)
     n_t, n_f = _split(mesh)
     a_l, p, k = cfg.n_ants // n_f, cfg.n_pols, cfg.n_chans
-    devices = mesh.flat_devices
-    heads = [mesh.coords(d)[0] == 0 for d in range(mesh.size)]
+    devices = mesh.local_devices
+    heads = [mesh.coords(d)[0] == 0 for d in mesh.local_shards]
     windows = {dev: _window(window, cfg, dev) for dev in set(devices)}
+    bufs = _shared_buffers(cfg, mesh)
 
     def step(histories, accs, chunks, fracs, phases, gains, weights,
              reset) -> dict:
@@ -349,7 +407,7 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
         hist = histories
         if n_t > 1:
             halos = ring_tails(chunks, histories[0].shape[1], mesh,
-                               TIME_AXIS, dim=1)
+                               TIME_AXIS, dim=1, out=bufs.get("halo"))
             hist = [h if head else halo
                     for h, halo, head in zip(histories, halos, heads)]
         qs = [_fengine(cfg, windows[dev], c, h, fd, ph, g, fused)
@@ -363,7 +421,7 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
         if mode == "fengine":
             return {"spectra": [q.reshape(a_l, p, b_l, k, 2) for q in qs]}
         if mode == "fx":
-            a2 = corner_turn_all_to_all(qs, mesh)
+            a2 = corner_turn_all_to_all(qs, mesh, out=bufs.get("operand"))
             for acc, x in zip(accs, a2):
                 xcorr_accumulate_a2(acc, x, keep=0 if reset else 1)
             return {}
@@ -371,8 +429,8 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
                           incoherent=cfg.incoherent_beam)
                  for q, w in zip(qs, weights)]
         coh = [c for c, _ in parts]
-        coh = (psum_scatter(coh, mesh, FX_AXIS) if cfg.beam_parallel
-               else psum(coh, mesh, FX_AXIS))
+        coh = (psum_scatter if cfg.beam_parallel else psum)(
+            coh, mesh, FX_AXIS, buffers=bufs.get("beams"))
         out = {}
         if cfg.beam_stokes:
             out["stokes"] = _each(stokes, coh)
@@ -381,7 +439,8 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
                         coh)
         out["beams"] = coh
         if cfg.incoherent_beam:
-            out["incoherent"] = psum([i for _, i in parts], mesh, FX_AXIS)
+            out["incoherent"] = psum([i for _, i in parts], mesh, FX_AXIS,
+                                     buffers=bufs.get("incoherent"))
         return out
 
     return step

@@ -20,7 +20,7 @@ from dc_sand_tpu_torch.parallel.remote_dma import all_to_all
 __all__ = ["corner_turn_all_to_all"]
 
 
-def corner_turn_all_to_all(qs, mesh) -> list:
+def corner_turn_all_to_all(qs, mesh, out=None) -> list:
     """Re-shard quantised spectra from antennas to channels, per fx group.
 
     ``qs``: per shard its streams' spectra in the operand layout ``(k_full,
@@ -31,13 +31,17 @@ def corner_turn_all_to_all(qs, mesh) -> list:
     function's ``(ant_full, pol, b, k_local, 2)`` result in the layout of
     :func:`dc_sand_tpu_torch.ops.xcorr.wire_to_a2`.  K7b moves the ``2 *
     k_local`` rows of ``s_local*b`` bytes of each (sender, receiver) block
-    to the receiver's rows at a pitch of ``ap*b`` bytes.
+    to the receiver's rows at a pitch of ``ap*b`` bytes.  On a
+    multi-process mesh on the card the rows land in the receivers'
+    persistent operands ``out`` (a
+    :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` of the
+    shards' shape), through the peers' IPC mappings.
     """
     n = mesh.shape[FX_AXIS]
     k, c, s_l, b = qs[0].shape
     if k % n:
         raise ValueError(f"{k} channels do not divide over {n} fx shards")
     k_l = k // n
-    out = all_to_all(qs, mesh, FX_AXIS, rows=k_l * c)
-    # out viewed (k_l, c, n, s_l, b): row (k, c) of sender s at [k, c, s]
-    return [o.reshape(k_l, c * n * s_l, b) for o in out]
+    got = all_to_all(qs, mesh, FX_AXIS, rows=k_l * c, out=out)
+    # got viewed (k_l, c, n, s_l, b): row (k, c) of sender s at [k, c, s]
+    return [o.reshape(k_l, c * n * s_l, b) for o in got]

@@ -21,12 +21,15 @@ __all__ = ["ring_tails", "halo_exchange_left"]
 
 
 def ring_tails(xs, n: int, mesh, axis: str = TIME_AXIS,
-               dim: int = -1) -> list:
+               dim: int = -1, out=None) -> list:
     """Each shard's last ``n`` entries along ``dim``, sent one step right
     around the ring over ``axis`` (K7a): shard k of each group receives
-    shard k-1's, the group's first shard its last shard's."""
+    shard k-1's, the group's first shard its last shard's.  On a
+    multi-process mesh on the card they land in the receivers' halo
+    buffers ``out`` (a :class:`~dc_sand_tpu_torch.parallel.ipc.
+    SharedBuffers` of a tail's shape)."""
     tails = [x.narrow(dim, x.shape[dim] - n, n).contiguous() for x in xs]
-    return ring_permute_right(tails, mesh, axis)
+    return ring_permute_right(tails, mesh, axis, out=out)
 
 
 def halo_exchange_left(xs, halo_len: int, mesh,
@@ -42,6 +45,8 @@ def halo_exchange_left(xs, halo_len: int, mesh,
             f"{halo_len}; each shard needs at least (taps-1)*fft_size "
             "samples for overlap-save")
     halos = ring_tails(xs, halo_len, mesh, axis)
-    for group in mesh.groups(axis):
-        halos[group[0]].zero_()
+    heads = {group[0] for group in mesh.groups(axis)}
+    for h, d in zip(halos, mesh.local_shards):
+        if d in heads:
+            h.zero_()
     return [torch.cat([h, x], dim=-1) for h, x in zip(halos, xs)]

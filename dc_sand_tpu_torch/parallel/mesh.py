@@ -1,9 +1,15 @@
-"""Device mesh (C13), in one process.
+"""Device mesh (C13), in one process or over several.
 
 PyTorch counterpart of :mod:`dc_sand_tpu.parallel.mesh`: a ``(time, fx)``
 array of torch devices.  The ``fx`` axis shards antennas before the
 corner-turn and channels after it; the optional ``time`` axis shards the
 sample stream (SP mode, overlap-save halo over a ring).
+
+A mesh over several ``torch.distributed`` ranks
+(:func:`build_global_mesh`) also records each shard's process.  A rank
+holds its own shards only, as a JAX process sees only its addressable
+shards: every per-shard list on such a mesh has one entry per
+:attr:`Mesh.local_shards`, in shard order.
 
 Every shard is a tensor of its own, so a device may appear more than
 once: four shards on ``cuda:0`` are four allocations, and the peer-copy
@@ -24,23 +30,35 @@ import torch
 FX_AXIS = "fx"
 TIME_AXIS = "time"
 
-__all__ = ["Mesh", "build_mesh", "FX_AXIS", "TIME_AXIS"]
+__all__ = ["Mesh", "build_mesh", "build_global_mesh", "FX_AXIS",
+           "TIME_AXIS"]
 
 
 class Mesh:
-    """A ``(time, fx)`` array of :class:`torch.device`.
+    """A ``(time, fx)`` array of :class:`torch.device`, with the process
+    that holds each shard (``procs``, all 0 in one process) and this
+    process's rank.
 
     Shards are numbered row-major: shard ``d`` sits at ``(t, f) =
-    divmod(d, n_fx)``.  Per-shard tensors travel as lists in that order.
+    divmod(d, n_fx)``.  Per-shard tensors travel as lists in that order,
+    over :attr:`local_shards` only.
     """
 
     axis_names = (TIME_AXIS, FX_AXIS)
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, procs: np.ndarray = None,
+                 rank: int = 0):
         if devices.ndim != 2 or devices.size == 0:
             raise ValueError("a mesh is a non-empty (time, fx) device array")
+        if procs is None:
+            procs = np.zeros(devices.shape, dtype=int)
         self.devices = devices
+        self.procs = procs
+        self.rank = rank
         self.shape = {TIME_AXIS: devices.shape[0], FX_AXIS: devices.shape[1]}
+        flat = procs.reshape(-1)
+        self.local_shards = tuple(int(d) for d in np.flatnonzero(flat == rank))
+        self.process_count = len(set(flat.tolist()))
         self._ring_sends = {}
 
     @property
@@ -48,9 +66,43 @@ class Mesh:
         return self.devices.size
 
     @property
+    def multiprocess(self) -> bool:
+        """True when the shards span several processes."""
+        return self.process_count > 1
+
+    @property
     def flat_devices(self) -> list:
-        """The shards' devices, in shard order."""
+        """The shards' devices, in shard order (all of them; another
+        rank's device is named as that rank named it)."""
         return list(self.devices.reshape(-1))
+
+    @property
+    def local_devices(self) -> list:
+        """The devices of :attr:`local_shards`, in that order."""
+        flat = self.devices.reshape(-1)
+        return [flat[d] for d in self.local_shards]
+
+    def process_of(self, d: int) -> int:
+        """The rank that holds shard ``d``."""
+        return int(self.procs.reshape(-1)[d])
+
+    def shards_of(self, rank: int) -> tuple:
+        """The shards that ``rank`` holds, in shard order."""
+        return tuple(int(d) for d in
+                     np.flatnonzero(self.procs.reshape(-1) == rank))
+
+    def local_block(self) -> tuple:
+        """``(time rows, fx columns)`` of this rank's shards, each a
+        sorted tuple; raises unless the shards fill that rectangle (every
+        layout :func:`build_global_mesh` makes with a shard count that
+        divides evenly does)."""
+        coords = [self.coords(d) for d in self.local_shards]
+        ts = tuple(sorted({t for t, _ in coords}))
+        fs = tuple(sorted({f for _, f in coords}))
+        if len(coords) != len(ts) * len(fs):
+            raise ValueError(f"rank {self.rank}'s shards {self.local_shards} "
+                             "do not fill a block of time rows by fx columns")
+        return ts, fs
 
     def coords(self, d: int) -> tuple:
         """``(t, f)`` of shard ``d``."""
@@ -73,12 +125,16 @@ class Mesh:
         that holds a sender, ``pairs`` a tuple of ``(src, dst)`` shard
         numbers, shard ``dst`` being ``src``'s right neighbour in its
         group (the last one's is the first).  Every shard is ``src`` once
-        and ``dst`` once.  Computed once per axis and kept."""
+        and ``dst`` once; on a mesh over several processes the senders are
+        this rank's shards only.  Computed once per axis and kept."""
         if axis not in self._ring_sends:
             flat = self.flat_devices
+            local = set(self.local_shards)
             by_dev = {}
             for group in self.groups(axis):
                 for k, src in enumerate(group):
+                    if src not in local:
+                        continue
                     by_dev.setdefault(flat[src], []).append(
                         (src, group[(k + 1) % len(group)]))
             self._ring_sends[axis] = tuple(
@@ -101,13 +157,15 @@ def _device(d) -> torch.device:
     return dev
 
 
-def build_mesh(devices: Sequence, time_shards: int = 1) -> Mesh:
-    """Build a ``(time, fx)`` mesh over ``devices`` (torch devices or their
-    names; one may repeat).  ``time_shards=1`` gives the pure fx layout.
+def _layout(a: np.ndarray, time_shards: int, time_local: bool):
+    n = a.size
+    if time_local:
+        return a.reshape(n // time_shards, time_shards).T.copy()
+    return a.reshape(time_shards, n // time_shards)
 
-    The layout is time-major: shard ``t * n_fx + f`` is ``devices[t * n_fx
-    + f]``.  A caller that wants another arrangement orders the list."""
-    devs = [_device(d) for d in devices]
+
+def _arrange(devs: list, procs: list, rank: int, time_shards: int,
+             time_local: bool) -> Mesh:
     if not devs:
         raise ValueError("build_mesh needs at least one device")
     if len({d.type for d in devs}) != 1:
@@ -119,4 +177,45 @@ def build_mesh(devices: Sequence, time_shards: int = 1) -> Mesh:
                          "time shards")
     arr = np.empty(n, dtype=object)
     arr[:] = devs
-    return Mesh(arr.reshape(time_shards, n // time_shards))
+    return Mesh(_layout(arr, time_shards, time_local),
+                _layout(np.asarray(procs, dtype=int), time_shards,
+                        time_local), rank)
+
+
+def build_mesh(devices: Sequence, time_shards: int = 1,
+               time_local: bool = False) -> Mesh:
+    """Build a ``(time, fx)`` mesh over ``devices`` (torch devices or their
+    names; one may repeat).  ``time_shards=1`` gives the pure fx layout.
+
+    The layout is time-major: shard ``t * n_fx + f`` is ``devices[t * n_fx
+    + f]``.  ``time_local=True`` is the JAX package's ingest-locality
+    layout: the time axis runs within each contiguous block of
+    ``time_shards`` devices, shard ``(t, f)`` on ``devices[f * time_shards
+    + t]``, so that one process's devices split its antennas' stream in
+    time (the multi-process SP runner needs it)."""
+    devs = [_device(d) for d in devices]
+    return _arrange(devs, [0] * len(devs), 0, time_shards, time_local)
+
+
+def build_global_mesh(local_devices: Sequence, time_shards: int = 1,
+                      time_local: bool = False) -> Mesh:
+    """The mesh over every rank's devices: each rank passes its own
+    ``local_devices`` and they are gathered process-major (rank 0's
+    first), as ``jax.devices()`` orders a pod's, then laid out as
+    :func:`build_mesh` does.  Collective: every rank of the process group
+    calls it.  Without a process group (or with one rank) it is
+    :func:`build_mesh`."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return build_mesh(local_devices, time_shards, time_local)
+    mine = [str(_device(d)) for d in local_devices]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if len({len(x) for x in every}) != 1:
+        raise ValueError(f"every rank must bring as many devices: {every}")
+    rank = dist.get_rank()
+    devs, procs = [], []
+    for r, names in enumerate(every):
+        devs += [_device(x) if r == rank else torch.device(x) for x in names]
+        procs += [r] * len(names)
+    return _arrange(devs, procs, rank, time_shards, time_local)

@@ -18,12 +18,20 @@ The forms are those a JAX runner of the same ``cfg`` writes on the CPU:
   order, with a leading axis of one partial per time shard in SP mode;
   in fengine and beam mode the rank-1 dummy both packages carry;
 * a runner on a mesh saves the global carry, gathered from its shards
-  (the inverse of the cut that :func:`load_state` makes).
+  (the inverse of the cut that :func:`load_state` makes);
+* a runner on a mesh over several processes saves, on every rank, its own
+  shards into ``{path}.proc{i}of{n}.npz``, as the JAX multi-process
+  runner does: ``process_shape`` ``[i, n]`` and, per carry and shard, the
+  shard and its global index box (``history_shard{j}`` and
+  ``history_idx{j}``; ``vis_acc``, ``weights`` alike), in the forms
+  above; ``host_tail`` holds the rank's own antennas' tail.  No rank
+  gathers another's carry.
 
 :func:`load_state` is :func:`~dc_sand_tpu_torch.runtime.jax_state.load_jax_checkpoint`
 without a channel permutation: it refuses another config's file, another
-``max_delay``, other shapes and multi-process files, and copies the carry
-in place, so tensors that hold its addresses (a CUDA graph of
+``max_delay``, other shapes, a multi-process file in one process and
+another process count or layout across several, and copies the carry in
+place, so tensors that hold its addresses (a CUDA graph of
 ``run_batched``) stay valid.
 """
 
@@ -34,7 +42,8 @@ import torch
 
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.parallel import FX_AXIS, TIME_AXIS
-from dc_sand_tpu_torch.runtime.jax_state import load_jax_checkpoint
+from dc_sand_tpu_torch.runtime.jax_state import (load_jax_checkpoint,
+                                                  process_path, shard_boxes)
 
 __all__ = ["save_state", "load_state"]
 
@@ -64,16 +73,47 @@ def _global_carry(runner) -> tuple:
     return hist, np.stack(parts) if cfg.time_shards > 1 else parts[0]
 
 
+def _process_carry(runner) -> dict:
+    """This rank's shards of a multi-process runner's carries and weights,
+    each with its global index box (:func:`~dc_sand_tpu_torch.runtime.
+    jax_state.shard_boxes`)."""
+    cfg, mesh = runner.cfg, runner.mesh
+    p, m, taps = cfg.n_pols, cfg.fft_size, cfg.n_taps
+    pad0 = taps_pad_for(taps) - taps + 1
+    out = {"process_shape": np.array([mesh.rank, mesh.process_count],
+                                     np.int64)}
+    counts = {}
+    for k, d in enumerate(mesh.local_shards):
+        hist = _host(runner.history[k][:, pad0:])
+        values = {"history": hist.reshape(-1, p, (taps - 1) * m),
+                  "weights": _host(runner._weights_sh[k]),
+                  "vis_acc": _host(runner.vis_acc[k])}
+        for name, box in shard_boxes(runner, d).items():
+            j = counts.get(name, 0)
+            counts[name] = j + 1
+            out[f"{name}_shard{j}"] = values[name].reshape(
+                [hi - lo for lo, hi in box])
+            out[f"{name}_idx{j}"] = np.array(box, np.int64)
+    return out
+
+
 def save_state(runner, path: str) -> str:
     """Save ``runner``'s streaming state; returns the path actually
     written: ``path`` with ``.npz`` appended when it lacks the suffix
     (``np.savez`` would append it), the name callers must report and
-    reload."""
+    reload.  On a multi-process mesh every rank calls it with the same
+    ``path`` and writes, and returns, its own file."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     dm = runner.delay_model
     c = runner.counters
-    history, vis_acc = _global_carry(runner)
+    if runner.mesh.multiprocess:
+        path = process_path(path, runner.mesh)
+        carry = _process_carry(runner)
+    else:
+        history, vis_acc = _global_carry(runner)
+        carry = dict(history=history, vis_acc=vis_acc,
+                     weights=_host(runner.weights))
     np.savez(
         path,
         t0=runner.t0,
@@ -90,9 +130,7 @@ def save_state(runner, path: str) -> str:
         gains=_host(runner.gains),
         counters=np.array([c.chunks_in, c.chunks_dropped, c.samples_in,
                            c.spectra_out, c.dumps], np.int64),
-        history=history,
-        vis_acc=vis_acc,
-        weights=_host(runner.weights),
+        **carry,
     )
     return path
 

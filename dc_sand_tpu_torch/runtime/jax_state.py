@@ -7,6 +7,15 @@ which then continues the stream where the JAX run stopped.  A JAX run on
 a mesh saves global arrays, which are cut to the port runner's shards;
 an SP run's history holds one block per time shard and its accumulator a
 leading time axis, one partial per time shard.
+
+A runner on a mesh over several processes reads its own rank's file
+``{path}.proc{i}of{n}.npz``, which a JAX multi-process run (or the
+port's :func:`~dc_sand_tpu_torch.runtime.checkpoint.save_state` on such
+a mesh) writes: ``process_shape`` ``[i, n]``, and for each carry one
+``{name}_shard{j}`` with its global index box ``{name}_idx{j}`` (start
+and stop a dimension) per addressable shard.  Each of the rank's shards
+takes the entry whose box is its own, so the process count and the mesh
+layout must be the save's.
 """
 
 from __future__ import annotations
@@ -19,30 +28,65 @@ import torch
 
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.xcorr import acc_shape
-from dc_sand_tpu_torch.parallel import FX_AXIS
+from dc_sand_tpu_torch.parallel import FX_AXIS, TIME_AXIS
 
-__all__ = ["load_jax_checkpoint", "window_and_gains_from_numpy"]
+__all__ = ["load_jax_checkpoint", "window_and_gains_from_numpy",
+           "process_path", "shard_boxes"]
+
+
+def process_path(path: str, mesh) -> str:
+    """This rank's file of a multi-process checkpoint ``path`` (with its
+    ``.npz``): ``{stem}.proc{i}of{n}.npz``."""
+    return path[:-len(".npz")] + f".proc{mesh.rank}of{mesh.process_count}.npz"
+
+
+def shard_boxes(runner, d: int) -> dict:
+    """The global index boxes ``((start, stop), ...)`` of shard ``d``'s
+    carries, by key, in the forms of the JAX multi-process file: the
+    history in the sample-axis form ``(A, P, n_t*(taps-1)*M)`` cut by
+    antennas and time block, the fx accumulator ``(K, ap, ap)`` (with a
+    leading time axis in SP mode) by channels and time, the weights
+    ``(nb, A, K, 2)`` by antennas.  In fengine and beam mode the dummy
+    accumulator is one unsharded array (shard 0's box only)."""
+    cfg, mesh = runner.cfg, runner.mesh
+    n_t, n_f = mesh.shape[TIME_AXIS], mesh.shape[FX_AXIS]
+    t, f = mesh.coords(d)
+    a_l, p, k = cfg.n_ants // n_f, cfg.n_pols, cfg.n_chans
+    span = (cfg.n_taps - 1) * cfg.fft_size
+    boxes = {"history": ((f * a_l, (f + 1) * a_l), (0, p),
+                         (t * span, (t + 1) * span)),
+             "weights": ((0, runner.weights.shape[0]),
+                         (f * a_l, (f + 1) * a_l), (0, k), (0, 2))}
+    if runner.mode == "fx":
+        ap, k_l = cfg.n_ants * p, k // n_f
+        acc = ((f * k_l, (f + 1) * k_l), (0, ap), (0, ap))
+        boxes["vis_acc"] = ((t, t + 1),) + acc if n_t > 1 else acc
+    elif d == mesh.local_shards[0]:
+        boxes["vis_acc"] = ((0, 1),)
+    return boxes
 
 
 def _frames_history(hist: np.ndarray, cfg, want: tuple) -> np.ndarray:
     """The JAX carry in the port's frame form ``(A*P, taps_pad, M)``.
 
     A frames-I/O run (the fused TPU path) saved it in that form already.
-    A sample-axis run saved ``(A, P, (taps-1)*M)``: the stream's last
+    A sample-axis run saved ``(A, P, (taps-1)*M)`` (``want[0] / P``
+    antennas, all or a shard's): the stream's last
     taps-1 frames, which become the last taps-1 of the taps_pad frames
     (the first ``pad0`` frames are never read)."""
     if hist.shape == want:
         return hist
     m, taps = cfg.fft_size, cfg.n_taps
-    if hist.shape == (cfg.n_ants, cfg.n_pols, (taps - 1) * m):
+    a = want[0] // cfg.n_pols
+    if hist.shape == (a, cfg.n_pols, (taps - 1) * m):
         out = np.zeros(want, np.int8)
         pad0 = taps_pad_for(taps) - taps + 1
-        out[:, pad0:] = hist.reshape(cfg.n_ants * cfg.n_pols, taps - 1, m)
+        out[:, pad0:] = hist.reshape(want[0], taps - 1, m)
         return out
     raise ValueError(
         f"checkpoint history shape {hist.shape} is neither the frame form "
         f"{want} nor the sample-axis form "
-        f"{(cfg.n_ants, cfg.n_pols, (taps - 1) * m)} (a device coarse-delay "
+        f"{(a, cfg.n_pols, (taps - 1) * m)} (a device coarse-delay "
         "lead-in is not supported)")
 
 
@@ -57,13 +101,25 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     beam weights are restored too; in fengine and beam mode the
     accumulator is the rank-1 dummy that both packages carry.  A runner
     on a mesh takes a checkpoint of the same ``cfg`` (``time_shards``
-    included) from a JAX run on any mesh of one process.
+    included) from a JAX run on any mesh of one process; a runner on a
+    multi-process mesh takes its rank's file of a run with as many
+    processes and the same mesh layout (module docstring).
     """
-    if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+    mesh = runner.mesh
+    if not path.endswith(".npz") and (mesh.multiprocess
+                                      or os.path.exists(path + ".npz")):
         path = path + ".npz"      # np.savez appended the suffix at save time
+    if mesh.multiprocess:
+        path = process_path(path, mesh)
+        if not os.path.exists(path):
+            raise ValueError(
+                f"multi-process checkpoint file {path} not found — was the "
+                "save made with the same process count "
+                f"({mesh.process_count})?")
     z = np.load(path, allow_pickle=False)
-    if "process_shape" in z.files:
-        raise ValueError("multi-process checkpoints are not supported")
+    if ("process_shape" in z.files) != mesh.multiprocess:
+        raise ValueError("a multi-process checkpoint loads into a runner on "
+                         "a multi-process mesh, and only such a one")
     cfg = runner.cfg
     saved_hash = str(z["config_hash"])
     if saved_hash != cfg.config_hash():
@@ -77,6 +133,20 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
             f"checkpoint delay max_delay {int(z['delay_max'])} != runner's "
             f"{runner.max_delay}; build the resuming runner with a "
             "DelayModel of the same max_delay")
+    if mesh.multiprocess:
+        if channel_perm is not None:
+            raise NotImplementedError("channel_perm on a multi-process "
+                                      "checkpoint")
+        _restore_process_shards(runner, z)
+    else:
+        _restore_global(runner, z, channel_perm)
+    _restore_stream(runner, z, has_delay)
+
+
+def _restore_global(runner, z, channel_perm) -> None:
+    """The carry and weights of a single-process file, cut to the
+    runner's shards."""
+    cfg = runner.cfg
     n_t = cfg.time_shards
     want = (cfg.n_ants * cfg.n_pols, taps_pad_for(cfg.n_taps), cfg.fft_size)
     # one history block per time shard (only shard 0's is live)
@@ -98,6 +168,69 @@ def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
                          f"{tuple(runner.weights.shape)}")
     runner.weights = weights
     _restore_carry(runner, hists, acc)
+
+
+def _shards_of(z, name: str) -> dict:
+    """A multi-process file's entries of ``name``: box -> array."""
+    out, j = {}, 0
+    while f"{name}_shard{j}" in z.files:
+        box = tuple((int(lo), int(hi)) for lo, hi in z[f"{name}_idx{j}"])
+        out[box] = z[f"{name}_shard{j}"]
+        j += 1
+    if not out:
+        raise ValueError(f"checkpoint is missing shards for '{name}'")
+    return out
+
+
+def _restore_process_shards(runner, z) -> None:
+    """Each of this rank's shards from the entry of its own global box
+    (the JAX loader's ``make_array_from_callback`` asks for the same)."""
+    mesh, cfg = runner.mesh, runner.cfg
+    saved_n = int(z["process_shape"][1])
+    if saved_n != mesh.process_count:
+        raise ValueError(
+            f"checkpoint saved with {saved_n} processes, restoring under "
+            f"{mesh.process_count}")
+    saved = {name: _shards_of(z, name)
+             for name in ("history", "vis_acc", "weights")}
+    want = (cfg.n_ants // mesh.shape[FX_AXIS] * cfg.n_pols,
+            taps_pad_for(cfg.n_taps), cfg.fft_size)
+
+    def take(name, key):
+        if key not in saved[name]:
+            raise ValueError(
+                f"checkpoint shard layout mismatch for '{name}': this "
+                f"process needs slice {key} but saved "
+                f"{sorted(saved[name])} — resume with the same process "
+                "count and mesh shape as the save")
+        return np.ascontiguousarray(saved[name][key])
+
+    put = _copy_into
+    a_l = want[0] // cfg.n_pols
+    for k, d in enumerate(mesh.local_shards):
+        boxes = shard_boxes(runner, d)
+        put(runner.history[k], _frames_history(
+            take("history", boxes["history"]), cfg, want))
+        w = take("weights", boxes["weights"])
+        put(runner._weights_sh[k], w)
+        f0 = boxes["weights"][1][0]
+        put(runner._weights[:, f0:f0 + a_l], w)
+        if "vis_acc" in boxes:
+            acc = take("vis_acc", boxes["vis_acc"])
+            put(runner.vis_acc[k],
+                acc.reshape(runner.vis_acc[k].shape))
+
+
+def _copy_into(dst: torch.Tensor, src: np.ndarray) -> None:
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"checkpoint shard of shape {src.shape} for a "
+                         f"carry of {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+
+
+def _restore_stream(runner, z, has_delay: bool) -> None:
+    """Stream position, the coarse-delay tail, the delay model, gains and
+    counters."""
     runner.t0 = int(z["t0"])
     runner.chunk_idx = int(z["chunk_idx"])
     runner._acc_spectra = int(z["acc_spectra"])
@@ -133,9 +266,7 @@ def _restore_carry(runner, hists: list, acc: np.ndarray) -> None:
     """Cut the global carry to the shards of the runner's mesh: antenna
     rows and time block for the history, channel block and time partial
     for the accumulator."""
-    def put(dst, src):
-        dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
-
+    put = _copy_into
     mesh = runner.mesh
     n_f = mesh.shape[FX_AXIS]
     parts = acc if runner.cfg.time_shards > 1 else acc[None]

@@ -28,6 +28,20 @@ the dump metadata records how many spectra actually integrated.
 :meth:`FXRunner.run_batched` replays recorded data a dump window at a
 time, on one CUDA device as one CUDA graph a window; the state saves and
 loads with :mod:`dc_sand_tpu_torch.runtime.checkpoint`.
+
+On a mesh over several processes (:func:`~dc_sand_tpu_torch.parallel.
+build_global_mesh`; the JAX runner's multi-process SPMD) every rank runs
+one runner, holds its own shards' carries, and ``source(i)`` gives it its
+own antennas only, rows :func:`~dc_sand_tpu_torch.parallel.distributed.
+local_antenna_range`.  At a dump every rank gets the whole visibility set
+(the peers' accumulators read through CUDA IPC on the card, gloo on the
+CPU); ``on_output`` gets this rank's block of the outputs.  The JAX
+runner's refusals stand: SP needs the time axis within each process
+(``build_mesh(..., time_local=True)``), and ``run_batched`` is
+single-process.  One difference is deliberate: the JAX runner refuses the
+host coarse shift under several processes, where the port runs it per
+rank on its own antennas, each of whose whole stream the rank holds, and
+the dumps are bitwise the one-process run's.
 """
 
 from __future__ import annotations
@@ -48,7 +62,8 @@ from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
 from dc_sand_tpu_torch.ops.pfb import pfb_fir
 from dc_sand_tpu_torch.ops.xcorr import extract_vis, xcorr_accumulate_a2
-from dc_sand_tpu_torch.parallel import FX_AXIS, build_mesh
+from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
+                                        build_mesh, local_antenna_range)
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 
 logger = logging.getLogger("dc_sand_tpu_torch.runner")
@@ -107,8 +122,12 @@ class FXRunner:
         if mesh is None:
             mesh = build_mesh([default_device(device)])
         self.mesh = mesh
-        self.device = mesh.flat_devices[0]
-        self._devices = mesh.flat_devices
+        self.device = mesh.local_devices[0]
+        self._devices = mesh.local_devices
+        self._mp = mesh.multiprocess
+        self._rows = slice(0, cfg.n_ants)    # this rank's antennas
+        if self._mp:
+            self._rows = slice(*self._local_antennas(cfg, mesh))
         self.delay_model = delay_model or DelayModel.zeros(
             cfg.n_ants, cfg.n_pols)
         self.max_delay = self.delay_model.max_delay
@@ -129,13 +148,22 @@ class FXRunner:
         self.history = [torch.zeros(history_shape(cfg, mesh),
                                     dtype=torch.int8, device=dev)
                         for dev in self._devices]
-        self.vis_acc = [zero_vis_acc(cfg, dev, mesh) for dev in self._devices]
+        # the accumulators that the other ranks read at a dump
+        self._acc_bufs = None
+        if self._mp and self.device.type == "cuda" and self.mode == "fx":
+            self._acc_bufs = SharedBuffers(
+                mesh, zero_vis_acc(cfg, "cpu", mesh).shape, torch.int32)
+            self.vis_acc = self._acc_bufs.local
+        else:
+            self.vis_acc = [zero_vis_acc(cfg, dev, mesh)
+                            for dev in self._devices]
         # integer-sample (coarse) delay is a read-pointer offset applied in
         # the feed; the tail carries the previous chunk's last max_delay
-        # samples (zeros at stream start)
-        self._tail = (torch.zeros((a, p, self.max_delay),
-                                       dtype=torch.int8, device=self.device)
-                           if cfg.apply_delay and self.max_delay else None)
+        # samples of this rank's antennas (zeros at stream start)
+        a_l = self._rows.stop - self._rows.start
+        self._tail = (torch.zeros((a_l, p, self.max_delay),
+                                  dtype=torch.int8, device=self.device)
+                      if cfg.apply_delay and self.max_delay else None)
         self.counters = RunnerCounters()
         self.t0 = 0          # absolute sample index of next new sample
         self.chunk_idx = 0
@@ -146,6 +174,29 @@ class FXRunner:
         self._graph = None
         self.graph_replays = 0      # windows replayed from the graph
         self.graph_launches = {}    # kernel launches captured a window
+
+    @staticmethod
+    def _local_antennas(cfg: ChainConfig, mesh) -> tuple:
+        """``[a0, a1)`` of this rank on a multi-process mesh, with the JAX
+        runner's refusal of a time axis that crosses processes; raises
+        unless the rank's fx columns hold exactly
+        :func:`local_antenna_range`'s antennas."""
+        ts, fs = mesh.local_block()
+        if len(ts) != mesh.shape[TIME_AXIS]:
+            raise NotImplementedError(
+                "multi-process SP streaming needs the time axis "
+                "process-local (build_mesh(..., time_local=True)): one "
+                "host ingests its antennas' contiguous stream; a time "
+                "shard crossing hosts would split that stream across NICs "
+                "and put the overlap-save halo on DCN")
+        a0, a1 = local_antenna_range(cfg.n_ants)
+        a_l = cfg.n_ants // mesh.shape[FX_AXIS]
+        if (fs[0] * a_l, (fs[-1] + 1) * a_l) != (a0, a1):
+            raise ValueError(
+                f"rank {mesh.rank} holds fx columns {fs}, not those of its "
+                f"antennas [{a0}, {a1}) (build the mesh with "
+                "build_global_mesh)")
+        return a0, a1
 
     @property
     def gains(self) -> torch.Tensor:
@@ -171,7 +222,7 @@ class FXRunner:
         # each fx shard's antennas
         a_l = self.cfg.n_ants // self.mesh.shape[FX_AXIS]
         self._weights_sh = []
-        for d, dev in enumerate(self._devices):
+        for d, dev in zip(self.mesh.local_shards, self._devices):
             f = self.mesh.coords(d)[1]
             self._weights_sh.append(
                 self._weights[:, f * a_l:(f + 1) * a_l].contiguous().to(dev))
@@ -261,6 +312,10 @@ class FXRunner:
         if self.mode != "fx":
             raise ValueError("run_batched is fx-mode only (other modes "
                              "emit per-chunk outputs; use run)")
+        if self._mp:
+            raise NotImplementedError(
+                "run_batched is a single-process offline-replay path; "
+                "multi-process streaming uses run()")
         b = cfg.spectra_per_chunk
         if cfg.n_spectra_per_acc % b:
             raise ValueError("n_spectra_per_acc must be a multiple of "
@@ -333,7 +388,8 @@ class FXRunner:
         given) and the per-spectrum delays ``(A*P, B)`` float32 numpy."""
         cfg = self.cfg
         b = cfg.spectra_per_chunk
-        a, p = cfg.n_ants, cfg.n_pols
+        rows = self._rows
+        a, p = rows.stop - rows.start, cfg.n_pols
         shape = (a * p, b, cfg.fft_size)
         dropped = i in drop
         if dropped:
@@ -347,8 +403,8 @@ class FXRunner:
             chunk = torch.from_numpy(np.ascontiguousarray(chunk))
         if chunk.dtype != torch.int8:
             raise ValueError(f"source chunks must be int8, got {chunk.dtype}")
-        coarse, frac, phase = self.delay_model.evaluate_chunk(
-            self.t0, b, cfg.fft_size)
+        coarse, frac, phase = (v[rows] for v in self.delay_model.
+                               evaluate_chunk(self.t0, b, cfg.fft_size))
         if self._tail is not None:
             chunk = self._coarse_shift(chunk.to(self.device), coarse, out)
         elif out is not None:
@@ -361,8 +417,9 @@ class FXRunner:
         self.counters.spectra_out += b
         self.t0 += cfg.chunk_samples
         self.chunk_idx += 1
-        return (chunk.contiguous(), frac.reshape(a * p, b),
-                phase.reshape(a * p, b), dropped)
+        return (chunk.contiguous(), np.ascontiguousarray(frac).reshape(
+            a * p, b), np.ascontiguousarray(phase).reshape(a * p, b),
+            dropped)
 
     def _step_args(self, chunk, frac, phase) -> tuple:
         """The step's arguments after the carries: ``(chunk, frac, phase,
@@ -372,8 +429,10 @@ class FXRunner:
             self._gains_sh, self._weights_sh)
 
     def _acc_total(self) -> torch.Tensor:
-        """The packed ``(K, ap, ap)`` accumulator on the device."""
-        return gather_acc(self.vis_acc, self.mesh, self.device)
+        """The packed ``(K, ap, ap)`` accumulator on the device (the whole
+        plane, on every rank of a multi-process mesh)."""
+        return gather_acc(self.vis_acc, self.mesh, self.device,
+                          self._acc_bufs)
 
     def _coarse_shift(self, chunk: torch.Tensor, coarse: np.ndarray,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -384,11 +443,12 @@ class FXRunner:
         cfg = self.cfg
         md = self.max_delay
         c = cfg.chunk_samples
-        chunk = chunk.reshape(cfg.n_ants, cfg.n_pols, c)
+        a = self._tail.shape[0]
+        chunk = chunk.reshape(a, cfg.n_pols, c)
         buf = torch.cat([self._tail, chunk], dim=-1)
         out = (torch.empty_like(chunk) if out is None
-               else out.view(cfg.n_ants, cfg.n_pols, c))
-        for idx in np.ndindex(cfg.n_ants, cfg.n_pols):
+               else out.view(a, cfg.n_pols, c))
+        for idx in np.ndindex(a, cfg.n_pols):
             off = md - int(coarse[idx])
             out[idx] = buf[idx][off:off + c]
         # .clone(): a view would pin the whole concat buffer between steps

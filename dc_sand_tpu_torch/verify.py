@@ -19,6 +19,7 @@ from dc_sand_tpu_torch import golden
 from dc_sand_tpu_torch.config import get_config, scaled_for_test
 from dc_sand_tpu_torch.models.pipeline import mode_for
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
+from dc_sand_tpu_torch.parallel import FX_AXIS, local_antenna_range
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.utils.cplx import np_ri2c
@@ -114,7 +115,11 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     (the mesh's time axis), the chunk raised to ``time_shards *
     taps_pad`` spectra at least so that every time shard holds its
     overlap-save halo, and ``beam_parallel`` the beam-sharded B-engine,
-    as the JAX verify does.
+    as the JAX verify does.  On a mesh over several processes every rank
+    calls it alike: each draws the same seeded sky, feeds its own
+    antennas (:func:`~dc_sand_tpu_torch.parallel.local_antenna_range`),
+    and grades the whole dump, its own antennas' spectra, or the beams
+    it holds.
 
     fx mode only, each mutually exclusive with the other (the device
     still computes every baseline; the grading draws from ``seed`` as the
@@ -182,11 +187,16 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     if mode == "beam":
         weights = rng.normal(size=(cfg.n_beams, a, k, 2)).astype(np.float32)
 
+    # on a multi-process mesh every rank draws the same sky and feeds its
+    # own antennas; each grades the whole dump, its own antennas' spectra
+    # and its own share of beam-parallel beams
+    a_lo, a_hi = (local_antenna_range(a) if mesh is not None
+                  and mesh.multiprocess else (0, a))
     runner = FXRunner(cfg, window, delay_model=dm, gains=gains_ri,
                       weights=weights, device=device, mesh=mesh, fused=fused)
     outputs = []
     dumps, counters = runner.run(
-        lambda i: stream[..., i * cfg.chunk_samples:
+        lambda i: stream[a_lo:a_hi, :, i * cfg.chunk_samples:
                          (i + 1) * cfg.chunk_samples], n_chunks,
         on_output=lambda i, o: outputs.append(
             {name_: v.cpu().numpy() for name_, v in o.items()}))
@@ -198,7 +208,7 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     snrs: Dict[str, float] = {}
     if mode == "fengine":
         got = np.concatenate([o["spectra"] for o in outputs], axis=2)
-        snrs["spectra"] = snr_db(spec_g, np_ri2c(got))
+        snrs["spectra"] = snr_db(spec_g[a_lo:a_hi], np_ri2c(got))
         return snrs, counters
     if mode == "fx":
         snrs["visibilities"] = _grade_dumps(cfg, dumps, spec_g, rng,
@@ -206,6 +216,10 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
         return snrs, counters
     beams = np.concatenate([o["beams"] for o in outputs], axis=2)
     beams_g = golden.beamform(spec_g, weights[..., 0] + 1j * weights[..., 1])
+    if cfg.beam_parallel and mesh is not None and mesh.multiprocess:
+        nb_l = cfg.n_beams // mesh.shape[FX_AXIS]
+        _, fs = mesh.local_block()
+        beams_g = beams_g[fs[0] * nb_l:(fs[-1] + 1) * nb_l]
     snrs["beams"] = snr_db(beams_g, beams[..., 0] + 1j * beams[..., 1])
     if cfg.incoherent_beam:
         snrs["incoherent"] = snr_db(

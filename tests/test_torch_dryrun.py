@@ -6,6 +6,7 @@ runner's (jnp arm) on the same inputs."""
 
 import numpy as np
 import pytest
+import torch
 
 from dc_sand_tpu_torch.dryrun import (dryrun_modes, dryrun_multichip,
                                       dryrun_reference, main)
@@ -18,7 +19,8 @@ MODES = {n: list(dryrun_modes(n)) for n in (2, 4)}
 
 @pytest.fixture(scope="module")
 def runs():
-    return {n: (dryrun_multichip(n), dryrun_reference(n)) for n in MODES}
+    return {n: (dryrun_multichip(n, ["cpu"] * n),
+                dryrun_reference(n, device="cpu")) for n in MODES}
 
 
 @pytest.mark.parametrize("n,mode", [(n, m) for n, ms in MODES.items()
@@ -71,3 +73,13 @@ def test_main_on_cpu_shards(capsys):
     out = capsys.readouterr().out
     assert "dryrun_multichip(2): fx + beam + beam_parallel + sp_fx + " \
         "time_fengine + fused_fx ran" in out
+
+
+def test_defaults_are_the_card(monkeypatch):
+    """Without a device argument both entry points run on the card, and
+    without one they raise rather than fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_reference(2)

@@ -48,7 +48,8 @@ BENCH_MODULES = ("bench", "bench.__main__", "bench.harness", "bench.probes",
                  "bench.ingest_bench", "examples", "examples.spead_loopback",
                  "examples.udp_observation", "examples.fx_observation",
                  "examples.observe", "examples.beams",
-                 "examples.beam_pointing", "dryrun", "profile_step")
+                 "examples.beam_pointing", "dryrun", "profile_step",
+                 "parallel.distributed", "parallel.ipc", "parallel.launch")
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -59,6 +60,24 @@ def test_port_and_chip_smoke_import_without_jax():
     names = set(res.stdout.split())
     assert len(names) >= 55
     assert {f"dc_sand_tpu_torch.{m}" for m in BENCH_MODULES} <= names
+
+
+def test_init_distributed_with_one_process_is_a_no_op():
+    """Without a launcher's environment ``init_distributed`` joins no
+    process group and answers with the JAX function's keys."""
+    import torch.distributed as dist
+    from dc_sand_tpu_torch.parallel import init_distributed
+    env = {k: os.environ.pop(k) for k in ("RANK", "WORLD_SIZE")
+           if k in os.environ}
+    try:
+        info = init_distributed()
+    finally:
+        os.environ.update(env)
+    assert set(info) == {"process_index", "process_count", "local_devices",
+                         "global_devices"}
+    assert (info["process_index"], info["process_count"]) == (0, 1)
+    assert info["global_devices"] == info["local_devices"] >= 1
+    assert not dist.is_initialized()
 
 
 def test_cuda_impl_on_cpu_tensors_raises():

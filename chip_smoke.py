@@ -5,8 +5,8 @@ Run from the repository root with ``python3 chip_smoke.py`` (no
 arguments, one card).  It imports no jax.  Phases, each of which fails
 the run (non-zero exit) when it fails:
 
-1. build the six CUDA kernel sources from ``dc_sand_tpu_torch/csrc``, one
-   nvcc per source, all started together, and beside them the CMAC's
+1. build the seven CUDA kernel sources from ``dc_sand_tpu_torch/csrc``,
+   one nvcc per source, all started together, and beside them the CMAC's
    phases build;
 2. F-engine kernel (K1) vs its plain version at the fx64 chunk shape
    (128 streams x 2048 spectra x 8192 samples): every difference a
@@ -186,7 +186,29 @@ single-process surface:
     them; K1, the CMAC, the beam kernel, K6, K7a and K7b launched; each
     mode's ms;
 31. the bench entry's ``fengine`` target with ``--profile DIR``: the
-    Chrome trace exists and names K1's launches.
+    Chrome trace exists and names K1's launches;
+35. the coarse gather (``csrc/coarse.cu``, one launch for all the
+    streams) vs its plain version, bitwise, at fx64's chunk (128 streams
+    x 2048 x 8192), beam64's (256 spectra) and B = 24, delays 0-32 over
+    the streams, with the device mode's lead-in (32 + 15 frames) and the
+    host mode's tail (32): timed beside its byte bound, the plain
+    version (the 128 slice copies the host shift ran before) and, at
+    fx64, one ``torch.gather`` with an int64 index as large as the
+    output;
+36. fx64 at production cadence in the device coarse mode
+    (``coarse_on_host=False``), phase 6's chunks and delay model, whose
+    coarse delay steps on a few streams: the dump bitwise the same run
+    through the plain gather; gather 4, K1 4, CMAC 4; under a constant
+    coarse delay the two modes' dumps bitwise equal; ``run_batched``
+    (the gather captured in the graph) bitwise ``run()``; beam64 at its
+    cadence in the device mode (gather 8, K1 8, beam kernel 8), outputs
+    bitwise the plain-gather run's, ``run()`` ms a chunk and the idle
+    share of a traced window beside the host shift's; ``verify fx64`` in
+    the device mode > 50 dB.  Phases 35 and 36 run before 32-34, whose
+    ranks read phase 36's sha256.
+
+Every phase whose runner has a coarse delay on the host path counts one
+gather launch a chunk (the feed's shift).
 
 Phases 32-34 drive the multi-process mode: the script runs itself again
 (``--rank``) as two ``torch.distributed`` ranks on the card
@@ -204,7 +226,8 @@ prints ``RESULT`` lines; a rank's failure fails the run:
     sum over the ranks gives the idle share; then K7b across the ranks at
     phase 14's corner-turn shape bitwise its plain version over gloo, one
     launch a call a rank, timed beside it and ``copy_`` into the peers'
-    mappings;
+    mappings; then the same fx64 run in the device coarse mode, each rank
+    gathering its shards' antennas (gather 8 a rank): sha256 phase 36's;
 33. beam64 across the ranks, replicated and beam-parallel, phase 9's
     chunks: >= 100 dB from one card's beams (each rank runs that
     reference), the beam-parallel share equal to the replicated beams';
@@ -212,10 +235,12 @@ prints ``RESULT`` lines; a rank's failure fails the run:
     them) at phase 15's halo shape, bitwise its plain version, timed;
     fx64 in SP mode with the time axis within each rank: dump sha256
     phase 6's, ring 4 and all-to-all 4 a rank;
-34. the per-rank checkpoint at fx64: 2 chunks, each rank saves its own
-    file; new processes load them and run chunks 3-4 to phase 6's sha256;
-    then ``cli verify fx4 --distributed --mesh 4`` (> 50 dB on every
-    rank) and ``cli bench collectives --distributed`` in those processes.
+34. the per-rank checkpoint at fx64, in both coarse modes: 2 chunks,
+    each rank saves its own file (the device mode's holds the lead-in);
+    new processes load them and run chunks 3-4 to phase 6's sha256 and
+    phase 36's; then ``cli verify fx4 --distributed --mesh 4`` (the
+    device coarse mode, > 50 dB on every rank) and ``cli bench
+    collectives --distributed`` in those processes.
 
 Two processes on one card time-slice it: their times are not a scaling
 measurement.
@@ -238,16 +263,20 @@ in the wire layout and the beam kernel, 12's fused pfb1k for K1-float, 13
 for K6, 16 and 17 together for the ring and the all-to-all in
 corner-turn mode, 20's probes target for P1 and P2, and for
 ``all_to_all_ipc`` and ``ring_ipc``, the same kernels across processes,
-both ranks' launches in phases 32 and 33), times from phases 2, 3, 7,
-10, 11, 14, 15, 19, 32 and 33 (the probes with the L2 flushed; the IPC
-rows rank 0's); the last is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-when no CUDA device is present.
+both ranks' launches in phases 32 and 33, and 36's device-mode fx64 and
+beam64 runs for the coarse gather), times from phases 2, 3, 7, 10, 11,
+14, 15, 19, 32, 33 and 35 (the probes with the L2 flushed; the IPC rows
+rank 0's; the gather's at fx64 with the lead-in); the last is ``{"ok":
+true, "device": {...}}``.  Exits non-zero, printing no result, when no
+CUDA device is present.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
+import functools
 import hashlib
 import io
 import json
@@ -275,6 +304,7 @@ CMAC_SPECTRA = (2048, 1024, 256)   # phase 3's timings: fx64, SP, the bench
 INGEST_WORKERS = 4         # phase 24: one assembler a NIC queue, 16 ants each
 RANKS = 2                  # phases 32-34: processes on the card, 2 shards each
 RAGGED_SPECTRA = (1, 8, 24, 2040)  # phase 26: B not a multiple of 16
+GATHER_MAX_DELAY = 32      # phase 35: the production model's lead-in
 
 
 def _events_ms(fn, n):
@@ -315,6 +345,7 @@ def _wrappers() -> dict:
     """Each kernel's wrapper, by the name of its launch counter."""
     from dc_sand_tpu_torch.bench.probes import read_probe, write_probe
     from dc_sand_tpu_torch.ops.beamform import beamform
+    from dc_sand_tpu_torch.ops.coarse import coarse_gather
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
     from dc_sand_tpu_torch.ops.pfb import pfb_fir
     from dc_sand_tpu_torch.ops.xcorr import xcorr_accumulate_a2
@@ -327,7 +358,8 @@ def _wrappers() -> dict:
             "all_to_all": (all_to_all, "launches"),
             "ring": (ring_permute_right, "launches"),
             "read_probe": (read_probe, "launches"),
-            "write_probe": (write_probe, "launches")}
+            "write_probe": (write_probe, "launches"),
+            "coarse": (coarse_gather, "launches")}
 
 
 def _zero_counts() -> None:
@@ -354,13 +386,17 @@ def _rank_result(phase, **values) -> None:
     print("RESULT " + json.dumps({"phase": phase, **values}), flush=True)
 
 
-def _fx64_mesh_run(dev, mesh, digest6, label, trace=None) -> dict:
+def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
+                   coarse_on_host=True) -> dict:
     """fx64 at production cadence over a multi-process ``mesh``, this
-    rank's antennas of phase 6's chunks: the dump must be phase 6's; the
-    launch counts, ``run()``'s steady ms a chunk and the barriers' host ms
-    a chunk; with ``trace`` (a path) a third run under ``torch.profiler``
-    gives this rank's device intervals and that run's host window, both
-    in microseconds of the host's clock."""
+    rank's antennas of phase 6's chunks, in the coarse mode
+    ``coarse_on_host``: the dump's sha256 must be ``digest`` (phase 6's,
+    or phase 36's in the device mode); the launch counts (the gather once
+    a chunk on the host path, once a shard and chunk in the device mode),
+    ``run()``'s steady ms a chunk and the barriers' host ms a chunk; with
+    ``trace`` (a path) a third run under ``torch.profiler`` gives this
+    rank's device intervals and that run's host window, both in
+    microseconds of the host's clock."""
     import torch
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.parallel import SharedBuffers, local_antenna_range
@@ -370,7 +406,8 @@ def _fx64_mesh_run(dev, mesh, digest6, label, trace=None) -> dict:
     a0, a1 = local_antenna_range(cfg.n_ants)
     gen = torch.Generator(device=dev)
     gen.manual_seed(FX64_SEED)
-    runner, chunks = production_runner(cfg, gen, dev, mesh=mesh)
+    runner, chunks = production_runner(cfg, gen, dev, mesh=mesh,
+                                       coarse_on_host=coarse_on_host)
     n = len(chunks)
 
     def source(i):
@@ -382,9 +419,11 @@ def _fx64_mesh_run(dev, mesh, digest6, label, trace=None) -> dict:
     torch.cuda.synchronize()
     local = len(mesh.local_shards)
     launches = _counts(fengine=n * local, cmac=n * local, all_to_all=n,
-                       ring=n if n_t > 1 else 0)
-    if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
-        raise RuntimeError(f"{label}: the dump is not phase 6's")
+                       ring=n if n_t > 1 else 0,
+                       coarse=n if coarse_on_host else n * local)
+    if len(dumps) != 1 or _digest(dumps[0].vis) != digest:
+        raise RuntimeError(f"{label}: the dump's sha256 is not "
+                           + ("phase 6's" if coarse_on_host else "phase 36's"))
     b0, c0 = SharedBuffers.barrier_s, SharedBuffers.barriers
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -394,7 +433,8 @@ def _fx64_mesh_run(dev, mesh, digest6, label, trace=None) -> dict:
     barrier_ms = (SharedBuffers.barrier_s - b0) / n * 1e3
     barriers = (SharedBuffers.barriers - c0) / n
     print(f"[{label}] rank {mesh.rank}: {n} chunks of its antennas "
-          f"[{a0}, {a1}) -> 1 dump, sha256 phase 6's; launches {launches}; "
+          f"[{a0}, {a1}) -> 1 dump, sha256 phase "
+          f"{6 if coarse_on_host else 36}'s; launches {launches}; "
           f"steady run() per chunk {step_ms:.3f} ms, of it {barriers:.1f} "
           f"gloo barriers {barrier_ms:.3f} ms host time", flush=True)
     out = {"launches": launches, "step_ms": step_ms,
@@ -496,8 +536,8 @@ def _ipc_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label):
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
-def _phases_32_33(dev, digest6, tmp) -> None:
-    """This rank's part of phases 32, 33 and 34's save."""
+def _phases_32_33(dev, digest6, digest36, tmp) -> None:
+    """This rank's part of phases 32, 33 and 34's saves."""
     import torch
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.ops.pfb import taps_pad_for
@@ -513,6 +553,10 @@ def _phases_32_33(dev, digest6, tmp) -> None:
     fx = _fx64_mesh_run(dev, mesh, digest6, "32 fx64 2 ranks",
                         trace=os.path.join(tmp, f"fx64_rank{rank}.json"))
     _rank_result(32, run=fx)
+    # the device coarse mode: each rank gathers its shards' antennas
+    fxd = _fx64_mesh_run(dev, mesh, digest36, "32 fx64 2 ranks device coarse",
+                         coarse_on_host=False)
+    _rank_result(32, dev_run=fxd)
     nch, s_l = FX64_M // 2, FX64_STREAMS // SHARDS
     shape = (nch, 2, s_l, FX64_SPECTRA)
     gen = torch.Generator(device=dev)
@@ -552,7 +596,7 @@ def _phases_32_33(dev, digest6, tmp) -> None:
                    on_output=lambda i, o: got.append(o))
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t) / n * 1e3
-        launches = _counts(fengine=2 * n, beamform=2 * n)
+        launches = _counts(fengine=2 * n, beamform=2 * n, coarse=n)
         outs[ep] = got
         snr_b = min(_snr_db(r["beams"][share if ep else slice(None)],
                             o["beams"]) for r, o in zip(ref, got))
@@ -589,23 +633,29 @@ def _phases_32_33(dev, digest6, tmp) -> None:
     spx = _fx64_mesh_run(dev, sp_local, digest6, "33 fx64 SP 2 ranks")
     _rank_result(33, sp_run=spx)
     torch.cuda.empty_cache()
-    # ---- 34. (first half) 2 chunks, then each rank saves its own file ---
+    # ---- 34. (first half) 2 chunks, then each rank saves its own file, in
+    # both coarse modes (the device mode's file holds the lead-in) --------
     cfg = get_config("fx64")
-    gen.manual_seed(FX64_SEED)
-    runner, chunks = production_runner(cfg, gen, dev, mesh=mesh)
-    runner.run(lambda i: chunks[i][a0:a1], 2)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    path = save_state(runner, os.path.join(tmp, "fx64"))
-    save_s = time.perf_counter() - t
-    _rank_result(34, saved=path, save_s=save_s,
-                 mb=os.path.getsize(path) / 1e6)
+    for name, on_host in (("fx64", True), ("fx64dev", False)):
+        gen.manual_seed(FX64_SEED)
+        runner, chunks = production_runner(cfg, gen, dev, mesh=mesh,
+                                           coarse_on_host=on_host)
+        runner.run(lambda i: chunks[i][a0:a1], 2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = save_state(runner, os.path.join(tmp, name))
+        save_s = time.perf_counter() - t
+        _rank_result(34, saved=path, save_s=save_s, device_coarse=not on_host,
+                     mb=os.path.getsize(path) / 1e6)
+        del runner, chunks
+        torch.cuda.empty_cache()
 
 
-def _phase_34(dev, digest6, tmp) -> None:
-    """Phase 34 in new processes: load this rank's file, run chunks 3-4;
-    then ``cli verify fx4 --distributed --mesh 4`` and ``cli bench
-    collectives --distributed``."""
+def _phase_34(dev, digest6, digest36, tmp) -> None:
+    """Phase 34 in new processes: load this rank's files of both coarse
+    modes, run chunks 3-4 of each; then ``cli verify fx4 --distributed
+    --mesh 4`` (the device coarse mode) and ``cli bench collectives
+    --distributed``."""
     import torch
     from dc_sand_tpu_torch.cli import main as cli_main
     from dc_sand_tpu_torch.config import get_config
@@ -620,25 +670,35 @@ def _phase_34(dev, digest6, tmp) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(FX64_SEED)
     _, chunks = production_runner(cfg, gen, dev)
-    resumed = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
-                       delay_model=DelayModel.zeros(cfg.n_ants, cfg.n_pols,
-                                                    32), mesh=mesh)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    load_state(resumed, os.path.join(tmp, "fx64"))
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t
-    _zero_counts()
-    dumps, _ = resumed.run(lambda i: chunks[i][a0:a1], 2)
-    torch.cuda.synchronize()
-    launches = _counts(fengine=4, cmac=4, all_to_all=2)
-    if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
-        raise RuntimeError("34: the resumed dump is not phase 6's")
-    print(f"[34 checkpoint 2 ranks] rank {mesh.rank}: loaded its file in a "
-          f"new process ({load_s:.3f} s), chunks 3-4 -> dump sha256 phase "
-          f"6's; launches {launches}", flush=True)
-    _rank_result(34, load_s=load_s, launches=launches)
-    del resumed, chunks, dumps
+    for name, on_host, digest in (("fx64", True, digest6),
+                                  ("fx64dev", False, digest36)):
+        resumed = FXRunner(
+            cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
+            delay_model=DelayModel.zeros(cfg.n_ants, cfg.n_pols, 32),
+            mesh=mesh, coarse_on_host=on_host)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        load_state(resumed, os.path.join(tmp, name))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        _zero_counts()
+        dumps, _ = resumed.run(lambda i: chunks[i][a0:a1], 2)
+        torch.cuda.synchronize()
+        launches = _counts(fengine=4, cmac=4, all_to_all=2,
+                           coarse=2 if on_host else 4)
+        phase = 6 if on_host else 36
+        if len(dumps) != 1 or _digest(dumps[0].vis) != digest:
+            raise RuntimeError(f"34 ({name}): the resumed dump is not phase "
+                               f"{phase}'s")
+        print(f"[34 checkpoint 2 ranks{'' if on_host else ' device coarse'}]"
+              f" rank {mesh.rank}: loaded its file in a new process "
+              f"({load_s:.3f} s), chunks 3-4 -> dump sha256 phase {phase}'s; "
+              f"launches {launches}", flush=True)
+        _rank_result(34, load_s=load_s, launches=launches,
+                     device_coarse=not on_host)
+        del resumed, dumps
+        torch.cuda.empty_cache()
+    del chunks
     torch.cuda.empty_cache()
     for argv in (["verify", "fx4", "--distributed", "--mesh", "4"],
                  ["bench", "collectives", "--distributed", "--mesh", "4"]):
@@ -666,7 +726,7 @@ def _phase_34(dev, digest6, tmp) -> None:
 
 
 def _rank_main(argv) -> int:
-    """A rank of phases 32-34: ``--rank {32-33,34} DIGEST6 DIR``."""
+    """A rank of phases 32-34: ``--rank {32-33,34} DIGEST6 DIGEST36 DIR``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -680,8 +740,9 @@ def _rank_main(argv) -> int:
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    which, digest6, tmp = argv
-    (_phases_32_33 if which == "32-33" else _phase_34)(dev, digest6, tmp)
+    which, digest6, digest36, tmp = argv
+    (_phases_32_33 if which == "32-33" else _phase_34)(dev, digest6, digest36,
+                                                       tmp)
     ipc.close_all()
     dist.destroy_process_group()
     return 0
@@ -729,6 +790,7 @@ def main() -> int:
     from dc_sand_tpu_torch.bench.probes import read_probe, write_probe
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.ops.beamform import beamform
+    from dc_sand_tpu_torch.ops.coarse import coarse_gather
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
     from dc_sand_tpu_torch.ops.pfb import pfb_fir, taps_pad_for
     from dc_sand_tpu_torch.ops.xcorr import (cmac_pitch, extract_vis,
@@ -745,7 +807,9 @@ def main() -> int:
                                             observe, udp_observation)
     from dc_sand_tpu_torch.examples import beams as ex_beams
     from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, INGEST_SEED,
+                                                chrome_trace, device_busy_us,
                                                 ingest_setup, noise_int8,
+                                                production_delay_model,
                                                 production_runner)
     from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
                                            save_state)
@@ -951,7 +1015,7 @@ def main() -> int:
     dumps, counters = runner.run(lambda i: chunks[i % n_chunks], n_chunks)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    launches = counts(fengine=n_chunks, cmac=n_chunks)
+    launches = counts(fengine=n_chunks, cmac=n_chunks, coarse=n_chunks)
     if len(dumps) != 1 or dumps[0].n_spectra != cfg.n_spectra_per_acc:
         raise RuntimeError(f"expected one {cfg.n_spectra_per_acc}-spectra "
                            f"dump, got {[d.n_spectra for d in dumps]}")
@@ -1094,7 +1158,8 @@ def main() -> int:
                on_output=lambda i, o: outs.append(o))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    beam_launches = counts(fengine=BEAM_CHUNKS, beamform=BEAM_CHUNKS)
+    beam_launches = counts(fengine=BEAM_CHUNKS, beamform=BEAM_CHUNKS,
+                           coarse=BEAM_CHUNKS)
     b = cfg.spectra_per_chunk
     for o in outs:
         beams, inc = o["beams"], o["incoherent"]
@@ -1240,6 +1305,8 @@ def main() -> int:
             n = counters.chunks_in
             want = ({"fengine_float" if name == "pfb1k" else "fengine": n}
                     if fused else {"pfb": n})
+            if get_config(name).apply_delay:     # the feed's coarse shift
+                want["coarse"] = n
             got_counts = counts(**want)
             fengine_launches[(name, fused)] = got_counts
             snr = snrs["spectra"]
@@ -1264,7 +1331,7 @@ def main() -> int:
     dumps, _ = runner.run(lambda i: chunks[i % n_chunks], n_chunks)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    unfused_launches = counts(pfb=n_chunks, cmac=n_chunks)
+    unfused_launches = counts(pfb=n_chunks, cmac=n_chunks, coarse=n_chunks)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if len(dumps) != 1 or dumps[0].vis.shape != vis_fused.shape:
         raise RuntimeError("the unfused fx64 run made no dump of phase 6's "
@@ -1450,7 +1517,8 @@ def main() -> int:
         n_sh = n_chunks * SHARDS
         got_counts = counts(fengine=n_sh, cmac=n_sh,
                             all_to_all=n_chunks * n_cards,
-                            ring=n_chunks * n_cards if time_shards > 1 else 0)
+                            ring=n_chunks * n_cards if time_shards > 1 else 0,
+                            coarse=n_chunks)
         mesh_launches[phase] = got_counts
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if len(dumps) != 1 or not np.array_equal(dumps[0].vis, vis_fused):
@@ -1497,7 +1565,7 @@ def main() -> int:
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t) / n_chunks * 1e3
         n_sh = n_chunks * SHARDS
-        got_counts = counts(fengine=n_sh, beamform=n_sh)
+        got_counts = counts(fengine=n_sh, beamform=n_sh, coarse=n_chunks)
         beam_outs[ep] = outs
         snr_b = min(_snr_db(r["beams"], o["beams"])
                     for r, o in zip(beam_ref, outs))
@@ -1609,7 +1677,8 @@ def main() -> int:
             torch.cuda.synchronize()
             n_sh = 2 * (mesh.size if mesh else 1)
             got_counts = counts(fengine=n_sh, cmac=n_sh,
-                                all_to_all=2 * n_cards if mesh else 0)
+                                all_to_all=2 * n_cards if mesh else 0,
+                                coarse=2)
             if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
                 raise RuntimeError(f"phase 21 ({label}): the resumed dump is "
                                    "not phase 6's")
@@ -1633,10 +1702,11 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     # the wrappers count calls: one warm-up step, then the captured window
-    batched_counts = counts(fengine=n_chunks + 1, cmac=n_chunks + 1)
+    batched_counts = counts(fengine=n_chunks + 1, cmac=n_chunks + 1,
+                            coarse=n_chunks)   # the feed's, not captured
     captured, replays = runner.graph_launches, runner.graph_replays
-    if (captured != {"fengine": n_chunks, "pfb": 0, "cmac": n_chunks}
-            or replays != 1):
+    if (captured != {"fengine": n_chunks, "pfb": 0, "cmac": n_chunks,
+                     "coarse": 0} or replays != 1):
         raise RuntimeError(f"run_batched captured {captured} in {replays} "
                            f"replays, want K1 and the CMAC {n_chunks} each "
                            "in 1")
@@ -1928,7 +1998,7 @@ def main() -> int:
     t = time.perf_counter()
     snrs, counters = verify_config("fx64", device=dev, spectra_per_chunk=24,
                                    n_spectra_per_acc=48)
-    verify_counts = ran("fengine", "cmac")
+    verify_counts = ran("fengine", "cmac", "coarse")
     snr = snrs["visibilities"]
     print(f"[28 verify fx64 ragged] 24-spectra chunks, 48-spectra dumps: "
           f"visibilities {snr:.2f} dB vs golden over {counters.dumps} dumps "
@@ -1952,7 +2022,7 @@ def main() -> int:
         if rc != 0 or "PASS" not in out.getvalue().split():
             raise RuntimeError(f"example {name} did not pass on the card")
         if name == "observe":
-            ran("fengine", "cmac")
+            ran("fengine", "cmac", "coarse")
             print(f"[29 observe] launches: K1 {ex_counts['fengine']}, CMAC "
                   f"{ex_counts['cmac']} (8-spectra chunks) ({card})",
                   flush=True)
@@ -1979,7 +2049,8 @@ def main() -> int:
                 raise RuntimeError(f"dry run {name}: {key} on {SHARDS} shards "
                                    "!= one card")
     if not all(dry_counts[k] for k in ("fengine", "cmac", "beamform",
-                                       "all_to_all", "ring", "pfb")):
+                                       "all_to_all", "ring", "pfb",
+                                       "coarse")):
         raise RuntimeError(f"the dry run missed a kernel: {dry_counts}")
     print(f"[30 dryrun] {SHARDS} shards on one card: " + ", ".join(
         f"{k} {r.ms:.1f} ms" for k, r in dry.items()) + "; fx dumps and "
@@ -2006,14 +2077,251 @@ def main() -> int:
               f"{rec['name']} {rec['value']:.4g} {rec['unit']} ({card})",
               flush=True)
 
+    # ---- 35. the coarse gather kernel vs plain ----------------------------
+    # fx64's chunk, beam64's and a ragged B = 24, 128 streams of M = 8192,
+    # delays 0-32 over the streams; the device mode's lead-in (32 + 15
+    # frames, history frames written) and the host mode's tail (32)
+    md = GATHER_MAX_DELAY
+    n_h = (TAPS - 1) * FX64_M
+    tp = taps_pad_for(TAPS)
+    d = torch.arange(FX64_STREAMS, device=dev, dtype=torch.int32) % (md + 1)
+    gather_times = {}
+    for label, b in (("fx64", FX64_SPECTRA), ("beam64", BEAM_SPECTRA),
+                     ("B 24", 24)):
+        gen.manual_seed(35)
+        chunk = noise_int8(gen, (FX64_STREAMS, b, FX64_M), dev)
+        for lead_len in (md + n_h, md):
+            lead = noise_int8(gen, (FX64_STREAMS, lead_len), dev)
+            bufs = {}
+            for impl in ("cuda", "torch"):
+                hist = (torch.zeros((FX64_STREAMS, tp, FX64_M),
+                                    dtype=torch.int8, device=dev)
+                        if lead_len > md else None)
+                out = torch.empty_like(chunk)
+                coarse_gather(lead, chunk, d, md, out=out, hist=hist,
+                              impl=impl)
+                bufs[impl] = (hist, out)
+            for x, y in zip(bufs["cuda"], bufs["torch"]):
+                if x is not None and not torch.equal(x, y):
+                    raise RuntimeError(f"35 {label}, lead {lead_len}: the "
+                                       "gather kernel != its plain version")
+            hist, out = bufs["cuda"]
+            del bufs
+            n_out = lead_len - md + chunk.shape[1] * FX64_M
+            bound = bound_ms(2 * FX64_STREAMS * n_out + d.numel() * 4)
+            kernel_ms, plain_ms = _turns_ms(
+                [lambda: coarse_gather(lead, chunk, d, md, out=out,
+                                       hist=hist, impl="cuda"),
+                 lambda: coarse_gather(lead, chunk, d, md, out=out,
+                                       hist=hist, impl="torch")], 3, 3)
+            lib_ms = None
+            if label == "fx64":
+                # the library yardstick: one torch.gather of the delayed
+                # stream from [lead | chunk] with an int64 index as large
+                # as the output (index and concat made outside the timing)
+                buf = torch.cat([lead, chunk.reshape(FX64_STREAMS, -1)], 1)
+                idx = ((md - d).to(torch.int64)[:, None]
+                       + torch.arange(n_out, device=dev))
+                dst = torch.empty((FX64_STREAMS, n_out), dtype=torch.int8,
+                                  device=dev)
+                lib_ms = _events_ms(
+                    lambda: torch.gather(buf, 1, idx, out=dst), 3)
+                if not torch.equal(dst[:, lead_len - md:], out.reshape(
+                        FX64_STREAMS, -1)):
+                    raise RuntimeError("35: torch.gather's delayed stream != "
+                                       "the kernel's")
+                del buf, idx, dst
+            gather_times[(label, lead_len > md)] = (kernel_ms, plain_ms,
+                                                    bound, lib_ms)
+            print(f"[35 coarse gather {label} "
+                  f"{'lead-in' if lead_len > md else 'tail'} {lead_len}] "
+                  f"{FX64_STREAMS} x {n_out} samples out, delays 0-{md}: "
+                  f"bitwise its plain version; kernel {kernel_ms:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}, "
+                  f"{bound[0] / kernel_ms:.2f} of it), plain (cat and "
+                  f"{FX64_STREAMS} slice copies, the host shift before) "
+                  f"{plain_ms:.3f} ms"
+                  + (f", torch.gather {lib_ms:.3f} ms" if lib_ms else "")
+                  + f" ({card})", flush=True)
+            del lead, hist, out
+            torch.cuda.empty_cache()
+        del chunk
+    torch.cuda.empty_cache()
+
+    # ---- 36. fx64 and beam64 in the device coarse mode --------------------
+    from dc_sand_tpu_torch.models import pipeline as pipeline_mod
+    window = pfb_window(TAPS, FX64_M)
+
+    @contextlib.contextmanager
+    def plain_gather():
+        """The step's gather through its plain version (comparison runs
+        only; their launches are not counted)."""
+        pipeline_mod.coarse_gather = functools.partial(coarse_gather,
+                                                       impl="torch")
+        try:
+            yield
+        finally:
+            pipeline_mod.coarse_gather = coarse_gather
+
+    def steps_in(cfg, n):
+        """Streams whose coarse delay steps within the first n chunks of
+        the production model."""
+        dm = production_delay_model(cfg, np.random.default_rng(6))
+        cs = [dm.evaluate_chunk(i * cfg.chunk_samples, 1, cfg.fft_size)[0]
+              for i in range(n)]
+        return int(sum((cs[i] != cs[i - 1]).sum() for i in range(1, n)))
+
+    def traced(fn, name):
+        """(wall ms, busy ms, idle share) of ``fn`` under the profiler."""
+        trace = os.path.join(tmp36, f"{name}.json")
+        with chrome_trace(trace):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        busy = device_busy_us(json.loads(Path(trace).read_text())
+                              ["traceEvents"]) / 1e3
+        return wall, busy, 1 - busy / wall
+
+    tmp36_dir = tempfile.TemporaryDirectory()
+    tmp36 = tmp36_dir.name
+    cfg = get_config("fx64")
+    gen.manual_seed(FX64_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, coarse_on_host=False)
+    n_chunks = len(chunks)
+    src = (lambda i: chunks[i % n_chunks])
+    start = save_state(runner, os.path.join(tmp36, "start"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    dumps, _ = runner.run(src, n_chunks)
+    torch.cuda.synchronize()
+    dev_launches = counts(fengine=n_chunks, cmac=n_chunks, coarse=n_chunks)
+    peak36_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(dumps) != 1 or dumps[0].vis.shape != vis_fused.shape:
+        raise RuntimeError("36: the device-mode fx64 run made no dump of "
+                           "phase 6's shape")
+    vis36 = dumps[0].vis
+    digest36 = _digest(vis36)
+    load_state(runner, start)
+    with plain_gather():
+        plain_dumps, _ = runner.run(src, n_chunks)
+    if not np.array_equal(plain_dumps[0].vis, vis36):
+        raise RuntimeError("36: the device-mode fx64 dump != the same run "
+                           "through the plain gather")
+    n_steps = steps_in(cfg, n_chunks)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(src, n_chunks)
+    torch.cuda.synchronize()
+    dev_step_ms = (time.perf_counter() - t) / n_chunks * 1e3
+    print(f"[36 fx64 device coarse] {n_chunks} chunks -> 1 dump bitwise the "
+          f"same run through the plain gather, sha256 {digest36} ("
+          + ("equal to" if digest36 == _digest(vis_fused) else "not")
+          + f" phase 6's: the model steps {n_steps} streams' coarse delay "
+          f"at a chunk boundary, where the device mode gathers the FIR "
+          f"overlap again); launches {dev_launches}; steady run() per "
+          f"chunk {dev_step_ms:.3f} ms beside phase 6's host shift "
+          f"{step_ms_fx64:.3f} ms; peak device memory {peak36_gb:.2f} GB "
+          f"(the window's {n_chunks} chunks of "
+          f"{chunks[0].numel() / 1e9:.2f} GB resident, the delayed frames "
+          f"a buffer of one more) ({card})", flush=True)
+    # a constant coarse delay: the two modes bitwise equal from stream start
+    const = production_delay_model(cfg, np.random.default_rng(6))
+    const.d1 = np.zeros_like(const.d1)
+    const_vis = []
+    for on_host in (True, False):
+        r = FXRunner(cfg, window, delay_model=copy.deepcopy(const),
+                     device=dev, coarse_on_host=on_host)
+        const_vis.append(r.run(src, n_chunks)[0][0].vis)
+        del r
+    if not np.array_equal(*const_vis):
+        raise RuntimeError("36: under a constant coarse delay the device "
+                           "mode's fx64 dump != the host shift's")
+    print(f"[36 fx64 constant delay] d1 = 0: the device mode's dump bitwise "
+          f"the host shift's, sha256 {_digest(const_vis[1])} ({card})",
+          flush=True)
+    # run_batched: the gather captured inside the window's graph
+    load_state(runner, start)
+    zero_counts()
+    batched, _ = runner.run_batched(src, n_chunks)
+    torch.cuda.synchronize()
+    dev_batched_counts = counts(fengine=n_chunks + 1, cmac=n_chunks + 1,
+                                coarse=n_chunks + 1)
+    captured = runner.graph_launches
+    if captured != {"fengine": n_chunks, "pfb": 0, "cmac": n_chunks,
+                    "coarse": n_chunks} or runner.graph_replays != 1:
+        raise RuntimeError(f"36: run_batched captured {captured} in "
+                           f"{runner.graph_replays} replays")
+    if not np.array_equal(batched[0].vis, vis36):
+        raise RuntimeError("36: run_batched's device-mode dump != run()'s")
+    print(f"[36 fx64 device coarse run_batched] 1 replay, the gather "
+          f"captured ({captured}); dump bitwise run()'s; launches "
+          f"{dev_batched_counts} ({card})", flush=True)
+    del runner, chunks, dumps, plain_dumps, batched, const_vis
+    torch.cuda.empty_cache()
+    # beam64 at its cadence in the device mode, beside the host shift
+    cfg = get_config("beam64")
+    gen.manual_seed(BEAM_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, coarse_on_host=False)
+    n_chunks = len(chunks)
+    src = (lambda i: chunks[i % n_chunks])
+    start = save_state(runner, os.path.join(tmp36, "beam_start"))
+    outs, plain_outs = [], []
+    zero_counts()
+    runner.run(src, n_chunks, on_output=lambda i, o: outs.append(o))
+    torch.cuda.synchronize()
+    dev_beam_launches = counts(fengine=n_chunks, beamform=n_chunks,
+                               coarse=n_chunks)
+    load_state(runner, start)
+    with plain_gather():
+        runner.run(src, n_chunks, on_output=lambda i, o: plain_outs.append(o))
+    if not all(torch.equal(x[k], y[k]) for x, y in zip(outs, plain_outs)
+               for k in x):
+        raise RuntimeError("36: the device-mode beam64 outputs != the same "
+                           "run through the plain gather")
+    host = FXRunner(cfg, window, delay_model=production_delay_model(
+        cfg, np.random.default_rng(6)), weights=runner.weights.cpu().numpy(),
+        device=dev)
+    beam_idle = {}
+    for name, r in (("host", host), ("device", runner), ("host", host),
+                    ("device", runner)):
+        beam_idle[name] = traced(lambda: r.run(src, n_chunks),
+                                 f"beam64_{name}")
+    print(f"[36 beam64 device coarse] {n_chunks} chunks; beams and "
+          f"incoherent beam bitwise the same run through the plain gather "
+          f"({steps_in(cfg, n_chunks)} streams step); launches "
+          f"{dev_beam_launches}; run() per chunk (traced window) device mode "
+          f"{beam_idle['device'][0] / n_chunks:.3f} ms, idle share "
+          f"{beam_idle['device'][2]:.4f}, beside the host shift "
+          f"{beam_idle['host'][0] / n_chunks:.3f} ms, idle share "
+          f"{beam_idle['host'][2]:.4f} (phase 9: {beam_run_ms:.3f} ms "
+          f"untraced) ({card})", flush=True)
+    del runner, host, chunks, outs, plain_outs
+    tmp36_dir.cleanup()
+    torch.cuda.empty_cache()
+    # verify fx64 at full width in the device mode
+    zero_counts()
+    t = time.perf_counter()
+    snrs, counters = verify_config("fx64", device=dev, coarse_on_host=False)
+    dev_verify_counts = ran("fengine", "cmac", "coarse")
+    snr = snrs["visibilities"]
+    print(f"[36 verify fx64 device coarse] visibilities {snr:.2f} dB vs "
+          f"golden over {counters.dumps} dumps ({time.perf_counter() - t:.1f}"
+          f" s); launches {dev_verify_counts} ({card})", flush=True)
+    if not snr > SNR_BOUND:
+        raise RuntimeError(f"36 verify fx64 device coarse: {snr:.2f} dB")
+    gather_launches = dev_launches["coarse"] + dev_beam_launches["coarse"]
+
     # ---- 32.-34. two processes on the card -------------------------------
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ranks = [a + b for a, b in zip(
-            _spawn_ranks(["32-33", digest6, tmp], timeout=600),
-            _spawn_ranks(["34", digest6, tmp], timeout=300))]
+            _spawn_ranks(["32-33", digest6, digest36, tmp], timeout=600),
+            _spawn_ranks(["34", digest6, digest36, tmp], timeout=300))]
     ranks_s = time.perf_counter() - t
 
     def pick(rank, phase, key):
@@ -2039,6 +2347,12 @@ def main() -> int:
           f"into the peers' mappings {k7b['library_ms']:.4f}) beside phase "
           f"14's {a2a_ms:.4f} ms in one process; {RANKS} processes "
           f"time-slice one card: not a scaling number ({card})", flush=True)
+    dev_runs = [pick(r, 32, "dev_run") for r in range(RANKS)]
+    print(f"[32 fx64 {RANKS} ranks device coarse] every rank's dump sha256 "
+          f"phase 36's; launches a rank {[x['launches'] for x in dev_runs]}"
+          f"; steady run() per chunk " + ", ".join(
+              f"rank {r} {x['step_ms']:.3f} ms" for r, x in
+              enumerate(dev_runs)) + f" ({card})", flush=True)
     print(f"[33 beam64 {RANKS} ranks] beams "
           + ", ".join(f"{'beam-parallel' if x['ep'] else 'replicated'} "
                       f"{x['snr_beams']:.2f} dB" for r in range(RANKS)
@@ -2053,7 +2367,8 @@ def main() -> int:
           + ", ".join(f"{pick(r, 34, 'mb'):.1f} MB (save "
                       f"{pick(r, 34, 'save_s'):.3f} s, load "
                       f"{pick(r, 34, 'load_s'):.3f} s)" for r in range(RANKS))
-          + f", resumed in new processes to phase 6's sha256; cli verify fx4 "
+          + f", resumed in new processes to phase 6's sha256, and the device "
+          f"coarse mode's files to phase 36's; cli verify fx4 "
           f"--distributed --mesh 4 {pick(0, 34, 'verify_db'):.2f} dB; bench "
           f"collectives ms {pick(0, 34, 'collectives')}; phases 32-34 "
           f"{ranks_s:.1f} s ({card})", flush=True)
@@ -2113,8 +2428,13 @@ def main() -> int:
               probe_counts["read_probe"], 0, *probe_times["read_probe"]),
         entry("write_probe", "probes.cu", "scripts/sweep_s10_micro.py:49",
               probe_counts["write_probe"], 0, *probe_times["write_probe"]),
+        # the port's own kernel: the JAX package gathers with a vmapped
+        # dynamic_slice, outside any Pallas kernel
+        entry("coarse_gather", "coarse.cu",
+              "dc_sand_tpu/models/fengine.py:21", gather_launches, 0,
+              *gather_times[("fx64", True)]),
     ]
-    print(f"[total] phases 1-34 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[total] phases 1-36 in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,8 @@ _SIGNATURES = {
                    "dcs_enable_peer": [_I]},
     "probes": {"dcs_read_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
                "dcs_write_probe": [_P, _I, _I, _I, _I, _I, _P]},
+    "coarse": {"dcs_coarse_gather": [_P, _L, _L, _P, _L, _L, _P, _I, _P, _L,
+                                     _P, _L, _I, _P]},
 }
 
 

@@ -217,6 +217,8 @@ def cmd_bench(args, rest: list) -> int:
         argv += ["--distributed"]
     if args.profile:
         argv += ["--profile", args.profile]
+    if args.spectra:
+        argv += ["--spectra", str(args.spectra)]
     return bench_main(argv)
 
 
@@ -279,6 +281,9 @@ def main(argv=None) -> int:
     pb.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler Chrome trace of the bench "
                          "into DIR")
+    pb.add_argument("--spectra", type=int, default=None,
+                    help="spectra per chunk for the step benches (fx, "
+                         "beam-step)")
     _add_distributed(pb)
     pb.set_defaults(fn=cmd_bench)
 

@@ -22,6 +22,11 @@ chunks, with a delay model of ``max_delay`` 8:
   make_time_sharded_fengine`);
 * ``fused_fx``: fx at 512 channels and 16 spectra.
 
+The ``fx``, ``beam`` and ``beam_parallel`` legs run the device coarse mode
+(``coarse_on_host=False``: each shard gathers its antennas from its
+lead-in history, :data:`DEVICE_COARSE`), as the JAX dry run compiles its
+device gather under ``shard_map``; the others shift on the host feed.
+
 Every leg but ``time_fengine`` (the FIR kernel K6, then ``torch.fft``)
 runs the fused F-engine K1; ``fused_fx`` is the JAX dry run's leg through
 its fused Pallas kernel, at that leg's shapes.  The JAX dry run's two legs
@@ -56,10 +61,11 @@ from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
 
 __all__ = ["dryrun_multichip", "dryrun_reference", "dryrun_modes",
-           "ModeResult", "MAX_DELAY"]
+           "ModeResult", "MAX_DELAY", "DEVICE_COARSE"]
 
 MAX_DELAY = 8
 SEED = 0
+DEVICE_COARSE = ("fx", "beam", "beam_parallel")   # coarse_on_host=False
 
 
 class ModeResult(NamedTuple):
@@ -127,8 +133,9 @@ def _sync(device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _run(cfg, inp: dict, mesh) -> ModeResult:
-    """One chunk of ``cfg`` through the runner over ``mesh``."""
+def _run(name: str, cfg, inp: dict, mesh) -> ModeResult:
+    """One chunk of mode ``name``'s ``cfg`` through the runner over
+    ``mesh``."""
     dev = mesh.flat_devices[0]
     _sync(dev)
     t0 = time.perf_counter()
@@ -138,7 +145,8 @@ def _run(cfg, inp: dict, mesh) -> ModeResult:
         out = {"spectra": fe(torch.from_numpy(inp["x"]).to(dev))}
     else:
         runner = FXRunner(cfg, inp["window"], delay_model=inp["delays"],
-                          weights=inp["weights"], mesh=mesh)
+                          weights=inp["weights"], mesh=mesh,
+                          coarse_on_host=name not in DEVICE_COARSE)
         got = []
         dumps, _ = runner.run(lambda i: inp["chunk"], 1,
                               on_output=lambda i, o: got.append(o))
@@ -164,7 +172,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     results = {}
     for name, (cfg, n_t) in dryrun_modes(n_devices).items():
         mesh = build_mesh(devices, time_shards=n_t)
-        results[name] = _run(cfg, _inputs(name, cfg, n_devices), mesh)
+        results[name] = _run(name, cfg, _inputs(name, cfg, n_devices), mesh)
     return results
 
 
@@ -179,7 +187,7 @@ def dryrun_reference(n_devices: int, device=None) -> dict:
         inp = _inputs(name, cfg, n_devices)
         if cfg is not None:
             cfg = cfg.replace(time_shards=1, beam_parallel=False)
-        results[name] = _run(cfg, inp, mesh)
+        results[name] = _run(name, cfg, inp, mesh)
     return results
 
 

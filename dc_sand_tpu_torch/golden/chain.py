@@ -20,8 +20,8 @@ import numpy as np
 
 __all__ = [
     "apply_coarse_delay", "pfb_fir", "channelize", "fine_delay_fringe",
-    "requantize", "xcorr", "beamform", "incoherent_sum", "f_engine",
-    "baseline_pairs",
+    "requantize", "corner_turn", "xcorr", "beamform", "incoherent_sum",
+    "f_engine", "baseline_pairs",
 ]
 
 
@@ -94,6 +94,13 @@ def requantize(spectra: np.ndarray, gains: np.ndarray) -> np.ndarray:
     re = np.clip(np.rint(scaled.real), -127, 127)
     im = np.clip(np.rint(scaled.imag), -127, 127)
     return re + 1j * im
+
+
+def corner_turn(spectra: np.ndarray) -> np.ndarray:
+    """``(ant, pol, b, k) -> (k, ant, pol, b)``: antenna-major to
+    channel-major, the corner-turn's data movement (on a mesh the
+    all-to-all)."""
+    return np.moveaxis(spectra, -1, 0)
 
 
 def baseline_pairs(n_ants: int) -> np.ndarray:

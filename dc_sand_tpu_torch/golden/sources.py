@@ -1,12 +1,12 @@
-"""Synthetic signal sources (deterministic): a numpy copy of the part of
-:mod:`dc_sand_tpu.golden.sources` the port's verify calls.  A CPU test
+"""Synthetic signal sources (deterministic): a numpy copy of
+:mod:`dc_sand_tpu.golden.sources`.  A CPU test
 holds each function bitwise equal to the JAX package's."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["cw_tone", "quantize_adc", "gaussian_noise_int8"]
+__all__ = ["cw_tone", "gaussian_noise", "quantize_adc", "gaussian_noise_int8"]
 
 
 def cw_tone(n_samples: int, freq_hz: float, sample_rate_hz: float,
@@ -14,6 +14,16 @@ def cw_tone(n_samples: int, freq_hz: float, sample_rate_hz: float,
     """Real-valued continuous-wave tone, float64, length ``n_samples``."""
     t = np.arange(n_samples, dtype=np.float64) / sample_rate_hz
     return amplitude * np.cos(2.0 * np.pi * freq_hz * t + phase)
+
+
+def gaussian_noise(n_samples, sigma: float = 10.0,
+                   seed: int = 0) -> np.ndarray:
+    """White Gaussian noise ``N(0, sigma)``, float64, from
+    ``np.random.default_rng(seed)``; ``n_samples`` may be a shape
+    tuple."""
+    rng = np.random.default_rng(seed)
+    shape = n_samples if isinstance(n_samples, tuple) else (n_samples,)
+    return rng.normal(0.0, sigma, size=shape)
 
 
 def quantize_adc(x: np.ndarray) -> np.ndarray:

@@ -26,9 +26,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
+from dc_sand_tpu_torch.ops.coarse import coarse_gather
 from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused, fengine_tail
 from dc_sand_tpu_torch.ops.pfb import pfb_fir
 from dc_sand_tpu_torch.ops.xcorr import wire_to_operand
@@ -43,17 +43,19 @@ def coarse_delay(x: torch.Tensor, delays, max_delay: int) -> torch.Tensor:
     broadcastable over the leading axes.  Output length ``T - max_delay``;
     a stream delayed by d reads from ``max_delay - d``.  Out-of-range
     delays CLAMP to ``[0, max_delay]``, as the JAX version's
-    ``dynamic_slice`` does (the golden model raises instead).
+    ``dynamic_slice`` does (the golden model raises instead).  One gather
+    (:func:`~dc_sand_tpu_torch.ops.coarse.coarse_gather`): the kernel on a
+    CUDA tensor, one slice a stream on the CPU.
     """
     lead = tuple(x.shape[:-1])
-    n_out = x.shape[-1] - max_delay
-    ds = np.broadcast_to(np.asarray(
-        delays.cpu() if isinstance(delays, torch.Tensor) else delays,
-        np.int64), lead)
-    out = torch.empty(lead + (n_out,), dtype=x.dtype, device=x.device)
-    for idx in np.ndindex(*lead):
-        start = max_delay - int(np.clip(ds[idx], 0, max_delay))
-        out[idx] = x[idx][start:start + n_out]
+    t_len = x.shape[-1]
+    rows = x.reshape(-1, t_len)
+    ds = torch.as_tensor(delays, device=x.device).to(torch.int32)
+    ds = torch.broadcast_to(ds, lead).reshape(-1).contiguous()
+    out = torch.empty(lead + (t_len - max_delay,), dtype=x.dtype,
+                      device=x.device)
+    coarse_gather(rows[:, :max_delay], rows[:, max_delay:], ds, max_delay,
+                  out=out)
     return out
 
 

@@ -2,15 +2,36 @@
 B-engine, on one device or on a device mesh.
 
 PyTorch counterpart of :func:`dc_sand_tpu.models.pipeline.make_step` in
-fengine, fx and beam mode.  The step takes its streaming I/O in FRAME form
-(the JAX package's frames-I/O fast path): history ``(A*P, taps_pad, M)``
-and chunk ``(A*P, B, M)`` int8, coarse delay applied on the host feed.
+fengine, fx and beam mode.  By default the step takes its streaming I/O in
+FRAME form (the JAX package's frames-I/O fast path): history ``(A*P,
+taps_pad, M)`` and chunk ``(A*P, B, M)`` int8, coarse delay applied on the
+host feed.
 
     step(history, acc, chunk, frac, phase, gains, weights, reset) -> dict
 
 (the JAX step's argument order without ``coarse``) updates ``history``
 and ``acc`` IN PLACE, which takes the place of the JAX step's donated
-carry, and returns the chunk's outputs.  Per chunk the F-engine (the fused
+carry, and returns the chunk's outputs.
+
+With ``coarse_on_host=False`` (and ``cfg.apply_delay``) the coarse delay
+runs in the step, as in the JAX package's device coarse mode: the step
+takes the JAX argument order
+
+    step(history, acc, chunk, coarse, frac, phase, gains, weights, reset)
+
+with the raw chunk (``(A, P, C)``, or the same bytes as frames),
+``coarse`` ``A*P`` int32 delays on the device, and ``history`` the raw
+lead-in ``(A, P, max_delay + (taps-1)*M)`` (:func:`history_len`).  One
+gather (:func:`~dc_sand_tpu_torch.ops.coarse.coarse_gather`, one launch a
+device) writes the delayed stream of ``[history | chunk]`` into frame-form
+buffers that the F-engine reads as its split I/O, then ``history`` becomes
+the last ``history_len`` samples of ``[history | chunk]`` (a second launch,
+in stream order after the gather's reads).  The FIR overlap is gathered
+again with the current chunk's delay, so the two modes agree bitwise while
+the coarse delay holds and differ where it steps at a chunk boundary, as
+the JAX package's two modes do.
+
+Per chunk the F-engine (the fused
 kernel K1, or with ``fused=False`` the standalone FIR kernel K6 and
 PyTorch ops, the JAX package's ``impl="pallas"`` path) writes in fengine
 and beam mode wire spectra ``(A*P, B, K, 2)``, int8, or float32 when the
@@ -85,6 +106,7 @@ from dc_sand_tpu_torch.config import ChainConfig
 from dc_sand_tpu_torch.models.fengine import f_engine
 from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.beamform import beamform, quantize_beams
+from dc_sand_tpu_torch.ops.coarse import carry_lead, coarse_gather
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.stokes import stokes
 from dc_sand_tpu_torch.ops.xcorr import (acc_shape, cmac_pitch,
@@ -94,8 +116,8 @@ from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
                                         psum, psum_scatter, ring_tails)
 
 __all__ = ["make_step", "mode_for", "check_mode", "zero_vis_acc",
-           "history_shape", "chunk_shape", "shard_inputs", "gather_acc",
-           "gather_outputs"]
+           "history_len", "uses_frames_io", "history_shape", "chunk_shape",
+           "shard_inputs", "gather_acc", "gather_outputs"]
 
 
 def mode_for(cfg: ChainConfig) -> str:
@@ -113,10 +135,30 @@ def _split(mesh) -> tuple:
     return mesh.shape[TIME_AXIS], mesh.shape[FX_AXIS]
 
 
-def history_shape(cfg: ChainConfig, mesh=None) -> tuple:
-    """Carried FIR history in frame form, per shard: ``(A*P/n_fx,
-    taps_pad, M)``."""
+def history_len(cfg: ChainConfig, max_delay: int) -> int:
+    """Samples of the device coarse mode's carried raw stream: the coarse
+    lead-in and the FIR overlap.  SP mode (``cfg.time_shards > 1``) keeps
+    coarse delay on the host/ingest path, as the JAX package's does."""
+    if cfg.time_shards > 1 and max_delay:
+        raise ValueError("SP mode needs coarse delay on the host/ingest "
+                         "path (max_delay must be 0)")
+    return max_delay + (cfg.n_taps - 1) * cfg.fft_size
+
+
+def uses_frames_io(cfg: ChainConfig, coarse_on_host: bool = True) -> bool:
+    """True when :func:`make_step` takes its history and chunk in frame
+    form; False exactly when a lead-in rides the device (the device coarse
+    mode, ``coarse_on_host=False`` with ``cfg.apply_delay``, outside SP)."""
+    return cfg.time_shards > 1 or coarse_on_host or not cfg.apply_delay
+
+
+def history_shape(cfg: ChainConfig, mesh=None, max_delay=None) -> tuple:
+    """Carried history per shard: in frame form ``(A*P/n_fx, taps_pad,
+    M)``, or with ``max_delay`` (the device coarse mode's, 0 included)
+    the lead-in ``(A/n_fx, P, history_len)``."""
     _, n_f = _split(mesh)
+    if max_delay is not None:
+        return (cfg.n_ants // n_f, cfg.n_pols, history_len(cfg, max_delay))
     return (cfg.n_ants // n_f * cfg.n_pols, taps_pad_for(cfg.n_taps),
             cfg.fft_size)
 
@@ -137,10 +179,22 @@ def zero_vis_acc(cfg: ChainConfig, device, mesh=None) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.int32, device=device)
 
 
-def check_mode(cfg: ChainConfig, mesh=None) -> None:
+def check_mode(cfg: ChainConfig, mesh=None, max_delay: int = 0,
+               coarse_on_host: bool = True) -> None:
     """Raise for configurations the step refuses: the JAX step's
     validation errors, and modes this port does not run."""
     mode = mode_for(cfg)
+    if max_delay and not (cfg.apply_delay and not coarse_on_host):
+        # a lead-in only feeds the device gather: with coarse on the host
+        # the step would drop it and ignore the delays
+        raise ValueError(
+            "max_delay > 0 requires the device coarse path "
+            "(coarse_on_host=False with cfg.apply_delay); host/ingest "
+            "coarse modes take max_delay=0")
+    if cfg.time_shards > 1 and max_delay:
+        raise ValueError(
+            "time-sharded (SP) mode requires coarse delay on the "
+            "host/ingest path (max_delay must be 0)")
     if cfg.beam_stokes and (mode != "beam" or cfg.n_pols != 2):
         raise ValueError("beam_stokes needs dual-pol beams "
                          f"(mode={mode}, n_pols={cfg.n_pols})")
@@ -213,9 +267,10 @@ def _carry(history, chunk) -> None:
 
 
 def shard_inputs(mesh, *xs, time: bool = True) -> tuple:
-    """Cut frame-form tensors ``(A*P, B, ...)`` to this process's shards
-    of ``mesh``: fx shard f takes rows ``f*A*P/n_fx ...`` and, with
-    ``time``, time shard t spectra ``t*B/n_t ...``, each moved to its
+    """Cut frame-form tensors ``(A*P, B, ...)`` (or per-row ``(A*P,)``) to
+    this process's shards of ``mesh``: fx shard f takes rows
+    ``f*A*P/n_fx ...`` and, with ``time``, time shard t spectra
+    ``t*B/n_t ...``, each moved to its
     shard's device.  On a mesh over several processes the tensors hold
     this rank's rows only, those of its fx columns.  Returns one list per
     tensor in the order of :attr:`Mesh.local_shards` (a list of None for
@@ -232,10 +287,11 @@ def shard_inputs(mesh, *xs, time: bool = True) -> tuple:
                 o.append(None)
                 continue
             s_l = x.shape[0] // len(fs)
-            b_l = x.shape[1] // n_t if time else x.shape[1]
-            t_b = t if time else 0
-            o.append(x[f * s_l:(f + 1) * s_l, t_b * b_l:(t_b + 1) * b_l]
-                     .contiguous().to(dev))
+            rows = x[f * s_l:(f + 1) * s_l]
+            if time and x.dim() > 1:
+                b_l = x.shape[1] // n_t
+                rows = rows[:, t * b_l:(t + 1) * b_l]
+            o.append(rows.contiguous().to(dev))
     return out
 
 
@@ -292,45 +348,76 @@ def _cat(parts, dim: int) -> torch.Tensor:
 
 
 def make_step(cfg: ChainConfig, window, *, device=None, mesh=None,
-              fused: bool = True):
+              fused: bool = True, max_delay: int = 0,
+              coarse_on_host: bool = True):
     """Build the streaming step for ``cfg`` on ``device`` (None: the
     current CUDA device; it raises without a card), or over ``mesh`` (see
     the module docstring): it launches the CUDA kernels on CUDA devices
     and runs their plain versions on the CPU.  ``fused`` picks the
-    F-engine path (:func:`dc_sand_tpu_torch.models.fengine.f_engine`)."""
-    check_mode(cfg, mesh)
+    F-engine path (:func:`dc_sand_tpu_torch.models.fengine.f_engine`).
+    ``coarse_on_host=False`` with ``cfg.apply_delay`` runs the coarse
+    delay in the step from a lead-in of ``max_delay`` samples; as in the
+    JAX package, ``max_delay > 0`` without that mode raises, and so does
+    SP mode with ``max_delay > 0``."""
+    check_mode(cfg, mesh, max_delay, coarse_on_host)
+    md = None if uses_frames_io(cfg, coarse_on_host) else max_delay
     if mesh is None:
-        return _make_one_step(cfg, window, default_device(device), fused)
+        return _make_one_step(cfg, window, default_device(device), fused, md)
     if mesh.size == 1:
         return _listed(_make_one_step(cfg, window, mesh.flat_devices[0],
-                                      fused))
-    return _make_sharded_step(cfg, window, mesh, fused)
+                                      fused, md))
+    return _make_sharded_step(cfg, window, mesh, fused, md)
 
 
 def _listed(step):
     """The one-device ``step`` with the mesh step's signature: every
     argument but ``reset``, and every output, a one-element list."""
-    def listed(histories, accs, chunks, fracs, phases, gains, weights,
-               reset) -> dict:
-        out = step(histories[0], accs[0], chunks[0], fracs[0], phases[0],
-                   gains[0], weights[0], reset)
+    def listed(*args) -> dict:
+        out = step(*(a[0] for a in args[:-1]), args[-1])
         return {k: [v] for k, v in out.items()}
     return listed
 
 
+class _LeadFrames:
+    """The device coarse mode's gather: the delayed stream of ``[history
+    | chunk]`` into frame-form buffers (a history ``(S, taps_pad, M)``
+    whose first ``taps_pad - taps + 1`` frames stay zero, and the chunk's
+    frames ``(S, B, M)``), allocated once a device and shape and reused,
+    so that a CUDA graph's replays find them; then the next lead-in."""
+
+    def __init__(self, cfg: ChainConfig, max_delay: int):
+        self.cfg, self.max_delay = cfg, max_delay
+        self._bufs = {}
+
+    def __call__(self, history, chunk, coarse) -> tuple:
+        m = self.cfg.fft_size
+        s = history.shape[0] * history.shape[1]
+        key = (s, chunk.numel() // (s * m))
+        have = self._bufs.get(history.device)
+        if have is None or have[0] != key:
+            self._bufs[history.device] = have = (key, torch.zeros(
+                (s, taps_pad_for(self.cfg.n_taps), m), dtype=torch.int8,
+                device=history.device), torch.empty(
+                (s, key[1], m), dtype=torch.int8, device=history.device))
+        _, hist_f, chunk_f = have
+        rows = chunk.reshape(s, -1)
+        coarse_gather(history, rows, coarse, self.max_delay, out=chunk_f,
+                      hist=hist_f)
+        carry_lead(history, rows)
+        return hist_f, chunk_f
+
+
 def _make_one_step(cfg: ChainConfig, window, device: torch.device,
-                   fused: bool):
+                   fused: bool, max_delay=None):
+    """The one-device step; ``max_delay`` not None: the device coarse
+    mode's (module docstring)."""
     mode = mode_for(cfg)
     w = _window(window, cfg, device)
     # the beam kernel quantises in its epilogue unless the float beams
     # feed Stokes first
     kq = cfg.beam_quant_scale if not cfg.beam_stokes else 0.0
 
-    def step(history, acc, chunk, frac, phase, gains, weights,
-             reset) -> dict:
-        q = _fengine(cfg, w, chunk, history, frac, phase, gains, fused)
-        _carry(history, chunk)
-        b_l = chunk.shape[1]
+    def outputs(q, acc, b_l, weights, reset) -> dict:
         if mode == "fengine":
             return {"spectra": q.reshape(cfg.n_ants, cfg.n_pols, b_l,
                                          cfg.n_chans, 2)}
@@ -351,6 +438,23 @@ def _make_one_step(cfg: ChainConfig, window, device: torch.device,
         if inc is not None:
             out["incoherent"] = inc
         return out
+
+    if max_delay is not None:
+        lead = _LeadFrames(cfg, max_delay)
+
+        def step(history, acc, chunk, coarse, frac, phase, gains, weights,
+                 reset) -> dict:
+            hist_f, chunk_f = lead(history, chunk, coarse)
+            q = _fengine(cfg, w, chunk_f, hist_f, frac, phase, gains, fused)
+            return outputs(q, acc, chunk_f.shape[1], weights, reset)
+
+        return step
+
+    def step(history, acc, chunk, frac, phase, gains, weights,
+             reset) -> dict:
+        q = _fengine(cfg, w, chunk, history, frac, phase, gains, fused)
+        _carry(history, chunk)
+        return outputs(q, acc, chunk.shape[1], weights, reset)
 
     return step
 
@@ -392,7 +496,8 @@ def _shared_buffers(cfg: ChainConfig, mesh) -> dict:
     return bufs
 
 
-def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
+def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool,
+                       max_delay=None):
     mode = mode_for(cfg)
     n_t, n_f = _split(mesh)
     a_l, p, k = cfg.n_ants // n_f, cfg.n_pols, cfg.n_chans
@@ -401,8 +506,11 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
     windows = {dev: _window(window, cfg, dev) for dev in set(devices)}
     bufs = _shared_buffers(cfg, mesh)
 
-    def step(histories, accs, chunks, fracs, phases, gains, weights,
-             reset) -> dict:
+    lead = _LeadFrames(cfg, max_delay) if max_delay is not None else None
+
+    def fengine(histories, chunks, fracs, phases, gains) -> tuple:
+        """Each shard's F-engine output and spectra count; the carries
+        advanced."""
         b_l = chunks[0].shape[1]
         hist = histories
         if n_t > 1:
@@ -418,6 +526,24 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool):
                 _carry(h, c)
             elif heads[d]:
                 h.copy_(halos[d])
+        return qs, b_l
+
+    def fengine_lead(histories, chunks, coarses, fracs, phases,
+                     gains) -> tuple:
+        """The device coarse mode: each shard gathers its own antennas on
+        its own device, then runs its F-engine."""
+        qs = []
+        for dev, h, c, co, fd, ph, g in zip(devices, histories, chunks,
+                                            coarses, fracs, phases, gains):
+            hist_f, chunk_f = lead(h, c, co)
+            qs.append(_fengine(cfg, windows[dev], chunk_f, hist_f, fd, ph,
+                               g, fused))
+        return qs, chunk_f.shape[1]
+
+    def step(histories, accs, chunks, *rest) -> dict:
+        *args, weights, reset = rest
+        qs, b_l = (fengine_lead if lead is not None else fengine)(
+            histories, chunks, *args)
         if mode == "fengine":
             return {"spectra": [q.reshape(a_l, p, b_l, k, 2) for q in qs]}
         if mode == "fx":

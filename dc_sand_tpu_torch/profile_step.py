@@ -10,8 +10,11 @@ beam64 and fx64 through the unfused F-engine, the standalone FIR kernel
 then PyTorch ops; ``fx64_mesh4`` is fx64 sharded over a 4-way fx mesh,
 shard i on ``cuda:(i mod the card count)``, so that the corner-turn's
 share of a sharded step shows; ``fx64_batched`` drives the windows with
-``run_batched``, one CUDA-graph replay a window; ``fx64_ingest`` feeds
-fx64 through the ingest, see :func:`_profile_ingest`) it builds the
+``run_batched``, one CUDA-graph replay a window; ``fx64_devcoarse`` and
+``beam64_devcoarse`` run the device coarse mode, ``coarse_on_host=False``:
+the step's one gather a chunk in place of the feed's shift;
+``fx64_ingest`` feeds fx64 through the ingest, see
+:func:`_profile_ingest`) it builds the
 production runner (:func:`production_runner`: 64 ants x 2 pols, 4096 channels, the
 config's own chunk length, coarse and fractional delay and fringe on,
 seeded int8 noise made on the card; fx64 dumps 8192 spectra per 4
@@ -94,7 +97,8 @@ def production_delay_model(cfg: ChainConfig,
 
 
 def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
-                      fused: bool = True, mesh=None):
+                      fused: bool = True, mesh=None,
+                      coarse_on_host: bool = True):
     """The runner at ``cfg``'s own cadence with a seeded delay model
     (coarse up to 31 samples, fractional delay and fringe on) and one
     window of chunks made with ``gen`` on ``device``: one dump's worth in
@@ -102,7 +106,7 @@ def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
     toward seeded pointings (geometric delays up to 0.25 us):
     ``(runner, chunks)``.  ``fused`` picks the runner's F-engine path;
     with ``mesh`` (whose first shard's device must be ``device``) the
-    runner is sharded over it."""
+    runner is sharded over it; ``coarse_on_host`` picks the coarse mode."""
     rng = np.random.default_rng(6)
     a, p = cfg.n_ants, cfg.n_pols
     dm = production_delay_model(cfg, rng)
@@ -119,7 +123,7 @@ def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
                       delay_model=dm, weights=weights,
                       device=None if mesh is not None else device,
-                      mesh=mesh, fused=fused)
+                      mesh=mesh, fused=fused, coarse_on_host=coarse_on_host)
     return runner, chunks
 
 
@@ -321,7 +325,8 @@ def _profile_ingest(name: str, gen: torch.Generator, dev, out: Path) -> None:
 def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
     """Profile run ``name``: a config, then ``_unfused`` for the unfused
     F-engine, ``_mesh<N>`` for an N-way fx mesh, ``_batched`` for
-    ``run_batched`` or ``_ingest`` for the feed through the ingest."""
+    ``run_batched``, ``_devcoarse`` for the device coarse mode or
+    ``_ingest`` for the feed through the ingest."""
     config, _, variant = name.partition("_")
     if variant == "ingest":
         return _profile_ingest(name, gen, dev, out)
@@ -332,10 +337,11 @@ def _profile(name: str, gen: torch.Generator, dev, out: Path) -> None:
         mesh = build_mesh([torch.device("cuda", i % n_cards)
                            for i in range(int(variant[4:]))])
         dev = mesh.flat_devices[0]
-    elif variant not in ("", "unfused", "batched"):
+    elif variant not in ("", "unfused", "batched", "devcoarse"):
         raise SystemExit(f"unknown profile run {name!r}")
     runner, chunks = production_runner(cfg, gen, dev,
-                                       fused=variant != "unfused", mesh=mesh)
+                                       fused=variant != "unfused", mesh=mesh,
+                                       coarse_on_host=variant != "devcoarse")
     run = runner.run_batched if variant == "batched" else runner.run
     n = len(chunks)
     samples = cfg.n_ants * cfg.n_pols * cfg.chunk_samples
@@ -368,8 +374,8 @@ def main(argv=None) -> int:
                     help="directory for the traces")
     ap.add_argument("--runs", default="fx64,beam64,fx64_unfused",
                     help="comma-separated runs: a config name, with "
-                         "_unfused, _mesh<N> (e.g. fx64_mesh4), _batched or "
-                         "_ingest")
+                         "_unfused, _mesh<N> (e.g. fx64_mesh4), _batched, "
+                         "_devcoarse or _ingest")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")

@@ -13,7 +13,9 @@ The forms are those a JAX runner of the same ``cfg`` writes on the CPU:
 * ``history``: the sample-axis form ``(A, P, (taps-1)*M)``, the stream's
   last taps-1 frames (the runner's first ``taps_pad - taps + 1`` frames
   are never read); in SP mode one block per time shard, joined on the
-  last axis;
+  last axis; in the device coarse mode (``coarse_on_host=False``) the
+  lead-in ``(A, P, max_delay + (taps-1)*M)`` as it is, with an empty
+  ``host_tail`` (the file's ``delay_max`` then sizes the lead-in);
 * ``vis_acc``: the packed ``(K, ap, ap)`` int32 plane in natural channel
   order, with a leading axis of one partial per time shard in SP mode;
   in fengine and beam mode the rank-1 dummy both packages carry;
@@ -63,9 +65,13 @@ def _global_carry(runner) -> tuple:
     for d in range(mesh.size):
         t, f = mesh.coords(d)
         rows[t][f] = d
-    hist = np.concatenate(
-        [np.concatenate([_host(runner.history[d][:, pad0:]) for d in row])
-         .reshape(a, p, (taps - 1) * m) for row in rows], axis=-1)
+    if runner._lead:
+        hist = np.concatenate([_host(runner.history[d]) for d in rows[0]])
+    else:
+        hist = np.concatenate(
+            [np.concatenate([_host(runner.history[d][:, pad0:])
+                             for d in row]).reshape(a, p, (taps - 1) * m)
+             for row in rows], axis=-1)
     if runner.mode != "fx":
         return hist, _host(runner.vis_acc[0])
     parts = [np.concatenate([_host(runner.vis_acc[d]) for d in row])
@@ -84,8 +90,10 @@ def _process_carry(runner) -> dict:
                                      np.int64)}
     counts = {}
     for k, d in enumerate(mesh.local_shards):
-        hist = _host(runner.history[k][:, pad0:])
-        values = {"history": hist.reshape(-1, p, (taps - 1) * m),
+        hist = (_host(runner.history[k]) if runner._lead else
+                _host(runner.history[k][:, pad0:]).reshape(
+                    -1, p, (taps - 1) * m))
+        values = {"history": hist,
                   "weights": _host(runner._weights_sh[k]),
                   "vis_acc": _host(runner.vis_acc[k])}
         for name, box in shard_boxes(runner, d).items():

@@ -52,7 +52,8 @@ def shard_boxes(runner, d: int) -> dict:
     n_t, n_f = mesh.shape[TIME_AXIS], mesh.shape[FX_AXIS]
     t, f = mesh.coords(d)
     a_l, p, k = cfg.n_ants // n_f, cfg.n_pols, cfg.n_chans
-    span = (cfg.n_taps - 1) * cfg.fft_size
+    span = (runner.history[0].shape[-1] if runner._lead
+            else (cfg.n_taps - 1) * cfg.fft_size)
     boxes = {"history": ((f * a_l, (f + 1) * a_l), (0, p),
                          (t * span, (t + 1) * span)),
              "weights": ((0, runner.weights.shape[0]),
@@ -66,32 +67,60 @@ def shard_boxes(runner, d: int) -> dict:
     return boxes
 
 
-def _frames_history(hist: np.ndarray, cfg, want: tuple) -> np.ndarray:
+def _frames_history(hist: np.ndarray, cfg, want: tuple,
+                    lead: bool = False) -> np.ndarray:
     """The JAX carry in the port's frame form ``(A*P, taps_pad, M)``.
 
     A frames-I/O run (the fused TPU path) saved it in that form already.
     A sample-axis run saved ``(A, P, (taps-1)*M)`` (``want[0] / P``
     antennas, all or a shard's): the stream's last
     taps-1 frames, which become the last taps-1 of the taps_pad frames
-    (the first ``pad0`` frames are never read)."""
+    (the first ``pad0`` frames are never read).
+
+    A runner in the device coarse mode (``lead``) wants the lead-in
+    ``(A, P, max_delay + (taps-1)*M)`` (``want``), which it takes as it
+    is."""
     if hist.shape == want:
         return hist
-    m, taps = cfg.fft_size, cfg.n_taps
-    a = want[0] // cfg.n_pols
-    if hist.shape == (a, cfg.n_pols, (taps - 1) * m):
+    m, taps, p = cfg.fft_size, cfg.n_taps, cfg.n_pols
+    if lead:
+        raise ValueError(
+            f"checkpoint history shape {hist.shape} is not the device "
+            f"coarse mode's lead-in {want}: a run with coarse on the host "
+            "resumes in a runner with coarse_on_host=True")
+    a = want[0] // p
+    if hist.shape == (a, p, (taps - 1) * m):
         out = np.zeros(want, np.int8)
         pad0 = taps_pad_for(taps) - taps + 1
         out[:, pad0:] = hist.reshape(want[0], taps - 1, m)
         return out
+    if hist.ndim == 3 and hist.shape[:2] == (a, p) \
+            and hist.shape[2] > (taps - 1) * m:
+        raise ValueError(
+            f"checkpoint history shape {hist.shape} is a device coarse-delay "
+            "lead-in: resume in a runner with coarse_on_host=False")
     raise ValueError(
         f"checkpoint history shape {hist.shape} is neither the frame form "
-        f"{want} nor the sample-axis form "
-        f"{(a, cfg.n_pols, (taps - 1) * m)} (a device coarse-delay "
-        "lead-in is not supported)")
+        f"{want} nor the sample-axis form {(a, p, (taps - 1) * m)}")
+
+
+def _history_want(runner, n_ants: int) -> tuple:
+    """The runner's history form for ``n_ants`` antennas: frames ``(n_ants
+    * P, taps_pad, M)``, or in the device coarse mode the lead-in ``(n_ants,
+    P, L)``."""
+    cfg = runner.cfg
+    if runner._lead:
+        return (n_ants, cfg.n_pols, runner.history[0].shape[-1])
+    return (n_ants * cfg.n_pols, taps_pad_for(cfg.n_taps), cfg.fft_size)
 
 
 def load_jax_checkpoint(runner, path: str, channel_perm=None) -> None:
     """Restore ``runner``'s carry in place from a JAX ``save_state`` file.
+
+    A runner in the device coarse mode (``coarse_on_host=False``) takes
+    the lead-in history of a JAX run in that mode; a runner with coarse on
+    the host refuses it, and the other way round (the two carry different
+    streams).
 
     The config hash must match (the port runs the same ``ChainConfig``).
     ``channel_perm``: when the JAX run used the fused native fx path, its
@@ -148,9 +177,9 @@ def _restore_global(runner, z, channel_perm) -> None:
     runner's shards."""
     cfg = runner.cfg
     n_t = cfg.time_shards
-    want = (cfg.n_ants * cfg.n_pols, taps_pad_for(cfg.n_taps), cfg.fft_size)
+    want = _history_want(runner, cfg.n_ants)
     # one history block per time shard (only shard 0's is live)
-    hists = [_frames_history(h, cfg, want)
+    hists = [_frames_history(h, cfg, want, runner._lead)
              for h in np.split(z["history"], n_t, axis=-1)]
     acc = z["vis_acc"]
     acc_want = (1,)
@@ -193,8 +222,8 @@ def _restore_process_shards(runner, z) -> None:
             f"{mesh.process_count}")
     saved = {name: _shards_of(z, name)
              for name in ("history", "vis_acc", "weights")}
-    want = (cfg.n_ants // mesh.shape[FX_AXIS] * cfg.n_pols,
-            taps_pad_for(cfg.n_taps), cfg.fft_size)
+    a_l = cfg.n_ants // mesh.shape[FX_AXIS]
+    want = _history_want(runner, a_l)
 
     def take(name, key):
         if key not in saved[name]:
@@ -206,11 +235,10 @@ def _restore_process_shards(runner, z) -> None:
         return np.ascontiguousarray(saved[name][key])
 
     put = _copy_into
-    a_l = want[0] // cfg.n_pols
     for k, d in enumerate(mesh.local_shards):
         boxes = shard_boxes(runner, d)
         put(runner.history[k], _frames_history(
-            take("history", boxes["history"]), cfg, want))
+            take("history", boxes["history"]), cfg, want, runner._lead))
         w = take("weights", boxes["weights"])
         put(runner._weights_sh[k], w)
         f0 = boxes["weights"][1][0]

@@ -13,13 +13,25 @@ updated in place.
 
 The runner keeps one carry per shard of its mesh
 (:func:`dc_sand_tpu_torch.parallel.build_mesh`), as lists in shard order;
-one device is a mesh of one shard.  The coarse shift runs on the whole
-chunk on the first shard's device; the chunk is then cut to the shards by
-antenna rows and, in SP mode, by spectra.  At a dump the channel blocks
-are gathered and the SP partial accumulators summed, as the JAX runner's
-dump extraction does, and ``on_output`` gets the outputs in their global
-layout on the first shard's device (beam-parallel beams put back in beam
-order).
+one device is a mesh of one shard.  Two coarse modes, as in the JAX
+runner:
+
+* ``coarse_on_host=True`` (the default): the feed shifts the whole chunk
+  on the first shard's device, one gather from ``[tail | chunk]`` (the
+  tail the previous chunk's last ``max_delay`` samples), and the shifted
+  chunk is then cut to the shards by antenna rows and, in SP mode, by
+  spectra;
+* ``coarse_on_host=False`` (with ``cfg.apply_delay``): the step gathers
+  (:func:`~dc_sand_tpu_torch.models.pipeline.make_step`'s device coarse
+  mode): the raw chunk and the chunk's coarse delays are cut to the
+  shards, each shard gathers its own antennas from its carried lead-in
+  history ``(A/n_fx, P, max_delay + (taps-1)*M)`` on its own device, and
+  there is no tail.  SP mode refuses it when ``max_delay > 0``.
+
+At a dump the channel blocks are gathered and the SP partial accumulators
+summed, as the JAX runner's dump extraction does, and ``on_output`` gets
+the outputs in their global layout on the first shard's device (beam-
+parallel beams put back in beam order).
 
 Fault semantics as in the JAX runner: a dropped chunk is replaced by
 zeros — stream timing advances, the FIR history stays continuous, and
@@ -38,10 +50,11 @@ local_antenna_range`.  At a dump every rank gets the whole visibility set
 CPU); ``on_output`` gets this rank's block of the outputs.  The JAX
 runner's refusals stand: SP needs the time axis within each process
 (``build_mesh(..., time_local=True)``), and ``run_batched`` is
-single-process.  One difference is deliberate: the JAX runner refuses the
-host coarse shift under several processes, where the port runs it per
-rank on its own antennas, each of whose whole stream the rank holds, and
-the dumps are bitwise the one-process run's.
+single-process.  Under several processes each rank gathers its own
+antennas in either coarse mode; the device mode is the JAX runner's, and
+the host mode, which the JAX runner refuses there, stays allowed: a rank
+holds each of its antennas' whole stream, so its dumps are bitwise the
+one-process run's.
 """
 
 from __future__ import annotations
@@ -57,8 +70,9 @@ from dc_sand_tpu_torch.config import ChainConfig
 from dc_sand_tpu_torch.models.pipeline import (gather_acc, gather_outputs,
                                                history_shape, make_step,
                                                mode_for, shard_inputs,
-                                               zero_vis_acc)
+                                               uses_frames_io, zero_vis_acc)
 from dc_sand_tpu_torch.ops._dispatch import default_device
+from dc_sand_tpu_torch.ops.coarse import carry_lead, coarse_gather
 from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
 from dc_sand_tpu_torch.ops.pfb import pfb_fir
 from dc_sand_tpu_torch.ops.xcorr import extract_vis, xcorr_accumulate_a2
@@ -107,14 +121,17 @@ class FXRunner:
     counterpart of the JAX runner's ``impl="pallas"``.  Give ``device``
     for one device (a mesh of one shard; None is the current CUDA device,
     and raises without a card) or ``mesh`` for a mesh (whose first
-    shard's device is then :attr:`device`).
+    shard's device is then :attr:`device`).  ``coarse_on_host``: the
+    coarse mode (module docstring); :attr:`coarse_on_host` is True when
+    the feed shifts, as the JAX runner's attribute.
     """
 
     def __init__(self, cfg: ChainConfig, window: np.ndarray,
                  delay_model: Optional[DelayModel] = None,
                  gains: Optional[np.ndarray] = None,
                  weights: Optional[np.ndarray] = None, *, device=None,
-                 mesh=None, fused: bool = True):
+                 mesh=None, fused: bool = True,
+                 coarse_on_host: bool = True):
         self.cfg = cfg
         self.mode = mode_for(cfg)
         if device is not None and mesh is not None:
@@ -136,7 +153,15 @@ class FXRunner:
             raise ValueError(
                 f"n_spectra_per_acc={cfg.n_spectra_per_acc} overflows the "
                 f"int32 visibility accumulator (max {MAX_SPECTRA_PER_ACC})")
-        self._step = make_step(cfg, window, mesh=mesh, fused=fused)
+        self.coarse_on_host = coarse_on_host and cfg.apply_delay
+        # device coarse mode: the lead-in history rides the device (SP
+        # refuses a lead-in, as the JAX step does)
+        self._lead = not uses_frames_io(cfg, coarse_on_host)
+        dev_md = (self.max_delay if cfg.apply_delay and not coarse_on_host
+                  else 0)
+        self._step = make_step(cfg, window, mesh=mesh, fused=fused,
+                               max_delay=dev_md,
+                               coarse_on_host=coarse_on_host)
         a, p, k = cfg.n_ants, cfg.n_pols, cfg.n_chans
         self.gains = (gains if gains is not None
                       else np.stack([np.full((k,), cfg.quant_scale,
@@ -145,8 +170,8 @@ class FXRunner:
         self.weights = (weights if weights is not None
                         else np.zeros((max(cfg.n_beams, 1), a, k, 2),
                                       np.float32))
-        self.history = [torch.zeros(history_shape(cfg, mesh),
-                                    dtype=torch.int8, device=dev)
+        shape = history_shape(cfg, mesh, dev_md if self._lead else None)
+        self.history = [torch.zeros(shape, dtype=torch.int8, device=dev)
                         for dev in self._devices]
         # the accumulators that the other ranks read at a dump
         self._acc_bufs = None
@@ -163,7 +188,7 @@ class FXRunner:
         a_l = self._rows.stop - self._rows.start
         self._tail = (torch.zeros((a_l, p, self.max_delay),
                                   dtype=torch.int8, device=self.device)
-                      if cfg.apply_delay and self.max_delay else None)
+                      if self.coarse_on_host and self.max_delay else None)
         self.counters = RunnerCounters()
         self.t0 = 0          # absolute sample index of next new sample
         self.chunk_idx = 0
@@ -252,14 +277,16 @@ class FXRunner:
         dumps = []
         for _ in range(n_chunks):
             i = self.chunk_idx
-            chunk, frac, phase, dropped = self._feed_chunk(i, drop, source)
+            chunk, coarse, frac, phase, dropped = self._feed_chunk(
+                i, drop, source)
             reset = self._acc_spectra == 0
             if reset:
                 self._acc_first_chunk = i
             outputs = self._step(
                 self.history, self.vis_acc,
                 *self._step_args(chunk, torch.from_numpy(frac),
-                                 torch.from_numpy(phase)), reset)
+                                 torch.from_numpy(phase),
+                                 torch.from_numpy(coarse)), reset)
             if on_output is not None and outputs:
                 on_output(i, gather_outputs(outputs, cfg, self.mesh,
                                             self.device))
@@ -294,8 +321,10 @@ class FXRunner:
         On one CUDA device the window's ``g`` steps are captured once in
         one CUDA graph, and each window is then the feed (outside the
         graph, into static device buffers: the chunks ``(g, A*P, B, M)``
-        int8, their delays ``(g, A*P, B)`` float32, a copy of the gains),
-        one replay, and the dump.  The graph holds the addresses of the
+        int8, their delays ``(g, A*P, B)`` float32, in the device coarse
+        mode the raw chunks and their coarse delays ``(g, A*P)`` int32,
+        whose gather the graph holds, a copy of the gains), one replay,
+        and the dump.  The graph holds the addresses of the
         carries ``history`` and ``vis_acc``: whatever replaces them
         rather than copying into them (``load_state`` copies) has it
         captured again.  Before the capture one step runs uncaptured on
@@ -336,18 +365,20 @@ class FXRunner:
             integrated = 0
             for k in range(g):
                 out = self._graph.chunks[k] if graphed else None
-                chunk, frac, phase, dropped = self._feed_chunk(
+                chunk, coarse, frac, phase, dropped = self._feed_chunk(
                     self.chunk_idx, drop, source, out=out)
                 if not dropped:
                     integrated += b
                 if graphed:
                     self._graph.frac_host[k] = frac
                     self._graph.phase_host[k] = phase
+                    self._graph.coarse_host[k] = coarse
                 else:
                     self._step(self.history, self.vis_acc,
                                *self._step_args(chunk,
                                                 torch.from_numpy(frac),
-                                                torch.from_numpy(phase)),
+                                                torch.from_numpy(phase),
+                                                torch.from_numpy(coarse)),
                                k == 0)
             if graphed:
                 self._graph.replay(self)
@@ -381,11 +412,13 @@ class FXRunner:
     # ------------------------------------------------------------------
     def _feed_chunk(self, i: int, drop: frozenset, source, out=None):
         """Per-chunk feed: fault injection, the chunk's transfer to the
-        device, delay-model evaluation, the coarse delay, the frame view,
-        counter/clock bookkeeping.  Returns ``(chunk, frac, phase,
-        dropped)``: the chunk in frame form ``(A*P, B, M)`` on the
-        device (written into ``out``, a tensor of that shape, when
-        given) and the per-spectrum delays ``(A*P, B)`` float32 numpy."""
+        device, delay-model evaluation, the host mode's coarse delay, the
+        frame view, counter/clock bookkeeping.  Returns ``(chunk, coarse,
+        frac, phase, dropped)``: the chunk in frame form ``(A*P, B, M)``
+        on the device (written into ``out``, a tensor of that shape, when
+        given; in the device coarse mode unshifted), the coarse delays
+        ``(A*P,)`` int32 and the per-spectrum delays ``(A*P, B)`` float32,
+        numpy."""
         cfg = self.cfg
         b = cfg.spectra_per_chunk
         rows = self._rows
@@ -417,16 +450,24 @@ class FXRunner:
         self.counters.spectra_out += b
         self.t0 += cfg.chunk_samples
         self.chunk_idx += 1
-        return (chunk.contiguous(), np.ascontiguousarray(frac).reshape(
-            a * p, b), np.ascontiguousarray(phase).reshape(a * p, b),
-            dropped)
+        return (chunk.contiguous(),
+                np.ascontiguousarray(coarse, np.int32).reshape(a * p),
+                np.ascontiguousarray(frac).reshape(a * p, b),
+                np.ascontiguousarray(phase).reshape(a * p, b), dropped)
 
-    def _step_args(self, chunk, frac, phase) -> tuple:
+    def _step_args(self, chunk, frac, phase, coarse=None) -> tuple:
         """The step's arguments after the carries: ``(chunk, frac, phase,
         gains, weights)`` from the frame chunk ``(A*P, B, M)`` and the
-        per-spectrum ``(A*P, B)`` delays, as lists cut to the shards."""
-        return shard_inputs(self.mesh, chunk, frac, phase) + (
-            self._gains_sh, self._weights_sh)
+        per-spectrum ``(A*P, B)`` delays, as lists cut to the shards; in
+        the device coarse mode ``(chunk, coarse, frac, ...)``, with the
+        ``(A*P,)`` coarse delays as int32."""
+        chunks, fracs, phases = shard_inputs(self.mesh, chunk, frac, phase)
+        lead = ()
+        if self._lead:
+            lead = shard_inputs(self.mesh, torch.as_tensor(
+                coarse, dtype=torch.int32).reshape(-1))
+        return (chunks, *lead, fracs, phases, self._gains_sh,
+                self._weights_sh)
 
     def _acc_total(self) -> torch.Tensor:
         """The packed ``(K, ap, ap)`` accumulator on the device (the whole
@@ -438,35 +479,31 @@ class FXRunner:
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Coarse delay: a read-pointer offset into ``[tail | chunk]``,
         coarse frozen at the chunk start (host-side delay values), one
-        slice per stream on the runner's device, into ``out`` when given
-        (any shape of the chunk's bytes)."""
-        cfg = self.cfg
-        md = self.max_delay
-        c = cfg.chunk_samples
-        a = self._tail.shape[0]
-        chunk = chunk.reshape(a, cfg.n_pols, c)
-        buf = torch.cat([self._tail, chunk], dim=-1)
-        out = (torch.empty_like(chunk) if out is None
-               else out.view(a, cfg.n_pols, c))
-        for idx in np.ndindex(a, cfg.n_pols):
-            off = md - int(coarse[idx])
-            out[idx] = buf[idx][off:off + c]
-        # .clone(): a view would pin the whole concat buffer between steps
-        self._tail = buf[..., -md:].clone()
+        gather on the runner's device (one kernel launch on a card), into
+        ``out`` when given (any shape of the chunk's bytes); then the tail
+        becomes the chunk's last ``max_delay`` samples."""
+        rows = chunk.reshape(self._tail.shape[0] * self.cfg.n_pols, -1)
+        out = torch.empty_like(rows) if out is None else out
+        co = torch.as_tensor(np.ascontiguousarray(coarse, np.int32)
+                             .reshape(-1)).to(self.device)
+        coarse_gather(self._tail, rows, co, self.max_delay, out=out)
+        carry_lead(self._tail, rows)
         return out
 
 
 def _launch_counts() -> dict:
     """The launch counters of the kernels a one-device fx step runs."""
     return {"fengine": fengine_fused.launches, "pfb": pfb_fir.launches,
-            "cmac": xcorr_accumulate_a2.launches}
+            "cmac": xcorr_accumulate_a2.launches,
+            "coarse": coarse_gather.launches}
 
 
 class _WindowGraph:
     """One dump window of a one-device fx runner's steps as a CUDA graph,
     with the static buffers it reads (:meth:`FXRunner.run_batched`): the
     window's chunks in frame form, their delays (filled on the host,
-    copied up once a window) and the gains."""
+    copied up once a window; in the device coarse mode their coarse
+    delays too) and the gains."""
 
     def __init__(self, runner: FXRunner, g: int):
         cfg, dev = runner.cfg, runner.device
@@ -477,6 +514,8 @@ class _WindowGraph:
         self.phase_host = np.zeros((g, s, b), np.float32)
         self.frac = torch.zeros((g, s, b), device=dev)
         self.phase = torch.zeros((g, s, b), device=dev)
+        self.coarse_host = np.zeros((g, s), np.int32)
+        self.coarse = torch.zeros((g, s), dtype=torch.int32, device=dev)
         self.gains = torch.empty_like(runner.gains)
         self.graph = None
         self._carry_ptrs = None
@@ -485,9 +524,10 @@ class _WindowGraph:
         """The window's first ``n`` steps on the static buffers, the first
         one resetting the accumulator."""
         for k in range(n):
-            runner._step([history], [acc], [self.chunks[k]], [self.frac[k]],
-                         [self.phase[k]], [self.gains], runner._weights_sh,
-                         k == 0)
+            lead = ([self.coarse[k]],) if runner._lead else ()
+            runner._step([history], [acc], [self.chunks[k]], *lead,
+                         [self.frac[k]], [self.phase[k]], [self.gains],
+                         runner._weights_sh, k == 0)
 
     def _capture(self, runner: FXRunner) -> None:
         history, acc = runner.history[0], runner.vis_acc[0]
@@ -511,6 +551,7 @@ class _WindowGraph:
         graph is missing or the carries moved, and replay."""
         self.frac.copy_(torch.from_numpy(self.frac_host))
         self.phase.copy_(torch.from_numpy(self.phase_host))
+        self.coarse.copy_(torch.from_numpy(self.coarse_host))
         self.gains.copy_(runner.gains)
         ptrs = (runner.history[0].data_ptr(), runner.vis_acc[0].data_ptr())
         if self.graph is None or ptrs != self._carry_ptrs:

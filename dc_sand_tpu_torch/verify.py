@@ -94,7 +94,8 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
                   n_spectra_per_acc: Optional[int] = 32,
                   time_shards: int = 1, beam_parallel: bool = False,
                   fused: bool = True, baseline_subset: Optional[int] = None,
-                  golden_ants: Optional[int] = None):
+                  golden_ants: Optional[int] = None,
+                  coarse_on_host: Optional[bool] = None):
     """Run config ``name`` end-to-end on ``device`` (None: the current
     CUDA device; it raises without a card); returns ``(snrs,
     counters)`` — per-output SNRs in dB vs golden (fengine: ``{"spectra":
@@ -119,7 +120,11 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     calls it alike: each draws the same seeded sky, feeds its own
     antennas (:func:`~dc_sand_tpu_torch.parallel.local_antenna_range`),
     and grades the whole dump, its own antennas' spectra, or the beams
-    it holds.
+    it holds.  ``coarse_on_host``: the runner's coarse mode; None takes
+    the JAX verify's choice, the device mode (``False``) on a mesh over
+    several processes and the host shift otherwise.  The delay model
+    holds each coarse delay for the whole stream, so both modes meet the
+    same golden chain.
 
     fx mode only, each mutually exclusive with the other (the device
     still computes every baseline; the grading draws from ``seed`` as the
@@ -190,10 +195,13 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     # on a multi-process mesh every rank draws the same sky and feeds its
     # own antennas; each grades the whole dump, its own antennas' spectra
     # and its own share of beam-parallel beams
-    a_lo, a_hi = (local_antenna_range(a) if mesh is not None
-                  and mesh.multiprocess else (0, a))
+    multiproc = mesh is not None and mesh.multiprocess
+    a_lo, a_hi = local_antenna_range(a) if multiproc else (0, a)
+    if coarse_on_host is None:
+        coarse_on_host = not multiproc
     runner = FXRunner(cfg, window, delay_model=dm, gains=gains_ri,
-                      weights=weights, device=device, mesh=mesh, fused=fused)
+                      weights=weights, device=device, mesh=mesh, fused=fused,
+                      coarse_on_host=coarse_on_host)
     outputs = []
     dumps, counters = runner.run(
         lambda i: stream[a_lo:a_hi, :, i * cfg.chunk_samples:

@@ -171,7 +171,8 @@ def test_graph_equals_the_loop_on_the_card(cuda, fused):
     _assert_dumps_equal(got, want)
     assert r.graph_replays == 3
     k1 = "fengine" if fused else "pfb"
-    assert r.graph_launches == {"fengine": 0, "pfb": 0, "cmac": G, k1: G}
+    assert r.graph_launches == {"fengine": 0, "pfb": 0, "cmac": G,
+                                "coarse": 0, k1: G}
 
 
 @pytest.mark.cuda

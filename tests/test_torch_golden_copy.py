@@ -92,16 +92,24 @@ def _case(name, rng):
         return (rng.normal(0, 80, (3, 50)),), {}
     if name == "gaussian_noise_int8":
         return ((2, 3, 64), 20.0, 5), {}
+    if name == "gaussian_noise":
+        return ((2, 3, 64), 20.0, 5), {}
+    if name == "gaussian_noise_1d":
+        return (100,), dict(seed=7)
+    if name == "corner_turn":
+        return (_spectra(rng, (3, 2, 5, nch)),), {}
     raise KeyError(name)
 
 
 @pytest.mark.parametrize("name", [
     "apply_coarse_delay", "pfb_fir", "channelize", "fine_delay_fringe",
     "requantize", "xcorr", "beamform", "incoherent_sum", "f_engine",
-    "baseline_pairs", "cw_tone", "quantize_adc", "gaussian_noise_int8"])
+    "baseline_pairs", "cw_tone", "quantize_adc", "gaussian_noise_int8",
+    "gaussian_noise", "gaussian_noise_1d", "corner_turn"])
 def test_golden_copy_is_bitwise(name):
     args, kw = _case(name, np.random.default_rng(len(name)))
-    got = getattr(golden, name)(*args, **kw)
-    want = getattr(jx_golden, name)(*args, **kw)
+    fn = name.removesuffix("_1d")
+    got = getattr(golden, fn)(*args, **kw)
+    want = getattr(jx_golden, fn)(*args, **kw)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)

@@ -242,6 +242,38 @@ prints ``RESULT`` lines; a rank's failure fails the run:
     device coarse mode, > 50 dB on every rank) and ``cli bench
     collectives --distributed`` in those processes.
 
+Phases 37-39 drive the multi-node mode: the same ``--rank`` entry on
+ranks that ``run_ranks(..., nodes=2)`` puts on two nodes of this host
+(torchrun's ``GROUP_RANK``), so that a pair of ranks on different nodes
+takes the staged route (``dc_sand_tpu_torch/parallel/staged.py``: the
+sender's block into a pinned slot on a copy stream, gloo point-to-point
+sends, the receiver's K7b or K7a placing it from the slot), and a pair on
+one node CUDA IPC:
+
+37. fx64 at full width over 2 ranks on 2 nodes (2 fx shards a rank, each
+    fed its 32 antennas), phase 6's chunks: each rank's dump sha256 phase
+    6's; per rank K1 8, CMAC 8, all-to-all 8 (one a chunk for its node's
+    pairs, one on the receiver for the other node's: all-to-all staged
+    4); ``run()`` ms a chunk, the staged route's MB and host ms a chunk,
+    the barriers and the idle share of a traced run; a per-rank
+    checkpoint after 2 chunks resumed in a fresh runner to phase 6's
+    sha256;
+38. 4 ranks as 2 nodes x 2, one fx shard a rank, both routes in every
+    collective: fx64 dumps sha256 phase 6's (all-to-all 2 a chunk, 1 of
+    them staged); beam64 at full width on 2 chunks, replicated and
+    beam-parallel: beams >= 100 dB from one card's, beams and incoherent
+    beam bitwise the one-process 4-shard mesh's (its sums add the shards
+    in the same order);
+39. K7b and K7a across the 2 nodes at phase 32's and 33's shapes and
+    seeds: bitwise their plain versions over gloo and, by the sha256 of
+    each rank's outputs, the IPC route's of phases 32-33; timed beside
+    the plain version, the same route placed by ``Tensor.copy_`` and the
+    receiver's placement alone from the pinned slots (landed on the card
+    then the kernel, as the route does, against the kernel reading the
+    slots in place across PCIe and against ``copy_``); then ``cli bench
+    collectives --distributed`` across the nodes (its kernels' staged
+    launches counted).
+
 Two processes on one card time-slice it: their times are not a scaling
 measurement.
 
@@ -263,11 +295,13 @@ in the wire layout and the beam kernel, 12's fused pfb1k for K1-float, 13
 for K6, 16 and 17 together for the ring and the all-to-all in
 corner-turn mode, 20's probes target for P1 and P2, and for
 ``all_to_all_ipc`` and ``ring_ipc``, the same kernels across processes,
-both ranks' launches in phases 32 and 33, and 36's device-mode fx64 and
-beam64 runs for the coarse gather), times from phases 2, 3, 7, 10, 11,
-14, 15, 19, 32, 33 and 35 (the probes with the L2 flushed; the IPC rows
-rank 0's; the gather's at fx64 with the lead-in); the last is ``{"ok":
-true, "device": {...}}``.  Exits non-zero, printing no result, when no
+both ranks' launches in phases 32 and 33, for ``all_to_all_staged`` the
+receivers' launches across nodes in phases 37 and 38, for
+``ring_staged`` those of phase 39's bench run, and 36's device-mode fx64
+and beam64 runs for the coarse gather), times from phases 2, 3, 7, 10,
+11, 14, 15, 19, 32, 33, 35 and 39 (the probes with the L2 flushed; the
+IPC and staged rows rank 0's; the gather's at fx64 with the lead-in);
+the last is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when no
 CUDA device is present.
 """
 
@@ -303,6 +337,8 @@ UNFUSED_SNR_DB = 60.0      # fused vs unfused fx64 dump: 1-LSB flips
 CMAC_SPECTRA = (2048, 1024, 256)   # phase 3's timings: fx64, SP, the bench
 INGEST_WORKERS = 4         # phase 24: one assembler a NIC queue, 16 ants each
 RANKS = 2                  # phases 32-34: processes on the card, 2 shards each
+NODES = 2                  # phases 37-39: 2 ranks on 2 nodes; 38: 4 on 2
+PHASE38_BEAM_CHUNKS = 2    # phase 38's beam64 runs (full width, fewer chunks)
 RAGGED_SPECTRA = (1, 8, 24, 2040)  # phase 26: B not a multiple of 16
 GATHER_MAX_DELAY = 32      # phase 35: the production model's lead-in
 
@@ -357,6 +393,8 @@ def _wrappers() -> dict:
             "beamform": (beamform, "launches"),
             "all_to_all": (all_to_all, "launches"),
             "ring": (ring_permute_right, "launches"),
+            "all_to_all_staged": (all_to_all, "staged_launches"),
+            "ring_staged": (ring_permute_right, "staged_launches"),
             "read_probe": (read_probe, "launches"),
             "write_probe": (write_probe, "launches"),
             "coarse": (coarse_gather, "launches")}
@@ -387,19 +425,22 @@ def _rank_result(phase, **values) -> None:
 
 
 def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
-                   coarse_on_host=True) -> dict:
+                   coarse_on_host=True, a2a=1, staged=0) -> dict:
     """fx64 at production cadence over a multi-process ``mesh``, this
     rank's antennas of phase 6's chunks, in the coarse mode
     ``coarse_on_host``: the dump's sha256 must be ``digest`` (phase 6's,
     or phase 36's in the device mode); the launch counts (the gather once
-    a chunk on the host path, once a shard and chunk in the device mode),
-    ``run()``'s steady ms a chunk and the barriers' host ms a chunk; with
-    ``trace`` (a path) a third run under ``torch.profiler`` gives this
-    rank's device intervals and that run's host window, both in
-    microseconds of the host's clock."""
+    a chunk on the host path, once a shard and chunk in the device mode;
+    ``a2a`` all-to-all launches a chunk, ``staged`` of them the
+    receiver's across nodes), ``run()``'s steady ms a chunk, the
+    barriers' host ms a chunk and the staged route's MB and host ms a
+    chunk; with ``trace`` (a path) a third run under ``torch.profiler``
+    gives this rank's device intervals and that run's host window, both
+    in microseconds of the host's clock."""
     import torch
     from dc_sand_tpu_torch.config import get_config
-    from dc_sand_tpu_torch.parallel import SharedBuffers, local_antenna_range
+    from dc_sand_tpu_torch.parallel import (SharedBuffers, StagedRoute,
+                                            local_antenna_range)
     from dc_sand_tpu_torch.profile_step import production_runner
     n_t = mesh.shape["time"]
     cfg = get_config("fx64").replace(time_shards=n_t)
@@ -407,24 +448,28 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(FX64_SEED)
     runner, chunks = production_runner(cfg, gen, dev, mesh=mesh,
-                                       coarse_on_host=coarse_on_host)
+                                       coarse_on_host=coarse_on_host,
+                                       rows=slice(a0, a1))
     n = len(chunks)
 
     def source(i):
-        return chunks[i % n][a0:a1]
+        return chunks[i % n]
 
     torch.cuda.synchronize()
     _zero_counts()
     dumps, _ = runner.run(source, n)
     torch.cuda.synchronize()
     local = len(mesh.local_shards)
-    launches = _counts(fengine=n * local, cmac=n * local, all_to_all=n,
+    launches = _counts(fengine=n * local, cmac=n * local,
+                       all_to_all=n * a2a, all_to_all_staged=n * staged,
                        ring=n if n_t > 1 else 0,
                        coarse=n if coarse_on_host else n * local)
     if len(dumps) != 1 or _digest(dumps[0].vis) != digest:
         raise RuntimeError(f"{label}: the dump's sha256 is not "
                            + ("phase 6's" if coarse_on_host else "phase 36's"))
     b0, c0 = SharedBuffers.barrier_s, SharedBuffers.barriers
+    s0 = (StagedRoute.sent_bytes + StagedRoute.received_bytes,
+          StagedRoute.seconds)
     torch.cuda.synchronize()
     t = time.perf_counter()
     runner.run(source, n)
@@ -432,13 +477,19 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     step_ms = (time.perf_counter() - t) / n * 1e3
     barrier_ms = (SharedBuffers.barrier_s - b0) / n * 1e3
     barriers = (SharedBuffers.barriers - c0) / n
+    staged_mb = (StagedRoute.sent_bytes + StagedRoute.received_bytes
+                 - s0[0]) / n / 1e6
+    staged_ms = (StagedRoute.seconds - s0[1]) / n * 1e3
     print(f"[{label}] rank {mesh.rank}: {n} chunks of its antennas "
           f"[{a0}, {a1}) -> 1 dump, sha256 phase "
           f"{6 if coarse_on_host else 36}'s; launches {launches}; "
           f"steady run() per chunk {step_ms:.3f} ms, of it {barriers:.1f} "
-          f"gloo barriers {barrier_ms:.3f} ms host time", flush=True)
+          f"gloo barriers {barrier_ms:.3f} ms host time"
+          + (f", staged route {staged_mb:.1f} MB sent and received "
+             f"{staged_ms:.3f} ms host time" if staged else ""), flush=True)
     out = {"launches": launches, "step_ms": step_ms,
-           "barrier_ms": barrier_ms, "barriers": barriers}
+           "barrier_ms": barrier_ms, "barriers": barriers,
+           "staged_mb": staged_mb, "staged_ms": staged_ms}
     if trace is not None:
         from dc_sand_tpu_torch.profile_step import DEVICE_CATS, chrome_trace
         with chrome_trace(trace):
@@ -476,11 +527,15 @@ def _idle_share(runs) -> tuple:
     return share, busy / 1e3, (hi - lo) / 1e3
 
 
-def _ipc_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label):
-    """One K7 kernel across the ranks against its plain version (gloo):
-    bitwise, one launch a call a rank; its CUDA-event ms, the plain
-    version's, ``Tensor.copy_`` of the same blocks into the peers'
-    mappings (the library yardstick) and the bound of the whole call."""
+def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
+                       launches=1):
+    """One K7 kernel across the ranks, on the routes of ``mesh``, against
+    its plain version (gloo): bitwise, ``launches`` launches a call a
+    rank; its CUDA-event ms, the plain version's, the same route with
+    every block placed by ``Tensor.copy_`` (``place="copy"``, the library
+    yardstick), the bound of the whole call, and the sha256 of this
+    rank's outputs; across nodes also the receiver's placement alone from
+    one round's pinned slots, the kernel against ``copy_``."""
     import torch
     from dc_sand_tpu_torch.bench.harness import bound_ms
     from dc_sand_tpu_torch.parallel import (SharedBuffers, all_to_all,
@@ -494,8 +549,9 @@ def _ipc_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label):
     kw = {"rows": rows} if op is all_to_all else {}
     before = op.launches
     got = op(mine, mesh, axis, out=bufs, impl="cuda", **kw)
-    if op.launches != before + 1:
-        raise RuntimeError(f"{label}: {op.launches - before} launches, want 1")
+    if op.launches != before + launches:
+        raise RuntimeError(f"{label}: {op.launches - before} launches, want "
+                           f"{launches}")
     plain = all_to_all_torch if op is all_to_all else \
         ring_permute_right_torch
     want = plain(mine, mesh, axis, **kw)
@@ -503,49 +559,154 @@ def _ipc_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label):
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise RuntimeError(f"{label}: the kernel across processes != its "
                            "plain version")
+    digest = hashlib.sha256(b"".join(g.cpu().numpy().tobytes()
+                                     for g in got)).hexdigest()
     del got, want
-    groups = mesh.groups(axis)
-    pos = {i: k for g in groups for k, i in enumerate(g)}
-    n = len(groups[0])
-    blocks = []
-    for k, i in enumerate(mesh.local_shards):
-        group = next(g for g in groups if i in g)
-        if op is all_to_all:
-            for j in group:
-                blocks.append((bufs.views[j].view(rows, n, -1)[:, pos[i]],
-                               mine[k].view(n, rows, -1)[pos[j]]))
-        else:
-            blocks.append((bufs.views[group[(pos[i] + 1) % n]], mine[k]))
-
-    def copy_blocks():
-        bufs.ready()
-        for dst, src in blocks:
-            dst.copy_(src)
-        bufs.done()
-
     ms, lib_ms = _turns_ms((lambda: op(mine, mesh, axis, out=bufs,
-                                       impl="cuda", **kw), copy_blocks), 3)
+                                       impl="cuda", **kw),
+                            lambda: op(mine, mesh, axis, out=bufs,
+                                       place="copy", **kw)), 3)
     plain_ms = _events_ms(lambda: plain(mine, mesh, axis, **kw), 1)
     bound = bound_ms(2 * nbytes)
-    print(f"[{label}] rank {mesh.rank}: bitwise equal to the plain version "
-          f"(gloo), one launch a call; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, copy_ into the peers' mappings {lib_ms:.4f} "
-          f"ms, bound {bound[0]:.4f} ms ({bound[1]}) for the whole call "
-          f"(two ranks time-slicing one card)", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+    how = "/".join(sorted(set(mesh.routes().values())))
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound[0], "bound_by": bound[1], "digest": digest}
+    if bufs.staged is not None:
+        (out["place_ms"], out["place_in_place_ms"], out["place_copy_ms"],
+         out["place_mb"]) = _staged_placement_ms(mesh, op, mine, bufs, axis,
+                                                 rows)
+    print(f"[{label}] rank {mesh.rank}: route {how}; bitwise equal to the "
+          f"plain version (gloo), {launches} launch(es) a call; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, copy_ on the same route "
+          f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) for the "
+          f"whole call" + (
+              f"; the receiver's placement of {out['place_mb']:.1f} MB from "
+              f"the pinned slots: landed and placed by the kernel "
+              f"{out['place_ms']:.4f} ms, the kernel reading the slots in "
+              f"place {out['place_in_place_ms']:.4f} ms, copy_ "
+              f"{out['place_copy_ms']:.4f} ms" if "place_ms" in out else "")
+          + " (ranks time-slicing one card)", flush=True)
+    return out
+
+
+def _staged_placement_ms(mesh, op, mine, bufs, axis, rows) -> tuple:
+    """The receiver's placement alone on the staged route, from one
+    round's blocks left in the pinned slots, CUDA events in turns, one
+    rank at a time: the route's (each slot landed on the card by a
+    copy-engine transfer, then K7b/K7a from there), the kernel reading
+    the slots in place across PCIe (the alternative source), and
+    ``Tensor.copy_`` from the slots into the destination; ``(landed ms,
+    in place ms, copy_ ms, MB)``."""
+    import ctypes
+    import torch
+    import torch.distributed as dist
+    from dc_sand_tpu_torch import _build
+    from dc_sand_tpu_torch.parallel import all_to_all, remote_dma
+    groups = mesh.groups(axis)
+    n = len(groups[0])
+    loc = {d: k for k, d in enumerate(mesh.local_shards)}
+    xs_g = {d: mine[k] for d, k in loc.items()}
+    esize = mine[0].element_size()
+    if op is all_to_all:
+        block = mine[0].numel() // n
+        row_bytes = block // rows * esize
+        geometry = (rows, row_bytes, n * row_bytes if rows > 1 else row_bytes)
+        pos = {i: k for g in groups for k, i in enumerate(g)}
+        pairs = [(i, j) for g in groups for i in g for j in g]
+        sends = ((bufs.device, tuple((i, j) for i, j in pairs if i in loc)),)
+
+        def offsets(i, j):
+            return pos[j] * block * esize, pos[i] * row_bytes
+    else:
+        nb = mine[0].numel() * esize
+        geometry = (1, nb, nb)
+        pairs = [(g[k], g[(k + 1) % len(g)]) for g in groups
+                 for k in range(len(g))]
+        sends = mesh.ring_sends(axis)
+
+        def offsets(i, j):
+            return 0, 0
+    lib = _build.library()
+
+    def launch(ptrs, stream, staged=False):
+        _build.check(lib.dcs_all_to_all(remote_dma._pairs(ptrs), len(ptrs),
+                                        *geometry, stream), "placement")
+
+    def in_place(view):
+        """The device address of a pinned slot view (read across PCIe)."""
+        base, got = view.untyped_storage().data_ptr(), ctypes.c_void_p()
+        _build.check(lib.dcs_device_pointer(ctypes.c_void_p(base),
+                                            ctypes.byref(got)),
+                     "dcs_device_pointer")
+        return got.value + view.data_ptr() - base
+
+    def landed():
+        views = bufs.staged.land([b for b, _, _ in blocks])
+        remote_dma._place(bufs, [(v, j, o) for v, (_, j, o) in
+                                 zip(views, blocks)], geometry, launch)
+
+    def uva():
+        stream = torch.cuda.current_stream().cuda_stream
+        launch([(in_place(b), bufs.views[j].data_ptr() + o)
+                for b, j, o in blocks], stream)
+
+    bufs.ready()
+    blocks = remote_dma.staged_round(mesh, bufs, xs_g, sends, pairs, offsets,
+                                     geometry[0] * geometry[1])
+    # one rank at a time, the others waiting at a barrier: the ranks share
+    # the card and its PCIe link
+    for r in range(mesh.process_count):
+        if r == mesh.rank:
+            times = _turns_ms((
+                landed, uva, lambda: remote_dma._place(bufs, blocks,
+                                                       geometry, None)), 3)
+            torch.cuda.synchronize()
+        dist.barrier()
+    bufs.staged.release()
+    bufs.done()
+    return (*times, sum(b.numel() for b, _, _ in blocks) / 1e6)
+
+
+def _k7b_case(dev) -> tuple:
+    """``(inputs, shape)`` of K7b across ranks: phase 14's corner-turn
+    operands, 4 shards of int8 ``(4096, 2, 32, 2048)`` from seed 32."""
+    import torch
+    shape = (FX64_M // 2, 2, FX64_STREAMS // SHARDS, FX64_SPECTRA)
+    gen = torch.Generator(device=dev)
+
+    def operands():
+        gen.manual_seed(32)
+        return [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(SHARDS)]
+
+    return operands, shape
+
+
+def _k7a_case(dev) -> tuple:
+    """``(inputs, shape)`` of K7a across ranks: phase 15's SP halo, 4
+    shards of int8 ``(64, 16, 8192)`` from seed 33."""
+    import torch
+    from dc_sand_tpu_torch.ops.pfb import taps_pad_for
+    from dc_sand_tpu_torch.profile_step import noise_int8
+    shape = (FX64_STREAMS // 2, taps_pad_for(TAPS), FX64_M)
+    gen = torch.Generator(device=dev)
+
+    def halos():
+        gen.manual_seed(33)
+        return [noise_int8(gen, shape, dev) for _ in range(SHARDS)]
+
+    return halos, shape
 
 
 def _phases_32_33(dev, digest6, digest36, tmp) -> None:
     """This rank's part of phases 32, 33 and 34's saves."""
     import torch
     from dc_sand_tpu_torch.config import get_config
-    from dc_sand_tpu_torch.ops.pfb import taps_pad_for
     from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
                                             build_global_mesh,
                                             local_antenna_range,
                                             ring_permute_right)
-    from dc_sand_tpu_torch.profile_step import noise_int8, production_runner
+    from dc_sand_tpu_torch.profile_step import production_runner
     from dc_sand_tpu_torch.runtime import save_state
     mesh = build_global_mesh([dev] * 2)
     rank = mesh.rank
@@ -557,17 +718,10 @@ def _phases_32_33(dev, digest6, digest36, tmp) -> None:
     fxd = _fx64_mesh_run(dev, mesh, digest36, "32 fx64 2 ranks device coarse",
                          coarse_on_host=False)
     _rank_result(32, dev_run=fxd)
-    nch, s_l = FX64_M // 2, FX64_STREAMS // SHARDS
-    shape = (nch, 2, s_l, FX64_SPECTRA)
     gen = torch.Generator(device=dev)
-
-    def operands():
-        gen.manual_seed(32)
-        return [torch.randint(-127, 128, shape, generator=gen, device=dev,
-                              dtype=torch.int8) for _ in range(SHARDS)]
-
-    k7b = _ipc_kernel_check(mesh, all_to_all, operands, shape, FX_AXIS,
-                            2 * nch // SHARDS, "32 all_to_all across ranks")
+    k7b = _rank_kernel_check(mesh, all_to_all, *_k7b_case(dev), FX_AXIS,
+                             2 * FX64_M // 2 // SHARDS,
+                             "32 all_to_all across ranks")
     _rank_result(32, k7b=k7b)
     torch.cuda.empty_cache()
     # ---- 33. beam64 across the ranks; K7a across them; SP fx64 ----------
@@ -620,14 +774,8 @@ def _phases_32_33(dev, digest6, digest36, tmp) -> None:
     del outs, ref, got
     torch.cuda.empty_cache()
     sp = build_global_mesh([dev] * 2, time_shards=2)
-    halo = (FX64_STREAMS // 2, taps_pad_for(TAPS), FX64_M)
-
-    def halos():
-        gen.manual_seed(33)
-        return [noise_int8(gen, halo, dev) for _ in range(SHARDS)]
-
-    k7a = _ipc_kernel_check(sp, ring_permute_right, halos, halo,
-                            TIME_AXIS, 1, "33 ring across ranks")
+    k7a = _rank_kernel_check(sp, ring_permute_right, *_k7a_case(dev),
+                             TIME_AXIS, 1, "33 ring across ranks")
     _rank_result(33, k7a=k7a)
     sp_local = build_global_mesh([dev] * 2, time_shards=2, time_local=True)
     spx = _fx64_mesh_run(dev, sp_local, digest6, "33 fx64 SP 2 ranks")
@@ -725,8 +873,173 @@ def _phase_34(dev, digest6, digest36, tmp) -> None:
                 r["name"]: r["wall_s"] * 1e3 for r in records})
 
 
+def _phases_37_39(dev, digest6, digest36, tmp) -> None:
+    """This rank's part of phases 37 and 39: two ranks on two nodes of the
+    card (the staged route between them)."""
+    import torch
+    from dc_sand_tpu_torch.cli import main as cli_main
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
+                                            build_global_mesh,
+                                            local_antenna_range,
+                                            ring_permute_right)
+    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
+                                           save_state)
+    from dc_sand_tpu_torch.windows import pfb_window
+    mesh = build_global_mesh([dev] * 2)
+    rank = mesh.rank
+    if set(mesh.routes().values()) != {"staged"}:
+        raise RuntimeError(f"37: rank {rank}'s routes {mesh.routes()}")
+    print(f"[37 routes] rank {rank} on node {mesh.node_of(rank)}: "
+          f"{mesh.routes()}", flush=True)
+    # ---- 37. fx64 across two nodes: the corner-turn over the staged route
+    fx = _fx64_mesh_run(dev, mesh, digest6, "37 fx64 2 nodes",
+                        trace=os.path.join(tmp, f"fx64_node{rank}.json"),
+                        a2a=2, staged=1)
+    _rank_result(37, run=fx, routes=mesh.routes())
+    # a per-rank checkpoint across nodes: 2 chunks, save, resume in a
+    # fresh runner, chunks 3-4
+    cfg = get_config("fx64")
+    a0, a1 = local_antenna_range(cfg.n_ants)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(FX64_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, mesh=mesh,
+                                       rows=slice(a0, a1))
+    runner.run(lambda i: chunks[i], 2)
+    path = save_state(runner, os.path.join(tmp, "fx64_nodes"))
+    del runner
+    resumed = FXRunner(
+        cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
+        delay_model=DelayModel.zeros(cfg.n_ants, cfg.n_pols, 32), mesh=mesh)
+    load_state(resumed, os.path.join(tmp, "fx64_nodes"))
+    dumps, _ = resumed.run(lambda i: chunks[i], 2)
+    torch.cuda.synchronize()
+    if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
+        raise RuntimeError("37: the checkpoint across nodes did not resume "
+                           "to phase 6's sha256")
+    print(f"[37 checkpoint 2 nodes] rank {rank}: {os.path.basename(path)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB), resumed in a fresh runner"
+          f": chunks 3-4 -> dump sha256 phase 6's", flush=True)
+    _rank_result(37, resumed=True)
+    del resumed, chunks, dumps
+    torch.cuda.empty_cache()
+    # ---- 39. K7b and K7a on the staged route, then the collectives bench
+    k7b = _rank_kernel_check(mesh, all_to_all, *_k7b_case(dev), FX_AXIS,
+                             2 * FX64_M // 2 // SHARDS,
+                             "39 all_to_all across nodes", launches=2)
+    _rank_result(39, k7b=k7b)
+    torch.cuda.empty_cache()
+    sp = build_global_mesh([dev] * 2, time_shards=2)
+    k7a = _rank_kernel_check(sp, ring_permute_right, *_k7a_case(dev),
+                             TIME_AXIS, 1, "39 ring across nodes")
+    _rank_result(39, k7a=k7a)
+    torch.cuda.empty_cache()
+    argv = ["bench", "collectives", "--distributed", "--mesh", "4"]
+    out = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    counts = _current_counts()
+    for line in out.getvalue().splitlines():
+        print(f"[39 cli bench] rank {rank}: {line}", flush=True)
+    if rc != 0:
+        raise RuntimeError(f"cli {' '.join(argv)}: exit code {rc}")
+    if rank == 0:
+        records = [json.loads(x) for x in out.getvalue().splitlines()
+                   if x.startswith("{")]
+        if not any(r["extra"].get("link") == "staged" for r in records):
+            raise RuntimeError("bench collectives --distributed timed "
+                               "nothing over the staged route")
+        _rank_result(39, collectives={r["name"]: r["wall_s"] * 1e3
+                                      for r in records},
+                     copy_ms={r["name"]: r["extra"]["copy_ms"]
+                              for r in records if "copy_ms" in r["extra"]})
+    _rank_result(39, bench_launches={
+        k: counts[k] for k in ("all_to_all", "all_to_all_staged", "ring",
+                               "ring_staged")})
+
+
+def _phase_38(dev, digest6, digest36, tmp) -> None:
+    """This rank's part of phase 38: four ranks as two nodes of two, one
+    fx shard a rank, both routes in every collective."""
+    import torch
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.parallel import (build_global_mesh, build_mesh,
+                                            local_antenna_range)
+    from dc_sand_tpu_torch.profile_step import production_runner
+    mesh = build_global_mesh([dev])
+    rank = mesh.rank
+    routes = mesh.routes()
+    if sorted(routes.values()) != ["ipc", "staged", "staged"]:
+        raise RuntimeError(f"38: rank {rank}'s routes {routes}")
+    fx = _fx64_mesh_run(dev, mesh, digest6, "38 fx64 2 nodes x 2 ranks",
+                        a2a=2, staged=1)
+    _rank_result(38, run=fx, routes=routes)
+    torch.cuda.empty_cache()
+    # beam64 at full width on PHASE38_BEAM_CHUNKS chunks: beams against one
+    # card's (>= 100 dB) and, with the incoherent beam, bitwise against
+    # the one-process 4-shard mesh, whose sums add the shards in the same
+    # order; beam-parallel: this rank's share of the replicated beams
+    base = get_config("beam64")
+    a0, a1 = local_antenna_range(base.n_ants)
+    n = PHASE38_BEAM_CHUNKS
+    refs = {}
+    for name, ref_mesh in (("card", None), ("mesh", build_mesh([dev] * 4))):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(BEAM_SEED)
+        runner, chunks = production_runner(base, gen, dev, mesh=ref_mesh,
+                                           n_chunks=n)
+        refs[name] = []
+        runner.run(lambda i: chunks[i], n,
+                   on_output=lambda i, o: refs[name].append(o))
+        del runner, chunks
+    outs = {}
+    nb_l = BEAMS // SHARDS
+    for ep in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(BEAM_SEED)
+        runner, chunks = production_runner(base.replace(beam_parallel=ep),
+                                           gen, dev, mesh=mesh,
+                                           rows=slice(a0, a1), n_chunks=n)
+        got = []
+        torch.cuda.synchronize()
+        _zero_counts()
+        t = time.perf_counter()
+        runner.run(lambda i: chunks[i], n,
+                   on_output=lambda i, o: got.append(o))
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t) / n * 1e3
+        launches = _counts(fengine=n, beamform=n, coarse=n)
+        outs[ep] = got
+        share = slice(rank * nb_l, (rank + 1) * nb_l) if ep else slice(None)
+        snr = min(_snr_db(r["beams"][share], o["beams"])
+                  for r, o in zip(refs["card"], got))
+        same = all(torch.equal(r["beams"][share], o["beams"])
+                   and torch.equal(r["incoherent"], o["incoherent"])
+                   for r, o in zip(refs["mesh"], got))
+        label = "38 beam64 2 nodes x 2 ranks" + (" beam-parallel" if ep
+                                                 else "")
+        print(f"[{label}] rank {rank}: {n} chunks; beams {snr:.2f} dB from "
+              f"one card's; beams and incoherent beam bitwise the "
+              f"one-process 4-shard mesh's: {same}; launches {launches}; "
+              f"run() per chunk {run_ms:.3f} ms (first run)", flush=True)
+        if not (snr >= BEAM_SNR_DB and same):
+            raise RuntimeError(f"{label}: the beams across nodes disagree")
+        _rank_result(38, ep=ep, snr_beams=snr, launches=launches,
+                     run_ms=run_ms)
+        del runner, chunks, got
+    if not all(torch.equal(r["beams"][rank * nb_l:(rank + 1) * nb_l],
+                           e["beams"])
+               for r, e in zip(outs[False], outs[True])):
+        raise RuntimeError("38: the beam-parallel beams != the replicated "
+                           "beams' share")
+
+
 def _rank_main(argv) -> int:
-    """A rank of phases 32-34: ``--rank {32-33,34} DIGEST6 DIGEST36 DIR``."""
+    """A rank of phases 32-34 and 37-39: ``--rank {32-33,34,37-39,38}
+    DIGEST6 DIGEST36 DIR``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -741,20 +1054,22 @@ def _rank_main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     which, digest6, digest36, tmp = argv
-    (_phases_32_33 if which == "32-33" else _phase_34)(dev, digest6, digest36,
-                                                       tmp)
+    {"32-33": _phases_32_33, "34": _phase_34, "37-39": _phases_37_39,
+     "38": _phase_38}[which](dev, digest6, digest36, tmp)
     ipc.close_all()
     dist.destroy_process_group()
     return 0
 
 
-def _spawn_ranks(args, timeout) -> list:
-    """Run this script's ``--rank`` entry as :data:`RANKS` ranks on the
-    card; returns each rank's ``RESULT`` dicts after echoing its lines;
-    raises if a rank failed."""
+def _spawn_ranks(args, timeout, world=RANKS, nodes=None) -> list:
+    """Run this script's ``--rank`` entry as ``world`` ranks on the card
+    (on ``nodes`` nodes of this host, as ``run_ranks`` forms them);
+    returns each rank's ``RESULT`` dicts after echoing its lines; raises
+    if a rank failed."""
     from dc_sand_tpu_torch.parallel.launch import run_ranks
     results = run_ranks([sys.executable, str(Path(__file__).resolve()),
-                         "--rank", *args], RANKS, timeout=timeout)
+                         "--rank", *args], world, timeout=timeout,
+                        nodes=nodes)
     parsed = []
     for rank, res in enumerate(results):
         mine = []
@@ -2373,6 +2688,81 @@ def main() -> int:
           f"collectives ms {pick(0, 34, 'collectives')}; phases 32-34 "
           f"{ranks_s:.1f} s ({card})", flush=True)
 
+    # ---- 37.-39. ranks on two nodes of the card: the staged route ---------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nodes = _spawn_ranks(["37-39", digest6, digest36, tmp], timeout=600,
+                             nodes=NODES)
+        mixed = _spawn_ranks(["38", digest6, digest36, tmp], timeout=600,
+                             world=2 * NODES, nodes=NODES)
+    nodes_s = time.perf_counter() - t
+
+    def pick_in(ranks_, rank, phase, key):
+        return next(r[key] for r in ranks_[rank]
+                    if r["phase"] == phase and key in r)
+
+    staged_runs = [pick_in(nodes, r, 37, "run") for r in range(NODES)]
+    idle37, busy37, traced37 = _idle_share(staged_runs)
+    print(f"[37 fx64 2 ranks on 2 nodes] routes "
+          f"{[pick_in(nodes, r, 37, 'routes') for r in range(NODES)]}; every "
+          f"rank's dump sha256 phase 6's, and a per-rank checkpoint resumed "
+          f"to it; launches a rank {[x['launches'] for x in staged_runs]}; "
+          f"steady run() per chunk " + ", ".join(
+              f"rank {r} {x['step_ms']:.3f} ms ({x['barriers']:.1f} "
+              f"barriers, {x['barrier_ms']:.3f} ms host; staged "
+              f"{x['staged_mb']:.1f} MB, {x['staged_ms']:.3f} ms host)"
+              for r, x in enumerate(staged_runs))
+          + f"; traced run: device busy (union over the ranks) "
+          f"{busy37:.3f} ms of {traced37:.3f} ms, idle share "
+          + (f"{idle37:.4f}" if idle37 is not None else "not measured (the "
+             "traces' clocks do not line up)")
+          + "; beside phase 32's IPC run " + ", ".join(
+              f"{x['step_ms']:.3f}" for x in runs["fx"]) + f" ms ({card})",
+          flush=True)
+    mixed_runs = [pick_in(mixed, r, 38, "run") for r in range(2 * NODES)]
+    print(f"[38 fx64 2 nodes x 2 ranks] routes "
+          f"{[pick_in(mixed, r, 38, 'routes') for r in range(2 * NODES)]}; "
+          f"every rank's dump sha256 phase 6's; launches a rank "
+          f"{[x['launches'] for x in mixed_runs]}; steady run() per chunk "
+          + ", ".join(f"{x['step_ms']:.3f}" for x in mixed_runs)
+          + " ms; beam64 beams " + ", ".join(
+              f"{'beam-parallel' if x['ep'] else 'replicated'} "
+              f"{x['snr_beams']:.2f} dB" for r in range(2 * NODES)
+              for x in mixed[r] if x["phase"] == 38 and "ep" in x)
+          + f" from one card's, beams and incoherent beam bitwise the "
+          f"one-process 4-shard mesh's ({card})", flush=True)
+    k7b_st, k7a_st = pick_in(nodes, 0, 39, "k7b"), pick_in(nodes, 0, 39, "k7a")
+    for r in range(NODES):
+        for name, phase_ipc in (("k7b", 32), ("k7a", 33)):
+            if (pick_in(nodes, r, 39, name)["digest"]
+                    != pick(r, phase_ipc, name)["digest"]):
+                raise RuntimeError(f"39: rank {r}'s {name} over the staged "
+                                   "route != the IPC route's")
+    bench_launches = [pick_in(nodes, r, 39, "bench_launches")
+                      for r in range(NODES)]
+    print(f"[39 staged kernels 2 nodes] K7b and K7a bitwise their plain "
+          f"versions and the IPC route's (phases 32-33, sha256 of each "
+          f"rank's outputs); K7b {k7b_st['ms']:.4f} ms (plain "
+          f"{k7b_st['plain_ms']:.3f}, copy_ on the route "
+          f"{k7b_st['library_ms']:.4f}; IPC {k7b['ms']:.4f}), the "
+          f"receiver's placement of {k7b_st['place_mb']:.1f} MB from the "
+          f"pinned slots {k7b_st['place_ms']:.4f} ms landed (in place "
+          f"{k7b_st['place_in_place_ms']:.4f}, copy_ "
+          f"{k7b_st['place_copy_ms']:.4f}); K7a {k7a_st['ms']:.4f} ms (plain "
+          f"{k7a_st['plain_ms']:.3f}, copy_ {k7a_st['library_ms']:.4f}; IPC "
+          f"{k7a['ms']:.4f}), placement {k7a_st['place_ms']:.4f} ms landed "
+          f"(in place {k7a_st['place_in_place_ms']:.4f}, copy_ "
+          f"{k7a_st['place_copy_ms']:.4f}); bench collectives ms "
+          f"{pick_in(nodes, 0, 39, 'collectives')}, copy_ ms "
+          f"{pick_in(nodes, 0, 39, 'copy_ms')}, launches {bench_launches}; "
+          f"phases 37-39 {nodes_s:.1f} s ({card})", flush=True)
+    if not all(b["all_to_all_staged"] and b["ring_staged"]
+               for b in bench_launches):
+        raise RuntimeError("39: the bench's kernels launched nothing on the "
+                           "staged route")
+
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:
             raise RuntimeError(f"the port must not import {banned}")
@@ -2424,6 +2814,20 @@ def main() -> int:
               sum(x["launches"]["ring"] for x in runs["sp"]), 0, k7a["ms"],
               k7a["plain_ms"], (k7a["bound_ms"], k7a["bound_by"]),
               k7a["library_ms"]),
+        # the staged route: fx64's corner-turn on the main path (37, 38:
+        # the receivers' launches), the ring in the bench run (39)
+        entry("all_to_all_staged", "remote_dma.cu",
+              "dc_sand_tpu/parallel/remote_dma.py:85",
+              sum(x["launches"]["all_to_all_staged"]
+                  for x in staged_runs + mixed_runs), 0, k7b_st["ms"],
+              k7b_st["plain_ms"], (k7b_st["bound_ms"], k7b_st["bound_by"]),
+              k7b_st["library_ms"]),
+        entry("ring_staged", "remote_dma.cu",
+              "dc_sand_tpu/parallel/remote_dma.py:51",
+              sum(b["ring_staged"] for b in bench_launches), 0,
+              k7a_st["ms"], k7a_st["plain_ms"],
+              (k7a_st["bound_ms"], k7a_st["bound_by"]),
+              k7a_st["library_ms"]),
         entry("read_probe", "probes.cu", "scripts/sweep_s10_micro.py:26",
               probe_counts["read_probe"], 0, *probe_times["read_probe"]),
         entry("write_probe", "probes.cu", "scripts/sweep_s10_micro.py:49",
@@ -2434,7 +2838,7 @@ def main() -> int:
               "dc_sand_tpu/models/fengine.py:21", gather_launches, 0,
               *gather_times[("fx64", True)]),
     ]
-    print(f"[total] phases 1-36 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[total] phases 1-39 in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -63,7 +63,8 @@ _SIGNATURES = {
     "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "remote_dma": {"dcs_all_to_all": [Pairs, _I, _L, _L, _L, _P],
                    "dcs_ring": [Pairs, _I, _L, _P],
-                   "dcs_enable_peer": [_I]},
+                   "dcs_enable_peer": [_I],
+                   "dcs_device_pointer": [_P, ctypes.POINTER(_P)]},
     "probes": {"dcs_read_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
                "dcs_write_probe": [_P, _I, _I, _I, _I, _I, _P]},
     "coarse": {"dcs_coarse_gather": [_P, _L, _L, _P, _L, _L, _P, _I, _P, _L,

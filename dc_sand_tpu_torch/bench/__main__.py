@@ -160,6 +160,9 @@ def _target(name: str, args, dev) -> list:
         if args.distributed:
             n = args.mesh // process_count()
             mesh = build_global_mesh([dev] * n)
+            print(f"routes: rank {process_index()} on {mesh.node_of(mesh.rank)}"
+                  + "".join(f", rank {r} {how}" for r, how in
+                            sorted(mesh.routes().items())), flush=True)
             out = [collectives.bench_collective(op, mesh)
                    for op in collectives.COLLECTIVES]
             if process_index() == 0:

@@ -19,12 +19,16 @@ one card copy through its memory, not over NVLink.
 
 On a mesh over several processes (``bench collectives --distributed``,
 the JAX bench's ``--distributed`` over global devices) each rank times its
-own part: the kernels write through the peers' CUDA IPC mappings, the
-sums read them, each call ordered by two gloo barriers (in the time), and
-the plain versions go over gloo.  ``link`` then says ``CUDA IPC`` (or
-``gloo`` on the CPU), and ``processes`` how many ranks share the mesh.
-Two ranks on one card time-slice it: their times are not a scaling
-measurement.
+own part, each call ordered by two gloo barriers (in the time), and the
+plain versions go over gloo.  The kernels reach a rank of the same node
+through its CUDA IPC mappings, a rank of another node over the staged
+route (pinned host slots and gloo; the receiver's launch places each
+block), and the sums read the mappings or the staged mirrors.  ``link``
+says which (``CUDA IPC``, ``staged``, both, or ``gloo`` on the CPU),
+``routes`` each other rank's route, and ``processes`` how many ranks share
+the mesh; the kernels' records carry ``copy_ms``, the same route with
+every block placed by ``Tensor.copy_`` (the yardstick).  Two ranks on one
+card time-slice it: their times are not a scaling measurement.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from dc_sand_tpu_torch.bench.harness import BenchResult, time_cuda
 from dc_sand_tpu_torch.parallel import (FX_AXIS, SharedBuffers, all_shards,
                                         all_to_all, all_to_all_torch, psum,
                                         psum_scatter, ring_permute_right,
-                                        ring_permute_right_torch)
+                                        ring_permute_right_torch,
+                                        uses_shared_buffers)
 
 __all__ = ["bench_collective", "COLLECTIVES"]
 
@@ -65,9 +70,9 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
                          f"available: {COLLECTIVES}")
     devices = mesh.local_devices
     first = devices[0]
-    # across processes on the card: the shards' buffers every rank maps
+    # across processes: the shards' buffers every rank reaches
     shared = (SharedBuffers(mesh, (n_rows, 1024), torch.float32)
-              if mesh.multiprocess and first.type == "cuda" else None)
+              if uses_shared_buffers(mesh) else None)
     ops = {
         "all_to_all": (lambda xs: all_to_all_torch(xs, mesh, FX_AXIS),
                        local_bytes * (d - 1) / d),
@@ -103,17 +108,28 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
 
     wall = time_cuda(call, warmup=2, iters=iters, device=first)
     cards = len(set(devices))
+    extra = {"devices": d, "cards": cards, "processes": mesh.process_count,
+             "local_mb": local_bytes / 1e6}
     if mesh.multiprocess:
-        link = "CUDA IPC" if shared is not None else "gloo"
+        routes = mesh.routes()
+        extra["routes"] = {str(r): how for r, how in routes.items()}
+        extra["link"] = (" + ".join(name for how, name in (
+            ("ipc", "CUDA IPC"), ("staged", "staged"))
+            if how in routes.values()) if shared is not None else "gloo")
+        if shared is not None and op.endswith("_pallas"):
+            copy_op = all_to_all if op == "all_to_all_pallas" else \
+                ring_permute_right
+            extra["copy_ms"] = time_cuda(
+                lambda: copy_op(xs, mesh, FX_AXIS, out=shared,
+                                place="copy"),
+                warmup=2, iters=iters, device=first) * 1e3
     else:
-        link = ("host memory" if first.type == "cpu" else "NVLink"
-                if cards > 1 else "one card's memory")
+        extra["link"] = ("host memory" if first.type == "cpu" else "NVLink"
+                         if cards > 1 else "one card's memory")
     procs = mesh.process_count
     return BenchResult(
         name=f"collective_{op}_{d}dev" + (f"_{procs}proc" if procs > 1
                                           else ""),
         metric=f"{op} per-shard bandwidth", value=wire / wall / 1e9,
-        unit="GB/s", wall_s=wall, bytes_moved=wire,
-        extra={"devices": d, "cards": cards, "link": link,
-               "processes": procs, "local_mb": local_bytes / 1e6},
+        unit="GB/s", wall_s=wall, bytes_moved=wire, extra=extra,
     ).finish(first)

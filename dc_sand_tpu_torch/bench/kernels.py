@@ -18,6 +18,7 @@ from dc_sand_tpu_torch.golden.chain import baseline_pairs
 from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.beamform import beamform
 from dc_sand_tpu_torch.ops.fft import channelize
+from dc_sand_tpu_torch.ops.fft_mxu import channelize_mxu
 from dc_sand_tpu_torch.ops.xcorr import (acc_shape, extract_baselines,
                                          xcorr_accumulate,
                                          xcorr_accumulate_a2, xcorr_full)
@@ -34,26 +35,34 @@ def _gen(dev, seed: int) -> torch.Generator:
 
 def bench_fft(n_chans: int = 1024, n_streams: int = 16,
               n_spectra: int = 512, iters: int = 64, device=None) -> list:
-    """The channelizer FFT at the F-engine bench's shape: the port's
-    :func:`~dc_sand_tpu_torch.ops.fft.channelize` (``torch.fft.rfft``,
-    plain PyTorch; the fx path runs its FFT inside the F-engine kernel).
-    The JAX file's MXU matmul FFT stays in the reference."""
+    """rfft implementations head to head at the channelizer shape, the JAX
+    file's two entries: ``fft_torch_rfft``, the port's
+    :func:`~dc_sand_tpu_torch.ops.fft.channelize` (``torch.fft.rfft``),
+    and ``fft_mxu_matmul``, the matmul-formulated split of
+    :func:`~dc_sand_tpu_torch.ops.fft_mxu.channelize_mxu` (float32,
+    TF32 off).  Both plain PyTorch: the fx path runs its FFT inside the
+    F-engine kernel."""
     dev = default_device(device)
     m = 2 * n_chans
     x = torch.randn((n_streams, n_spectra, m), generator=_gen(dev, 0),
                     device=dev) * 30
-    wall = time_cuda(lambda: channelize(x, n_chans), warmup=2, iters=iters,
-                     device=dev)
     samples = n_streams * n_spectra * m
-    # 5 M log2 M real FLOPs per length-M rfft (the standard count)
+    # 5 M log2 M real FLOPs per length-M rfft (the standard count), for
+    # both: the matmul path trades them for dense-DFT MACs
     flops = 5 * samples * math.log2(m)
-    return [BenchResult(
-        name="fft_torch_rfft", metric="FFT samples/s",
-        value=samples / wall, unit="samp/s", wall_s=wall,
-        bytes_moved=samples * 4 + samples // 2 * 8,
-        extra={"n_chans": n_chans, "n_streams": n_streams,
-               "n_spectra": n_spectra, "impl": "torch"},
-    ).finish(dev, fp32_ops=flops)]
+    out = []
+    for name, fn in (("fft_torch_rfft", channelize),
+                     ("fft_mxu_matmul", channelize_mxu)):
+        wall = time_cuda(lambda: fn(x, n_chans), warmup=2, iters=iters,
+                         device=dev)
+        out.append(BenchResult(
+            name=name, metric="FFT samples/s",
+            value=samples / wall, unit="samp/s", wall_s=wall,
+            bytes_moved=samples * 4 + samples // 2 * 8,
+            extra={"n_chans": n_chans, "n_streams": n_streams,
+                   "n_spectra": n_spectra, "impl": "torch"},
+        ).finish(dev, fp32_ops=flops))
+    return out
 
 
 def bench_xcorr(n_ants: int = 64, n_pols: int = 2, n_chans: int = 4096,

@@ -26,10 +26,16 @@ shards (default: one a rank), ``N / world`` on each rank, on
 ``cuda:(LOCAL_RANK mod the card count)`` or on CPU shards with ``--cpu``;
 with ``--time-shards`` the time axis runs within each rank
 (``time_local``), as the multi-process runner needs.  Each rank feeds its
-own antennas and prints its own lines::
+own antennas and prints its own lines.  The ranks may span nodes: ranks of
+one node reach each other through CUDA IPC, ranks of different nodes over
+the staged route (pinned host slots and gloo), as the node map of
+``init_distributed`` says::
 
     torchrun --nproc-per-node 2 -m dc_sand_tpu_torch.cli verify fx4 \
         --distributed --mesh 4
+    torchrun --nnodes 2 --node-rank R --nproc-per-node 2 \
+        --master-addr HOST0 --master-port 29500 \
+        -m dc_sand_tpu_torch.cli verify fx4 --distributed --mesh 4
 
 Not ported: ``--stage2`` and the ``*_interpret`` impls (knobs of the TPU
 kernels) and the TPU backend probe.

@@ -18,6 +18,17 @@
 // (dc_sand_tpu_torch/parallel/remote_dma.py) orders the launches with stream
 // events in place of the DMA semaphores.
 //
+// Between ranks on different nodes (the staged route,
+// dc_sand_tpu_torch/parallel/staged.py) the receiver launches the same
+// kernel: each pair's source is the block that arrived in a pinned host
+// slot and was copied whole onto the card (a copy-engine transfer into a
+// landing buffer), its destination the receiver's own buffer at the
+// sender's offset and pitch.  The kernel can read the slot across the bus
+// in place (dcs_device_pointer gives its address), and on an H100 80GB HBM3
+// at 700 W it placed the fx64 corner-turn's blocks about as fast as the
+// landing copy and the kernel together (PERF.md §6); but in place it holds
+// the SMs for the whole transfer, landed only for the HBM pass.
+//
 // One kernel serves both: it takes, by value, up to 16 (source, destination)
 // pointer pairs (the JAX package's contract mesh has 16 shards; 256 B of the
 // 4 KB a launch may carry), and every pair moves `rows` rows of `row_bytes`:
@@ -147,6 +158,20 @@ extern "C" int dcs_all_to_all(DcsPairs pairs, int n_pairs, long long rows,
 // goes to pairs.dst[d] (its right neighbour's output), d < n_pairs.
 extern "C" int dcs_ring(DcsPairs pairs, int n_pairs, long long nbytes, void* stream) {
   return launch(pairs, n_pairs, 1, nbytes, nbytes, stream);
+}
+
+// The address at which the current device's kernels read the pinned host
+// memory at `host` (a staged route's receive slot, read in place across the
+// bus: the alternative to landing it that chip_smoke.py times):
+// cudaErrorInvalidValue unless it is host memory the card can address.
+extern "C" int dcs_device_pointer(const void* host, void** dev) {
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, host);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *dev = attr.devicePointer;
+  return static_cast<int>(cudaSuccess);
 }
 
 // Let the current device's kernels address `peer`'s memory (both on this host,

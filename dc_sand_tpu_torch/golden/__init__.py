@@ -16,4 +16,5 @@ from .chain import (  # noqa: F401
     incoherent_sum,
     f_engine,
     baseline_pairs,
+    stokes,
 )

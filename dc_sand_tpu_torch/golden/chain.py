@@ -21,7 +21,7 @@ import numpy as np
 __all__ = [
     "apply_coarse_delay", "pfb_fir", "channelize", "fine_delay_fringe",
     "requantize", "corner_turn", "xcorr", "beamform", "incoherent_sum",
-    "f_engine", "baseline_pairs",
+    "f_engine", "baseline_pairs", "stokes",
 ]
 
 
@@ -154,3 +154,13 @@ def f_engine(x: np.ndarray, window: np.ndarray, taps: int, n_chans: int,
     if gains is not None:
         spec = requantize(spec, gains)
     return spec
+
+
+def stokes(beams: np.ndarray) -> np.ndarray:
+    """Stokes (I, Q, U, V) from dual-pol complex beams ``(beam, 2, b, k)``
+    -> ``(beam, 4, b, k)`` float64 (golden model for ops/stokes.py)."""
+    x = np.asarray(beams[:, 0], dtype=np.complex128)
+    y = np.asarray(beams[:, 1], dtype=np.complex128)
+    px, py = np.abs(x) ** 2, np.abs(y) ** 2
+    xy = x * np.conj(y)
+    return np.stack([px + py, px - py, 2 * xy.real, 2 * xy.imag], axis=1)

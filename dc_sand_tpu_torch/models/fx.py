@@ -17,7 +17,8 @@ On a mesh over several processes (:func:`~dc_sand_tpu_torch.parallel.
 build_global_mesh`) every rank calls the step with the same global
 inputs, as JAX's multi-process rungs build one global array from each
 process's copy; a rank cuts its own shards from them, the corner-turn and
-the halo cross the process boundary, and ``make_sharded_fx_step`` gives
+the halo cross the process boundary (and the node boundary, over the
+staged route), and ``make_sharded_fx_step`` gives
 every rank the whole visibility set while ``make_time_sharded_fengine``
 gives each rank the spectra of its own shards.
 """
@@ -34,7 +35,7 @@ from dc_sand_tpu_torch.models.pipeline import (gather_acc, gather_outputs,
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.xcorr import extract_vis
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
-                                        build_mesh)
+                                        build_mesh, uses_shared_buffers)
 
 __all__ = ["fx_step_local", "make_sharded_fx_step",
            "make_time_sharded_fengine"]
@@ -56,16 +57,15 @@ def _once(cfg: ChainConfig, window, mesh, history, chunk, frac, phase,
     global frame-form history ``(A*P, taps_pad, M)`` and chunk ``(A*P, B,
     M)`` (``frac``/``phase`` ``(A*P, B)`` or None, ``gains`` ``(K, 2)``
     or None): ``(outputs, accs, buffers)``, outputs and accumulators per
-    shard of this process, ``buffers`` the accumulators' shared buffers on
-    a multi-process mesh on the card (else None)."""
+    shard of this process, ``buffers`` the accumulators' shared buffers
+    where the mesh's collectives take them (else None)."""
     step = make_step(cfg, window, mesh=mesh, fused=fused)
     hists, = shard_inputs(mesh, _local_rows(mesh, history), time=False)
     chunks, fracs, phases = shard_inputs(
         mesh, *(_local_rows(mesh, v) for v in (chunk, frac, phase)))
     devices = mesh.local_devices
     bufs = None
-    if mesh.multiprocess and devices[0].type == "cuda" and \
-            cfg.run_xengine:
+    if uses_shared_buffers(mesh) and cfg.run_xengine:
         bufs = SharedBuffers(mesh, zero_vis_acc(cfg, "cpu", mesh).shape,
                              torch.int32)
         accs = bufs.local

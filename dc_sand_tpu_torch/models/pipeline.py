@@ -86,7 +86,12 @@ sees only its addressable shards, and the chunk it cuts holds this rank's
 antennas only.  On the card the step allocates, once, the buffers that
 other ranks write into or read (:class:`~dc_sand_tpu_torch.parallel.ipc.
 SharedBuffers`): the receivers' CMAC operands for K7b, the halos for K7a,
-the partial and incoherent beams for the sums.
+the partial and incoherent beams for the sums.  Ranks of one node reach
+them through CUDA IPC; ranks of other nodes through the staged route
+(pinned host slots and gloo; the receiver's K7b or K7a places a remote
+sender's block, the sums read mirrors).  On the CPU a mesh whose peers
+are all on other nodes takes the staged route's bookkeeping too
+(:func:`~dc_sand_tpu_torch.parallel.uses_shared_buffers`).
 
 SP mode (``cfg.time_shards > 1``, the counterpart of ``_make_sp_step``) cuts
 each chunk into time shards: every shard sends its last ``taps_pad`` frames
@@ -113,7 +118,8 @@ from dc_sand_tpu_torch.ops.xcorr import (acc_shape, cmac_pitch,
                                          xcorr_accumulate_a2)
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
                                         all_shards, corner_turn_all_to_all,
-                                        psum, psum_scatter, ring_tails)
+                                        psum, psum_scatter, ring_tails,
+                                        uses_shared_buffers)
 
 __all__ = ["make_step", "mode_for", "check_mode", "zero_vis_acc",
            "history_len", "uses_frames_io", "history_shape", "chunk_shape",
@@ -300,11 +306,13 @@ def gather_acc(accs, mesh, device, buffers=None) -> torch.Tensor:
     shards' carries: the channel blocks in order, each the sum of its time
     shards' partials (exact int32 adds).  On a mesh over several
     processes every rank gets the whole plane, as the JAX runner's dump
-    all-gather gives it: on the card ``accs`` are this rank's buffers of
-    ``buffers`` (:class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`)
-    and the peers' are read through their IPC mappings, after which the
-    ranks agree that the reads are done before any accumulator is written
-    again; on the CPU they come over gloo."""
+    all-gather gives it: with ``buffers``
+    (:class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`) ``accs`` are
+    this rank's buffers, its node's peers' are read through their IPC
+    mappings and other nodes' from mirrors filled over the staged route,
+    after which the ranks agree that the reads are done before any
+    accumulator is written again; without, on the CPU, they come over
+    gloo."""
     n_t, n_f = _split(mesh)
     every = all_shards(accs, mesh, buffers)
     blocks = []
@@ -470,11 +478,11 @@ def _each(fn, xs) -> list:
 
 
 def _shared_buffers(cfg: ChainConfig, mesh) -> dict:
-    """The buffers other ranks write into or read, by role, on a mesh over
-    several processes on the card (none otherwise); every rank allocates
-    and registers them in one order."""
-    devices = mesh.local_devices
-    if not mesh.multiprocess or devices[0].type != "cuda":
+    """The buffers other ranks write into or read, by role, on a mesh
+    whose collectives take them (:func:`~dc_sand_tpu_torch.parallel.
+    uses_shared_buffers`; none otherwise); every rank allocates and
+    registers them in one order."""
+    if not uses_shared_buffers(mesh):
         return {}
     mode = mode_for(cfg)
     n_t, n_f = _split(mesh)

@@ -32,10 +32,13 @@ def corner_turn_all_to_all(qs, mesh, out=None) -> list:
     :func:`dc_sand_tpu_torch.ops.xcorr.wire_to_a2`.  K7b moves the ``2 *
     k_local`` rows of ``s_local*b`` bytes of each (sender, receiver) block
     to the receiver's rows at a pitch of ``ap*b`` bytes.  On a
-    multi-process mesh on the card the rows land in the receivers'
-    persistent operands ``out`` (a
-    :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` of the
-    shards' shape), through the peers' IPC mappings.
+    multi-process mesh the rows land in the receivers' persistent
+    operands ``out`` (a :class:`~dc_sand_tpu_torch.parallel.ipc.
+    SharedBuffers` of the shards' shape; required on the card, and on the
+    CPU the staged route's bookkeeping): a receiver of this node through
+    its IPC mapping; a receiver of another node gets each sender's
+    ``2 * k_local`` rows as one contiguous block over the staged route and
+    places them with K7b itself, at the sender's rows and the same pitch.
     """
     n = mesh.shape[FX_AXIS]
     k, c, s_l, b = qs[0].shape

@@ -25,26 +25,31 @@ def ring_tails(xs, n: int, mesh, axis: str = TIME_AXIS,
     """Each shard's last ``n`` entries along ``dim``, sent one step right
     around the ring over ``axis`` (K7a): shard k of each group receives
     shard k-1's, the group's first shard its last shard's.  On a
-    multi-process mesh on the card they land in the receivers' halo
-    buffers ``out`` (a :class:`~dc_sand_tpu_torch.parallel.ipc.
-    SharedBuffers` of a tail's shape)."""
+    multi-process mesh they land in the receivers' halo buffers ``out`` (a
+    :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` of a tail's
+    shape; required on the card, and on the CPU the staged route's
+    bookkeeping): through the IPC mapping of a receiver of this node, or
+    over the staged route, placed by the receiver's own K7a launch, for a
+    receiver of another node.  With ``time_local`` the time ring stays
+    inside each rank."""
     tails = [x.narrow(dim, x.shape[dim] - n, n).contiguous() for x in xs]
     return ring_permute_right(tails, mesh, axis, out=out)
 
 
 def halo_exchange_left(xs, halo_len: int, mesh,
-                       axis: str = TIME_AXIS) -> list:
+                       axis: str = TIME_AXIS, out=None) -> list:
     """Prepend the left neighbour's trailing ``halo_len`` samples.
 
     ``xs``: per shard ``(..., t_local)`` -> per shard ``(..., halo_len +
     t_local)``.  The first shard of each group along ``axis`` gets zeros,
-    the cold-start FIR history of the whole stream."""
+    the cold-start FIR history of the whole stream.  ``out``: the halo
+    buffers of :func:`ring_tails`."""
     if xs[0].shape[-1] < halo_len:
         raise ValueError(
             f"time shard holds {xs[0].shape[-1]} samples < halo "
             f"{halo_len}; each shard needs at least (taps-1)*fft_size "
             "samples for overlap-save")
-    halos = ring_tails(xs, halo_len, mesh, axis)
+    halos = ring_tails(xs, halo_len, mesh, axis, out=out)
     heads = {group[0] for group in mesh.groups(axis)}
     for h, d in zip(halos, mesh.local_shards):
         if d in heads:

@@ -1,4 +1,4 @@
-"""Start the ranks of a multi-process run on this node, as ``torchrun``
+"""Start the ranks of a multi-process run on this host, as ``torchrun``
 would, and collect what each printed.
 
     results = run_ranks([sys.executable, "-m", "dc_sand_tpu_torch.cli",
@@ -7,7 +7,11 @@ would, and collect what each printed.
 Each rank gets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
 (127.0.0.1) and ``MASTER_PORT`` (a free port of this host, unless ``env``
 names one), which :func:`~dc_sand_tpu_torch.parallel.distributed.
-init_distributed` reads.  The ranks' outputs are drained while they run,
+init_distributed` reads.  With ``nodes=n`` the ranks form ``n`` nodes of
+``world / n`` consecutive ranks, as ``torchrun --nnodes n`` agents on
+this host would start them: ``GROUP_RANK`` (the node), ``LOCAL_RANK`` and
+``LOCAL_WORLD_SIZE`` within it; ranks of different nodes then exchange
+through the staged route (:mod:`.staged`), not CUDA IPC.  The ranks' outputs are drained while they run,
 so that a rank that fills its pipe cannot stall the others at a barrier;
 when one rank fails, the others are stopped at once rather than left
 waiting for it.
@@ -39,17 +43,24 @@ def free_port() -> int:
 
 def run_ranks(argv: Sequence[str], world: int, *,
               env: Optional[dict] = None, timeout: float = 600.0,
-              cwd: Optional[str] = None) -> list:
+              cwd: Optional[str] = None, nodes: Optional[int] = None) -> list:
     """Run ``world`` processes of ``argv`` and wait for them; returns a
     :class:`RankResult` per rank.  A rank that exits non-zero, or the
-    ``timeout`` in seconds, stops every rank still running."""
+    ``timeout`` in seconds, stops every rank still running.  ``nodes``:
+    see the module docstring (None: one node, no ``GROUP_RANK``)."""
     base = dict(os.environ, **(env or {}))
     base.setdefault("MASTER_ADDR", "127.0.0.1")
     base.setdefault("MASTER_PORT", str(free_port()))
+    if nodes is not None and (nodes < 1 or world % nodes):
+        raise ValueError(f"{world} ranks do not form {nodes} nodes")
+    per = world // (nodes or 1)
     procs, outs, readers = [], [], []
     for rank in range(world):
-        rank_env = dict(base, RANK=str(rank), LOCAL_RANK=str(rank),
+        rank_env = dict(base, RANK=str(rank), LOCAL_RANK=str(rank % per),
                         WORLD_SIZE=str(world))
+        if nodes is not None:
+            rank_env.update(GROUP_RANK=str(rank // per),
+                            LOCAL_WORLD_SIZE=str(per))
         proc = subprocess.Popen(list(argv), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True,
                                 env=rank_env, cwd=cwd)

@@ -6,10 +6,15 @@ corner-turn and channels after it; the optional ``time`` axis shards the
 sample stream (SP mode, overlap-save halo over a ring).
 
 A mesh over several ``torch.distributed`` ranks
-(:func:`build_global_mesh`) also records each shard's process.  A rank
-holds its own shards only, as a JAX process sees only its addressable
-shards: every per-shard list on such a mesh has one entry per
-:attr:`Mesh.local_shards`, in shard order.
+(:func:`build_global_mesh`) also records each shard's process and each
+process's node.  A rank holds its own shards only, as a JAX process sees
+only its addressable shards: every per-shard list on such a mesh has one
+entry per :attr:`Mesh.local_shards`, in shard order.  The node map gives
+every pair of ranks its route (:meth:`Mesh.routes`): ``"ipc"`` within a
+node (:mod:`.ipc`), ``"staged"`` across nodes (:mod:`.staged`).  The
+process-major layout and ``time_local`` do not depend on it: with
+``time_local`` the time ring, and so the runner's halo, stays inside a
+rank, as the JAX package's ingest-locality layout keeps it off DCN.
 
 Every shard is a tensor of its own, so a device may appear more than
 once: four shards on ``cuda:0`` are four allocations, and the peer-copy
@@ -36,8 +41,9 @@ __all__ = ["Mesh", "build_mesh", "build_global_mesh", "FX_AXIS",
 
 class Mesh:
     """A ``(time, fx)`` array of :class:`torch.device`, with the process
-    that holds each shard (``procs``, all 0 in one process) and this
-    process's rank.
+    that holds each shard (``procs``, all 0 in one process), this
+    process's rank and every process's node (``nodes``, in rank order;
+    None: one node).
 
     Shards are numbered row-major: shard ``d`` sits at ``(t, f) =
     divmod(d, n_fx)``.  Per-shard tensors travel as lists in that order,
@@ -47,7 +53,7 @@ class Mesh:
     axis_names = (TIME_AXIS, FX_AXIS)
 
     def __init__(self, devices: np.ndarray, procs: np.ndarray = None,
-                 rank: int = 0):
+                 rank: int = 0, nodes=None):
         if devices.ndim != 2 or devices.size == 0:
             raise ValueError("a mesh is a non-empty (time, fx) device array")
         if procs is None:
@@ -59,6 +65,12 @@ class Mesh:
         flat = procs.reshape(-1)
         self.local_shards = tuple(int(d) for d in np.flatnonzero(flat == rank))
         self.process_count = len(set(flat.tolist()))
+        if nodes is None:
+            nodes = ("",) * self.process_count
+        if len(nodes) != self.process_count:
+            raise ValueError(f"{len(nodes)} nodes for {self.process_count} "
+                             "processes")
+        self.nodes = tuple(nodes)
         self._ring_sends = {}
 
     @property
@@ -85,6 +97,19 @@ class Mesh:
     def process_of(self, d: int) -> int:
         """The rank that holds shard ``d``."""
         return int(self.procs.reshape(-1)[d])
+
+    def node_of(self, rank: int) -> str:
+        """The node that ``rank`` runs on."""
+        return self.nodes[rank]
+
+    def routes(self) -> dict:
+        """Each other rank -> how this rank's collectives reach its
+        buffers: ``"ipc"`` for a rank of this node (CUDA IPC mappings),
+        ``"staged"`` for a rank of another node (pinned host slots and
+        gloo).  Decided from the node map alone."""
+        mine = self.node_of(self.rank)
+        return {r: "ipc" if self.node_of(r) == mine else "staged"
+                for r in range(self.process_count) if r != self.rank}
 
     def shards_of(self, rank: int) -> tuple:
         """The shards that ``rank`` holds, in shard order."""
@@ -165,7 +190,7 @@ def _layout(a: np.ndarray, time_shards: int, time_local: bool):
 
 
 def _arrange(devs: list, procs: list, rank: int, time_shards: int,
-             time_local: bool) -> Mesh:
+             time_local: bool, nodes=None) -> Mesh:
     if not devs:
         raise ValueError("build_mesh needs at least one device")
     if len({d.type for d in devs}) != 1:
@@ -179,7 +204,7 @@ def _arrange(devs: list, procs: list, rank: int, time_shards: int,
     arr[:] = devs
     return Mesh(_layout(arr, time_shards, time_local),
                 _layout(np.asarray(procs, dtype=int), time_shards,
-                        time_local), rank)
+                        time_local), rank, nodes)
 
 
 def build_mesh(devices: Sequence, time_shards: int = 1,
@@ -202,10 +227,12 @@ def build_global_mesh(local_devices: Sequence, time_shards: int = 1,
     """The mesh over every rank's devices: each rank passes its own
     ``local_devices`` and they are gathered process-major (rank 0's
     first), as ``jax.devices()`` orders a pod's, then laid out as
-    :func:`build_mesh` does.  Collective: every rank of the process group
-    calls it.  Without a process group (or with one rank) it is
-    :func:`build_mesh`."""
+    :func:`build_mesh` does, with the node map of
+    :func:`~dc_sand_tpu_torch.parallel.distributed.node_map`.  Collective:
+    every rank of the process group calls it.  Without a process group
+    (or with one rank) it is :func:`build_mesh`."""
     import torch.distributed as dist
+    from dc_sand_tpu_torch.parallel.distributed import node_map
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return build_mesh(local_devices, time_shards, time_local)
     mine = [str(_device(d)) for d in local_devices]
@@ -218,4 +245,4 @@ def build_global_mesh(local_devices: Sequence, time_shards: int = 1,
     for r, names in enumerate(every):
         devs += [_device(x) if r == rank else torch.device(x) for x in names]
         procs += [r] * len(names)
-    return _arrange(devs, procs, rank, time_shards, time_local)
+    return _arrange(devs, procs, rank, time_shards, time_local, node_map())

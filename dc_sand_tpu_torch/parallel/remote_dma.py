@@ -33,14 +33,29 @@ arithmetic and ``.to(device)`` copies.
 On a mesh over several processes (:func:`~dc_sand_tpu_torch.parallel.mesh.
 build_global_mesh`) each rank passes and gets back its own shards only.
 On the card the destinations are the receivers' persistent buffers
-(``out``, a :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`: the
-peers' are CUDA IPC mappings), and each rank launches the same kernel once
-for its own senders, its counter counting its launches; ``out.ready()``
-before and ``out.done()`` after order the writes against every rank's
-reads in place of the stream waits.  The plain versions copy to the host
-and send the blocks between ranks over gloo (``batch_isend_irecv``), the
-receiver interleaving them: bitwise the one-process result over the same
-global mesh.
+(``out``, a :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`), and
+the route of each pair of ranks is the mesh's
+(:meth:`~dc_sand_tpu_torch.parallel.mesh.Mesh.routes`):
+
+* within a node the sender's launch writes into the receiver's CUDA IPC
+  mapping, each rank launching the kernel once for its own senders;
+* across nodes (:mod:`.staged`) the sender copies each block, contiguous
+  in its shard, whole from the card into a pinned host slot, the slots
+  cross in gloo point-to-point sends, the receiver copies each slot whole
+  back onto the card (a copy-engine transfer into its landing buffer),
+  and the RECEIVER launches the same kernel with the landed block as the
+  source and its own buffer, at the sender's row offset and pitch, as
+  the destination: the kernel, not a ``copy_``, places every block.
+
+Every launch adds one to the op's ``launches`` (a receiver's launch across
+nodes to its ``staged_launches`` as well); ``out.ready()`` before and
+``out.done()`` after order the writes against every rank's reads in place
+of the stream waits.  On CPU tensors with ``out`` (a mesh whose peers are
+all on other nodes) the same staged bookkeeping runs with the kernel's
+plain version (:func:`place_rows_torch`) placing the blocks.  The plain
+versions copy to the host and send the blocks between ranks over gloo
+(``batch_isend_irecv``), the receiver interleaving them: bitwise the
+one-process result over the same global mesh.
 """
 
 from __future__ import annotations
@@ -52,9 +67,10 @@ import torch.distributed as dist
 
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.ops._dispatch import resolve_impl
+from dc_sand_tpu_torch.parallel.staged import as_bytes
 
 __all__ = ["ring_permute_right", "ring_permute_right_torch", "all_to_all",
-           "all_to_all_torch"]
+           "all_to_all_torch", "place_rows_torch"]
 
 # (sender, receiver) card pairs whose peer access is on: like the CUDA
 # state it mirrors, it holds for the whole process
@@ -138,38 +154,49 @@ def _pairs(ptrs) -> _build.Pairs:
 
 
 def ring_permute_right(xs, mesh, axis: str, *, out=None,
-                       impl: str = "auto") -> list:
+                       impl: str = "auto", place: str = "kernel") -> list:
     """One ring step over ``axis`` (K7a): shard k of each group receives
     shard k-1's block, shard 0 shard n-1's.  Returns new tensors, each on
-    its receiver's device; on a multi-process mesh on the card,
+    its receiver's device; on a multi-process mesh,
     ``out.local`` after the kernel wrote into ``out`` (a
     :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` of the shards'
-    shape, required there and refused elsewhere)."""
+    shape, required on the card there and refused in one process; on the
+    CPU it takes the staged route's bookkeeping).  ``place="copy"`` (with
+    ``out``): the same route with each block placed by ``Tensor.copy_``
+    (:func:`place_rows_torch`) in place of the launch, the yardstick the
+    benches time beside the kernel."""
     _check(xs, mesh)
-    if _impl(impl, xs) == "torch":
+    plain = _impl(impl, xs) == "torch"
+    if plain and (out is None or xs[0].is_cuda):
         return ring_permute_right_torch(xs, mesh, axis)
     _contiguous(xs)
     _out_for(mesh, out)
     loc = _local_index(mesh)
     xs_g = {d: xs[k] for d, k in loc.items()}
-    outs = (out.views if out is not None
-            else {d: torch.empty_like(xs_g[d]) for d in loc})
     nbytes = xs[0].numel() * xs[0].element_size()
-    lib = _build.library()
+    lib = _build.library() if not plain else None
 
-    def launch(pairs, stream):
-        arg = _pairs((xs_g[i].data_ptr(), outs[j].data_ptr())
-                     for i, j in pairs)
+    def launch(pairs, stream, staged=False):
+        arg = _pairs(pairs)
         _build.check(lib.dcs_ring(arg, len(pairs), nbytes, stream), "dcs_ring")
         ring_permute_right.launches += 1
+        ring_permute_right.staged_launches += staged
 
     if out is not None:
-        return _launch_shared(mesh.ring_sends(axis), out, launch)
-    _launch_by_card(mesh.ring_sends(axis), xs_g, outs, launch)
+        ring = [(g[k], g[(k + 1) % len(g)]) for g in mesh.groups(axis)
+                for k in range(len(g))]
+        return _launch_shared(mesh, out, xs_g, mesh.ring_sends(axis), ring,
+                              lambda i, j: (0, 0), (1, nbytes, nbytes),
+                              _launcher(launch, plain, place))
+    outs = {d: torch.empty_like(xs_g[d]) for d in loc}
+    _launch_by_card(mesh.ring_sends(axis), xs_g, outs, lambda pairs, st:
+                    launch([(xs_g[i].data_ptr(), outs[j].data_ptr())
+                            for i, j in pairs], st))
     return [outs[d] for d in mesh.local_shards]
 
 
 ring_permute_right.launches = 0
+ring_permute_right.staged_launches = 0     # of them, receivers' across nodes
 
 
 def ring_permute_right_torch(xs, mesh, axis: str) -> list:
@@ -199,27 +226,28 @@ def _block(xs, n: int, rows: int) -> int:
 
 
 def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
-               impl: str = "auto") -> list:
+               impl: str = "auto", place: str = "kernel") -> list:
     """Direct-send all-to-all on the leading axis over ``axis`` (K7b):
     output row-block s of shard ``my`` is shard s's row-block ``my``; with
     ``rows > 1``, each row-block cut into ``rows`` rows, the receivers'
     outputs interleave the senders' rows (module docstring).  Returns new
     tensors of the shards' shape, each on its receiver's device; on a
-    multi-process mesh on the card, ``out.local`` after the kernel wrote
-    into ``out`` (a :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`
-    of the shards' size, required there and refused elsewhere)."""
+    multi-process mesh, ``out.local`` after the kernel wrote into ``out``
+    (a :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` of the
+    shards' size, required on the card there and refused in one process;
+    on the CPU it takes the staged route's bookkeeping).  ``place``: as
+    :func:`ring_permute_right`'s."""
     _check(xs, mesh)
     groups = mesh.groups(axis)
     n = len(groups[0])
     block = _block(xs, n, rows)
-    if _impl(impl, xs) == "torch":
+    plain = _impl(impl, xs) == "torch"
+    if plain and (out is None or xs[0].is_cuda):
         return all_to_all_torch(xs, mesh, axis, rows=rows)
     _contiguous(xs)
     _out_for(mesh, out)
     loc = _local_index(mesh)
     xs_g = {d: xs[k] for d, k in loc.items()}
-    outs = (out.views if out is not None
-            else {d: torch.empty_like(xs_g[d]) for d in loc})
     esize = xs[0].element_size()
     row_bytes = block // rows * esize
     pitch = n * row_bytes if rows > 1 else row_bytes
@@ -230,24 +258,37 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
             if i in loc:
                 by_dev.setdefault(xs_g[i].device, []).extend(
                     (i, j) for j in group)
-    lib = _build.library()
+    lib = _build.library() if not plain else None
 
-    def launch(pairs, stream):
-        # sender i's row-block pos[j] -> receiver j, its rows from pos[i]
-        arg = _pairs((xs_g[i].data_ptr() + pos[j] * block * esize,
-                      outs[j].data_ptr() + pos[i] * row_bytes)
-                     for i, j in pairs)
-        _build.check(lib.dcs_all_to_all(arg, len(pairs), rows, row_bytes,
-                                        pitch, stream), "dcs_all_to_all")
+    def launch(pairs, stream, staged=False):
+        _build.check(lib.dcs_all_to_all(_pairs(pairs), len(pairs), rows,
+                                        row_bytes, pitch, stream),
+                     "dcs_all_to_all")
         all_to_all.launches += 1
+        all_to_all.staged_launches += staged
+
+    def offsets(i, j):
+        # sender i's row-block pos[j] -> receiver j, its rows from pos[i]
+        return pos[j] * block * esize, pos[i] * row_bytes
 
     if out is not None:
-        return _launch_shared(tuple(by_dev.items()), out, launch)
-    _launch_by_card(tuple(by_dev.items()), xs_g, outs, launch)
+        return _launch_shared(mesh, out, xs_g, tuple(by_dev.items()),
+                              [(i, j) for g in groups for i in g for j in g],
+                              offsets, (rows, row_bytes, pitch),
+                              _launcher(launch, plain, place))
+    outs = {d: torch.empty_like(xs_g[d]) for d in loc}
+
+    def by_card(pairs, stream):
+        launch([(xs_g[i].data_ptr() + offsets(i, j)[0],
+                 outs[j].data_ptr() + offsets(i, j)[1]) for i, j in pairs],
+               stream)
+
+    _launch_by_card(tuple(by_dev.items()), xs_g, outs, by_card)
     return [outs[d] for d in mesh.local_shards]
 
 
 all_to_all.launches = 0
+all_to_all.staged_launches = 0     # of them, receivers' across nodes
 
 
 def all_to_all_torch(xs, mesh, axis: str, *, rows: int = 1) -> list:
@@ -284,23 +325,99 @@ def _out_for(mesh, out) -> None:
                          "the outputs are allocated on their receivers")
 
 
-def _launch_shared(sends, out, launch) -> list:
+def place_rows_torch(src: torch.Tensor, dst: torch.Tensor, offset: int,
+                     rows: int, row_bytes: int, pitch: int) -> None:
+    """Plain version of one pair of the peer-copy kernel: ``rows`` rows of
+    ``row_bytes`` from the contiguous bytes ``src`` into the contiguous
+    ``dst`` from byte ``offset`` on, ``pitch`` bytes apart."""
+    flat = as_bytes(dst)
+    flat.as_strided((rows, row_bytes), (pitch, 1),
+                    flat.storage_offset() + offset).copy_(
+        src.view(rows, row_bytes))
+
+
+def staged_round(mesh, out, xs_g, sends, pairs, offsets, nbytes) -> list:
+    """The exchange of a kernel's blocks between nodes (:mod:`.staged`):
+    each block of this rank's senders (``sends``, as
+    :func:`_launch_by_card` takes them) whose receiver lies on another node
+    goes out of its pinned slot, and each block of ``pairs`` whose
+    receiver is this rank's and whose sender another node's comes in.
+    Returns ``(slot view, receiver, byte offset)`` for those; call
+    ``out.staged.release()`` once they are placed."""
+    n = mesh.size
+    loc = _local_index(mesh)
+    outgoing = [(i * n + j, mesh.process_of(j),
+                 as_bytes(xs_g[i])[offsets(i, j)[0]:][:nbytes])
+                for _, ps in sends for i, j in ps if out.remote(j)]
+    incoming = [(i, j) for i, j in pairs if j in loc and out.remote(i)]
+    got = out.staged.round(outgoing, [(i * n + j, mesh.process_of(i), nbytes)
+                                      for i, j in incoming])
+    return [(got[i * n + j], j, offsets(i, j)[1]) for i, j in incoming]
+
+
+def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
+                   launch) -> list:
     """The kernel over a multi-process mesh: ``sends`` holds this rank's
-    senders on its one card; ``out.ready()`` before the launches and
-    ``out.done()`` after order them against every rank's use of the
+    senders on its one device, ``pairs`` every (sender, receiver) pair of
+    the op, ``offsets(i, j)`` the byte offsets of a pair's block in the
+    sender's shard and in the receiver's buffer, ``geometry`` the rows,
+    row bytes and destination pitch of a block.  Pairs whose receiver is
+    on this node launch here, into its buffers or IPC mappings; pairs
+    across nodes go through :func:`staged_round`, land on the card and
+    launch on the receiver.  With ``launch`` None (the CPU, or the
+    ``copy_`` yardstick) :func:`place_rows_torch` stands for each launch,
+    from the slots, and counts none.  ``out.ready()`` before and
+    ``out.done()`` after order the writes against every rank's use of the
     buffers."""
     dev = out.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev)
+    rows, row_bytes, _ = geometry
+    nbytes = rows * row_bytes
+    for card, _ in sends:
+        if card != dev:
+            raise ValueError(f"a sender lies on {card}, the rank's device "
+                             f"is {dev}")
+    here = [(as_bytes(xs_g[i])[offsets(i, j)[0]:][:nbytes], j,
+             offsets(i, j)[1])
+            for _, ps in sends for i, j in ps if not out.remote(j)]
+    with (torch.cuda.device(dev) if dev.type == "cuda"
+          else contextlib.nullcontext()):
         out.ready()
-        for card, pairs in sends:
-            if card != dev:
-                raise ValueError(f"a sender lies on {card}, the rank's card "
-                                 f"is {dev}")
-            for at in range(0, len(pairs), _build.MAX_PEERS):
-                launch(pairs[at:at + _build.MAX_PEERS], stream.cuda_stream)
+        _place(out, here, geometry, launch)
+        if out.staged is not None:
+            blocks = staged_round(mesh, out, xs_g, sends, pairs, offsets,
+                                  nbytes)
+            if launch is not None:
+                blocks = [(d, j, off) for d, (_, j, off) in zip(
+                    out.staged.land([b for b, _, _ in blocks]), blocks)]
+            _place(out, blocks, geometry, launch, staged=True)
+            out.staged.release()
         out.done()
     return list(out.local)
+
+
+def _launcher(launch, plain: bool, place: str):
+    """The kernel's launch, or None where :func:`place_rows_torch` places
+    the blocks: on the CPU, or with ``place="copy"``."""
+    if place not in ("kernel", "copy"):
+        raise ValueError(f"place is 'kernel' or 'copy', got {place!r}")
+    return None if plain or place == "copy" else launch
+
+
+def _place(out, blocks, geometry, launch, staged: bool = False) -> None:
+    """``(source bytes, receiver, byte offset)`` blocks into ``out``'s
+    views: the kernel's ``launch`` (up to
+    :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs a launch; ``staged``
+    counts them as the receiver's launches across nodes), or with
+    ``launch`` None its plain version."""
+    if launch is None:
+        for src, j, off in blocks:
+            place_rows_torch(src, out.views[j], off, *geometry)
+        return
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    ptrs = [(src.data_ptr(), out.views[j].data_ptr() + off)
+            for src, j, off in blocks]
+    for at in range(0, len(ptrs), _build.MAX_PEERS):
+        launch(ptrs[at:at + _build.MAX_PEERS], stream, staged)
 
 
 def _exchange(xs, mesh, moves: dict, cut) -> dict:

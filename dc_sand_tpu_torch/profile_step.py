@@ -98,28 +98,33 @@ def production_delay_model(cfg: ChainConfig,
 
 def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
                       fused: bool = True, mesh=None,
-                      coarse_on_host: bool = True):
+                      coarse_on_host: bool = True, rows: slice = None,
+                      n_chunks: int = None):
     """The runner at ``cfg``'s own cadence with a seeded delay model
     (coarse up to 31 samples, fractional delay and fringe on) and one
     window of chunks made with ``gen`` on ``device``: one dump's worth in
-    fx mode, :data:`BEAM_CHUNKS` in beam mode, whose beams are steered
-    toward seeded pointings (geometric delays up to 0.25 us):
-    ``(runner, chunks)``.  ``fused`` picks the runner's F-engine path;
-    with ``mesh`` (whose first shard's device must be ``device``) the
-    runner is sharded over it; ``coarse_on_host`` picks the coarse mode."""
+    fx mode, :data:`BEAM_CHUNKS` in beam mode (or the first ``n_chunks``
+    of them), whose beams are steered toward seeded pointings (geometric
+    delays up to 0.25 us): ``(runner, chunks)``.  ``fused`` picks the
+    runner's F-engine path; with ``mesh`` (whose first shard's device must
+    be ``device``) the runner is sharded over it; ``coarse_on_host`` picks
+    the coarse mode; ``rows`` keeps only those antennas of each chunk (a
+    rank's, made one chunk at a time from the same draws)."""
     rng = np.random.default_rng(6)
     a, p = cfg.n_ants, cfg.n_pols
     dm = production_delay_model(cfg, rng)
     weights = None
     if cfg.n_beams:
-        n_chunks = BEAM_CHUNKS
+        n_chunks = n_chunks or BEAM_CHUNKS
         weights = steering_weights(
             rng.uniform(-2.5e-7, 2.5e-7, (cfg.n_beams, a)), cfg.n_chans,
             cfg.sample_rate_hz)
     else:
-        n_chunks = cfg.n_spectra_per_acc // cfg.spectra_per_chunk
+        n_chunks = n_chunks or cfg.n_spectra_per_acc // cfg.spectra_per_chunk
     chunks = [noise_int8(gen, (a, p, cfg.chunk_samples), device)
-              for _ in range(n_chunks)]
+              for _ in range(n_chunks)] if rows is None else [
+        noise_int8(gen, (a, p, cfg.chunk_samples), device)[rows].clone()
+        for _ in range(n_chunks)]
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
                       delay_model=dm, weights=weights,
                       device=None if mesh is not None else device,

@@ -27,7 +27,8 @@ The forms are those a JAX runner of the same ``cfg`` writes on the CPU:
   shard and its global index box (``history_shard{j}`` and
   ``history_idx{j}``; ``vis_acc``, ``weights`` alike), in the forms
   above; ``host_tail`` holds the rank's own antennas' tail.  No rank
-  gathers another's carry.
+  gathers another's carry, so ranks on several nodes need nothing more:
+  each writes and reads its own file on its own disk.
 
 :func:`load_state` is :func:`~dc_sand_tpu_torch.runtime.jax_state.load_jax_checkpoint`
 without a channel permutation: it refuses another config's file, another

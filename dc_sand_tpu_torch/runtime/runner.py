@@ -46,8 +46,12 @@ build_global_mesh`; the JAX runner's multi-process SPMD) every rank runs
 one runner, holds its own shards' carries, and ``source(i)`` gives it its
 own antennas only, rows :func:`~dc_sand_tpu_torch.parallel.distributed.
 local_antenna_range`.  At a dump every rank gets the whole visibility set
-(the peers' accumulators read through CUDA IPC on the card, gloo on the
-CPU); ``on_output`` gets this rank's block of the outputs.  The JAX
+(the peers' accumulators read through CUDA IPC within a node and from
+mirrors filled over the staged route across nodes, or over gloo on the
+CPU); ``on_output`` gets this rank's block of the outputs.  Ranks may sit
+on several nodes (``torchrun --nnodes``): the node map of
+:func:`~dc_sand_tpu_torch.parallel.init_distributed` picks each pair's
+route, and nothing else changes.  The JAX
 runner's refusals stand: SP needs the time axis within each process
 (``build_mesh(..., time_local=True)``), and ``run_batched`` is
 single-process.  Under several processes each rank gathers its own
@@ -77,7 +81,8 @@ from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
 from dc_sand_tpu_torch.ops.pfb import pfb_fir
 from dc_sand_tpu_torch.ops.xcorr import extract_vis, xcorr_accumulate_a2
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
-                                        build_mesh, local_antenna_range)
+                                        build_mesh, local_antenna_range,
+                                        uses_shared_buffers)
 from dc_sand_tpu_torch.runtime.delays import DelayModel
 
 logger = logging.getLogger("dc_sand_tpu_torch.runner")
@@ -175,7 +180,7 @@ class FXRunner:
                         for dev in self._devices]
         # the accumulators that the other ranks read at a dump
         self._acc_bufs = None
-        if self._mp and self.device.type == "cuda" and self.mode == "fx":
+        if uses_shared_buffers(mesh) and self.mode == "fx":
             self._acc_bufs = SharedBuffers(
                 mesh, zero_vis_acc(cfg, "cpu", mesh).shape, torch.int32)
             self.vis_acc = self._acc_bufs.local

@@ -116,7 +116,9 @@ def verify_config(name: str, *, device=None, mesh=None, n_chunks: int = 4,
     (the mesh's time axis), the chunk raised to ``time_shards *
     taps_pad`` spectra at least so that every time shard holds its
     overlap-save halo, and ``beam_parallel`` the beam-sharded B-engine,
-    as the JAX verify does.  On a mesh over several processes every rank
+    as the JAX verify does.  On a mesh over several processes, on one
+    node or several (each pair of ranks on its route,
+    :meth:`~dc_sand_tpu_torch.parallel.mesh.Mesh.routes`), every rank
     calls it alike: each draws the same seeded sky, feeds its own
     antennas (:func:`~dc_sand_tpu_torch.parallel.local_antenna_range`),
     and grades the whole dump, its own antennas' spectra, or the beams

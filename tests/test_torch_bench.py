@@ -222,12 +222,15 @@ def test_bench_beamform_counts(quant_scale):
 
 
 def test_bench_fft_counts():
-    (r,) = kernels.bench_fft(n_chans=16, n_streams=2, n_spectra=4, iters=2,
-                             device="cpu")
-    samples = 2 * 4 * 32
-    assert r.bytes_moved == samples * 4 + samples // 2 * 8
-    assert r.extra["fp32_ops"] == pytest.approx(5 * samples * 5)
-    assert r.extra["impl"] == "torch" and r.value > 0
+    # 32 channels: the smallest M (64 = 8 x 8) the matmul split takes
+    rs = kernels.bench_fft(n_chans=32, n_streams=2, n_spectra=4, iters=2,
+                           device="cpu")
+    assert [r.name for r in rs] == ["fft_torch_rfft", "fft_mxu_matmul"]
+    samples = 2 * 4 * 64
+    for r in rs:
+        assert r.bytes_moved == samples * 4 + samples // 2 * 8
+        assert r.extra["fp32_ops"] == pytest.approx(5 * samples * 6)
+        assert r.extra["impl"] == "torch" and r.value > 0
 
 
 @pytest.mark.parametrize("impl", ["fused", "unfused"])

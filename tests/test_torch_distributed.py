@@ -234,14 +234,15 @@ def rank_main(argv) -> int:
 
 # ---- the tests --------------------------------------------------------------
 
-def spawn(test_file, tmp, modes, world=2, timeout=240):
-    """Run ``world`` ranks of ``test_file``'s ``__main__`` over the modes;
+def spawn(test_file, tmp, modes, world=2, timeout=240, nodes=None):
+    """Run ``world`` ranks of ``test_file``'s ``__main__`` over the modes
+    (on ``nodes`` nodes of this host, as ``run_ranks`` forms them);
     returns each rank's output, after asserting that every rank passed."""
     from dc_sand_tpu_torch.parallel.launch import run_ranks
     store = os.path.join(tmp, "store")
     results = run_ranks([sys.executable, test_file, store, str(tmp),
                          *modes], world, timeout=timeout,
-                        env={"OMP_NUM_THREADS": "2"})
+                        env={"OMP_NUM_THREADS": "2"}, nodes=nodes)
     for rank, res in enumerate(results):
         assert res.returncode == 0, f"rank {rank}:\n{res.output}"
     return [res.output for res in results]

@@ -1,7 +1,8 @@
 """The port's streaming runner across ``torch.distributed`` ranks on the
 CPU: the JAX rungs ``runner``, ``sp_runner``, ``fengine``, ``beam``,
 ``beam_ep`` and ``verify`` of ``tests/test_distributed.py``, the JAX
-refusals, the refusal of ranks on two hosts, and ``cli run --distributed``.
+refusals, ranks on two hosts joining with their node map, and ``cli run
+--distributed``.
 
 Two ranks (subprocesses running this file's ``__main__`` branch, gloo over
 a ``file://`` store) of 2 CPU shards each feed their own antennas; every
@@ -178,23 +179,24 @@ def _rank(mode, check, outdir, rank):
 
 def rank_main(argv) -> int:
     """One rank: ``STORE OUTDIR MODE...``; the mode ``hosts`` names a
-    different host on each rank before it joins."""
+    different host on each rank before it joins and checks the node map
+    it gets back."""
     sys.path.insert(0, ROOT)
     from dc_sand_tpu_torch.parallel import ipc
     from dc_sand_tpu_torch.parallel.distributed import init_distributed
     store, outdir, modes = argv[0], argv[1], argv[2:]
     if modes == ["hosts"]:
         import socket
+        from dc_sand_tpu_torch.parallel import build_global_mesh
         rank = int(os.environ["RANK"])
         socket.gethostname = lambda: f"node{rank}"
-        try:
-            init_distributed(init_method=f"file://{store}")
-        except RuntimeError as err:
-            if "rank 0 on node0, rank 1 on node1" in str(err):
-                print("PASS refuse_two_hosts", flush=True)
-                return 0
-            raise
-        return 1
+        info = init_distributed(init_method=f"file://{store}")
+        mesh = build_global_mesh(["cpu"] * 2)
+        if (info["nodes"] == ["node0", "node1"]
+                and mesh.nodes == ("node0", "node1")
+                and mesh.routes() == {1 - rank: "staged"}):
+            print("PASS two_hosts_join", flush=True)
+        return 0
     info = init_distributed(init_method=f"file://{store}")
     rank = info["process_index"]
 
@@ -253,8 +255,11 @@ def test_runner_dumps_match_jax(ranks):
 
 
 def test_ranks_on_two_hosts_are_refused(tmp_path):
+    """Named for the refusal it replaced: ranks on two hosts now join,
+    each gets back the node map, and the mesh routes the other host's
+    rank over the staged route."""
     for out in spawn(__file__, tmp_path, ["hosts"]):
-        assert "PASS refuse_two_hosts\n" in out, out
+        assert "PASS two_hosts_join\n" in out, out
 
 
 def test_cli_run_distributed(tmp_path):

@@ -98,6 +98,8 @@ def _case(name, rng):
         return (100,), dict(seed=7)
     if name == "corner_turn":
         return (_spectra(rng, (3, 2, 5, nch)),), {}
+    if name == "stokes":
+        return (_spectra(rng, (4, 2, 5, nch)),), {}
     raise KeyError(name)
 
 
@@ -105,7 +107,7 @@ def _case(name, rng):
     "apply_coarse_delay", "pfb_fir", "channelize", "fine_delay_fringe",
     "requantize", "xcorr", "beamform", "incoherent_sum", "f_engine",
     "baseline_pairs", "cw_tone", "quantize_adc", "gaussian_noise_int8",
-    "gaussian_noise", "gaussian_noise_1d", "corner_turn"])
+    "gaussian_noise", "gaussian_noise_1d", "corner_turn", "stokes"])
 def test_golden_copy_is_bitwise(name):
     args, kw = _case(name, np.random.default_rng(len(name)))
     fn = name.removesuffix("_1d")

@@ -64,9 +64,11 @@ def test_port_and_chip_smoke_import_without_jax():
 
 def test_init_distributed_with_one_process_is_a_no_op():
     """Without a launcher's environment ``init_distributed`` joins no
-    process group and answers with the JAX function's keys."""
+    process group and answers with the JAX function's keys and, beside
+    them, the node map: this process's node alone."""
     import torch.distributed as dist
     from dc_sand_tpu_torch.parallel import init_distributed
+    from dc_sand_tpu_torch.parallel.distributed import node_name
     env = {k: os.environ.pop(k) for k in ("RANK", "WORLD_SIZE")
            if k in os.environ}
     try:
@@ -74,7 +76,8 @@ def test_init_distributed_with_one_process_is_a_no_op():
     finally:
         os.environ.update(env)
     assert set(info) == {"process_index", "process_count", "local_devices",
-                         "global_devices"}
+                         "global_devices", "nodes"}
+    assert info["nodes"] == [node_name()]
     assert (info["process_index"], info["process_count"]) == (0, 1)
     assert info["global_devices"] == info["local_devices"] >= 1
     assert not dist.is_initialized()

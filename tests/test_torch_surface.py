@@ -212,7 +212,7 @@ def test_bench_profile_writes_a_trace(tmp_path, capsys):
 
 def test_cli_bench_profile_writes_a_trace(tmp_path, capsys):
     out = tmp_path / "trace"
-    assert cli.main(["bench", "fft", "--cpu", "--scale", "16", "--spectra",
+    assert cli.main(["bench", "fft", "--cpu", "--scale", "32", "--spectra",
                      "8", "--profile", str(out)]) == 0
     assert capsys.readouterr().out.strip()
     assert os.listdir(out) == ["fft_trace.json"]

@@ -277,6 +277,25 @@ one node CUDA IPC:
 Two processes on one card time-slice it: their times are not a scaling
 measurement.
 
+Phase 40 runs on a machine of 2 or 4 cards (with one card it prints one
+line saying so and goes on; ``python3 chip_smoke.py --phase 40`` runs it
+alone after the fx64 runs of phases 6 and 36): it prints ``nvidia-smi
+topo -m``, then runs the same ``--rank`` entry as ranks that each take
+their cards with ``local_cards()`` (``LOCAL_WORLD_SIZE``): ranks of one
+card each and, on 4 cards, 2 ranks of 2 cards each (the JAX package's
+shape: a process holds its host's chips), 4 fx shards in all, a rank's
+spread over its cards.  Every layout: fx64 in both coarse modes (sha256
+phase 6's and 36's; run(), the device step, the barriers, the idle
+share over all cards), K7b in corner-turn mode and K7a across the cards
+bitwise their plain versions, beside ``copy_`` on the same route, K7b's
+block mode and, with one card a rank, NCCL's ``all_to_all_single`` on
+the same shards.  2 ranks of 2 cards also: SP fx64 with the time axis
+inside each rank (its halo card to card), beam64 on 2 chunks replicated
+and beam-parallel (>= 100 dB from one card's, bitwise the one-process
+mesh's), the cut of a chunk to a rank's cards, and a per-rank
+checkpoint resumed in a fresh runner to phase 6's sha256.  Phases 14-18
+are the one-process layout on the cards present.
+
 Each kernel's time is a CUDA-event mean over back-to-back launches
 (``dc_sand_tpu_torch/bench/harness.py:time_cuda``; in phase 14 the median
 of five such means taken in turns with the yardstick); ``bound_ms`` is the
@@ -425,18 +444,22 @@ def _rank_result(phase, **values) -> None:
 
 
 def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
-                   coarse_on_host=True, a2a=1, staged=0) -> dict:
+                   coarse_on_host=True, a2a=None, staged=0,
+                   step=False) -> dict:
     """fx64 at production cadence over a multi-process ``mesh``, this
     rank's antennas of phase 6's chunks, in the coarse mode
     ``coarse_on_host``: the dump's sha256 must be ``digest`` (phase 6's,
     or phase 36's in the device mode); the launch counts (the gather once
     a chunk on the host path, once a shard and chunk in the device mode;
-    ``a2a`` all-to-all launches a chunk, ``staged`` of them the
-    receiver's across nodes), ``run()``'s steady ms a chunk, the
+    ``a2a`` all-to-all launches a chunk, by default one a card of the
+    rank, ``staged`` of them the receiver's across nodes; the ring one a
+    card that holds a sender), ``run()``'s steady ms a chunk, the
     barriers' host ms a chunk and the staged route's MB and host ms a
-    chunk; with ``trace`` (a path) a third run under ``torch.profiler``
-    gives this rank's device intervals and that run's host window, both
-    in microseconds of the host's clock."""
+    chunk; with ``step`` the device step alone (CUDA events on ``dev``,
+    the rank's first card, which the step's rounds make wait for its
+    other cards and its peers); with ``trace`` (a path) a third run under
+    ``torch.profiler`` gives this rank's device intervals by card and
+    that run's host window, both in microseconds of the host's clock."""
     import torch
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.parallel import (SharedBuffers, StagedRoute,
@@ -460,9 +483,11 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     dumps, _ = runner.run(source, n)
     torch.cuda.synchronize()
     local = len(mesh.local_shards)
+    a2a = len(mesh.local_cards) if a2a is None else a2a
     launches = _counts(fengine=n * local, cmac=n * local,
                        all_to_all=n * a2a, all_to_all_staged=n * staged,
-                       ring=n if n_t > 1 else 0,
+                       ring=n * len(mesh.ring_sends("time")) if n_t > 1
+                       else 0,
                        coarse=n if coarse_on_host else n * local)
     if len(dumps) != 1 or _digest(dumps[0].vis) != digest:
         raise RuntimeError(f"{label}: the dump's sha256 is not "
@@ -480,18 +505,30 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     staged_mb = (StagedRoute.sent_bytes + StagedRoute.received_bytes
                  - s0[0]) / n / 1e6
     staged_ms = (StagedRoute.seconds - s0[1]) / n * 1e3
+    out = {"launches": launches, "step_ms": step_ms,
+           "barrier_ms": barrier_ms, "barriers": barriers,
+           "staged_mb": staged_mb, "staged_ms": staged_ms}
+    if step:
+        frames = chunks[0].reshape(-1, cfg.spectra_per_chunk, cfg.fft_size)
+        zeros = torch.zeros(frames.shape[:2], device=dev)
+        args = runner._step_args(frames, zeros, zeros)
+        out["device_step_ms"] = _events_ms(
+            lambda: runner._step(runner.history, runner.vis_acc, *args,
+                                 False), 4)
+        del frames, zeros, args
     print(f"[{label}] rank {mesh.rank}: {n} chunks of its antennas "
           f"[{a0}, {a1}) -> 1 dump, sha256 phase "
           f"{6 if coarse_on_host else 36}'s; launches {launches}; "
           f"steady run() per chunk {step_ms:.3f} ms, of it {barriers:.1f} "
           f"gloo barriers {barrier_ms:.3f} ms host time"
           + (f", staged route {staged_mb:.1f} MB sent and received "
-             f"{staged_ms:.3f} ms host time" if staged else ""), flush=True)
-    out = {"launches": launches, "step_ms": step_ms,
-           "barrier_ms": barrier_ms, "barriers": barriers,
-           "staged_mb": staged_mb, "staged_ms": staged_ms}
+             f"{staged_ms:.3f} ms host time" if staged else "")
+          + (f"; device step {out['device_step_ms']:.3f} ms" if step
+             else ""), flush=True)
     if trace is not None:
-        from dc_sand_tpu_torch.profile_step import DEVICE_CATS, chrome_trace
+        from dc_sand_tpu_torch.profile_step import (DEVICE_CATS,
+                                                    card_spans_us,
+                                                    chrome_trace)
         with chrome_trace(trace):
             torch.cuda.synchronize()
             t0 = time.time()
@@ -499,54 +536,60 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
             torch.cuda.synchronize()
             out["window_us"] = (t0 * 1e6, time.time() * 1e6)
         doc = json.loads(Path(trace).read_text())
-        base = doc.get("baseTimeNanoseconds", 0) / 1e3
-        out["spans_us"] = [(base + e["ts"], base + e["ts"] + e["dur"])
-                           for e in doc["traceEvents"]
-                           if e.get("cat") in DEVICE_CATS and "dur" in e]
+        out["spans_us"] = card_spans_us(
+            doc["traceEvents"], doc.get("baseTimeNanoseconds", 0) / 1e3)
+        per_name = {}
+        for e in doc["traceEvents"]:
+            if e.get("cat") in DEVICE_CATS and "dur" in e:
+                per_name[e["name"]] = per_name.get(e["name"], 0) + e["dur"]
+        top = sorted(per_name.items(), key=lambda x: -x[1])[:6]
+        print(f"[{label}] rank {mesh.rank}: traced run, device ms a chunk "
+              "by name: " + "; ".join(f"{v / n / 1e3:.3f} {k[:60]}"
+                                      for k, v in top), flush=True)
     return out
 
 
 def _idle_share(runs) -> tuple:
-    """``(idle share, busy ms, wall ms)`` of the card over the ranks'
-    traced runs: one minus the union of every rank's device intervals
-    over the span of their host windows; the share is None when the
-    traces' clocks do not line up with the host's (less than 0.9 of the
-    intervals inside the window)."""
-    lo = min(x["window_us"][0] for x in runs)
-    hi = max(x["window_us"][1] for x in runs)
-    spans = sorted((max(a, lo), min(b, hi)) for x in runs
-                   for a, b in x["spans_us"])
-    total = sum(b - a for x in runs for a, b in x["spans_us"])
-    busy, end = 0.0, lo
-    for a, b in spans:
-        if b > max(a, end):
-            busy += b - max(a, end)
-            end = b
-    inside = sum(max(0.0, b - a) for a, b in spans)
-    share = 1 - busy / (hi - lo) if total and inside >= 0.9 * total else None
-    return share, busy / 1e3, (hi - lo) / 1e3
+    """``(idle share, busy ms, wall ms)`` over every card of the ranks'
+    traced runs (``profile_step.idle_share``): one minus each card's union
+    of every rank's device intervals, summed over the cards, over the
+    cards times the span of the ranks' host windows; the share is None
+    when the traces' clocks do not line up with the host's."""
+    from dc_sand_tpu_torch.profile_step import idle_share
+    return idle_share(runs)[:3]
 
 
 def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
-                       launches=1):
+                       launches=None):
     """One K7 kernel across the ranks, on the routes of ``mesh``, against
     its plain version (gloo): bitwise, ``launches`` launches a call a
-    rank; its CUDA-event ms, the plain version's, the same route with
-    every block placed by ``Tensor.copy_`` (``place="copy"``, the library
-    yardstick), the bound of the whole call, and the sha256 of this
-    rank's outputs; across nodes also the receiver's placement alone from
-    one round's pinned slots, the kernel against ``copy_``."""
+    rank (default one a card of the rank that holds a sender); its
+    CUDA-event ms, the plain version's, the same route with every block
+    placed by ``Tensor.copy_`` (``place="copy"``, the library yardstick),
+    the bound of the whole call, and the sha256 of this rank's outputs;
+    where blocks cross between cards, the most bytes a card sends to the
+    others and their GB/s; for K7b, its block mode and, where every rank
+    holds one shard on a card of its own, NCCL's ``all_to_all_single`` on
+    the same shards (bitwise K7b's block mode); across nodes also the
+    receiver's placement alone from one round's pinned slots, the kernel
+    against ``copy_``."""
     import torch
-    from dc_sand_tpu_torch.bench.harness import bound_ms
+    from dc_sand_tpu_torch.bench.collectives import (cross_bytes,
+                                                     nccl_all_to_all)
+    from dc_sand_tpu_torch.bench.harness import NVLINK_BYTES_S, bound_ms
     from dc_sand_tpu_torch.parallel import (SharedBuffers, all_to_all,
                                             all_to_all_torch,
                                             ring_permute_right_torch)
     every = xs_of()
-    mine = [every[d] for d in mesh.local_shards]
+    flat = mesh.flat_devices
+    mine = [every[d].to(flat[d]) for d in mesh.local_shards]
     nbytes = sum(_nbytes(x) for x in every)
     del every
     bufs = SharedBuffers(mesh, out_shape, torch.int8)
     kw = {"rows": rows} if op is all_to_all else {}
+    sends = (mesh.all_to_all_sends(axis) if op is all_to_all
+             else mesh.ring_sends(axis))
+    launches = len(sends) if launches is None else launches
     before = op.launches
     got = op(mine, mesh, axis, out=bufs, impl="cuda", **kw)
     if op.launches != before + launches:
@@ -571,6 +614,22 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
     how = "/".join(sorted(set(mesh.routes().values())))
     out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound[0], "bound_by": bound[1], "digest": digest}
+    n = len(mesh.groups(axis)[0])
+    cross = cross_bytes(mesh, sends, _nbytes(mine[0]) // n
+                        if op is all_to_all else _nbytes(mine[0]))
+    if cross:
+        out.update(cross_mb=cross / 1e6, gb_s_card=cross / ms / 1e6,
+                   copy_gb_s_card=cross / lib_ms / 1e6,
+                   link_bound_ms=cross / NVLINK_BYTES_S * 1e3)
+    cards = len(set(flat))
+    if op is all_to_all and cards > 1:
+        # block mode, the same bytes, and NCCL's all-to-all beside it
+        got = op(mine, mesh, axis, out=bufs, impl="cuda")
+        out["block_ms"] = _events_ms(
+            lambda: op(mine, mesh, axis, out=bufs, impl="cuda"), 3)
+        got = op(mine, mesh, axis, out=bufs, impl="cuda")
+        out["nccl_ms"], out["nccl_note"] = nccl_all_to_all(mesh, mine, got, 3)
+        del got
     if bufs.staged is not None:
         (out["place_ms"], out["place_in_place_ms"], out["place_copy_ms"],
          out["place_mb"]) = _staged_placement_ms(mesh, op, mine, bufs, axis,
@@ -580,12 +639,22 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
           f"{ms:.4f} ms, plain {plain_ms:.3f} ms, copy_ on the same route "
           f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) for the "
           f"whole call" + (
+              f"; {out['cross_mb']:.1f} MB a card to other cards: kernel "
+              f"{out['gb_s_card']:.2f} GB/s a card, copy_ "
+              f"{out['copy_gb_s_card']:.2f}, NVLink bound "
+              f"{out['link_bound_ms']:.4f} ms" if cross else "") + (
+              f"; block mode {out['block_ms']:.4f} ms, NCCL all_to_all_single "
+              + (f"{out['nccl_ms']:.4f} ms (bitwise K7b's block mode)"
+                 if out["nccl_ms"] is not None else
+                 f"not run: {out['nccl_note']}") if "block_ms" in out
+              else "") + (
               f"; the receiver's placement of {out['place_mb']:.1f} MB from "
               f"the pinned slots: landed and placed by the kernel "
               f"{out['place_ms']:.4f} ms, the kernel reading the slots in "
               f"place {out['place_in_place_ms']:.4f} ms, copy_ "
               f"{out['place_copy_ms']:.4f} ms" if "place_ms" in out else "")
-          + " (ranks time-slicing one card)", flush=True)
+          + (f" ({cards} cards)" if cards > 1
+             else " (ranks time-slicing one card)"), flush=True)
     return out
 
 
@@ -642,8 +711,9 @@ def _staged_placement_ms(mesh, op, mine, bufs, axis, rows) -> tuple:
 
     def landed():
         views = bufs.staged.land([b for b, _, _ in blocks])
-        remote_dma._place(bufs, [(v, j, o) for v, (_, j, o) in
-                                 zip(views, blocks)], geometry, launch)
+        remote_dma._place(bufs, bufs.device, [(v, j, o) for v, (_, j, o) in
+                                              zip(views, blocks)], geometry,
+                          launch)
 
     def uva():
         stream = torch.cuda.current_stream().cuda_stream
@@ -658,8 +728,8 @@ def _staged_placement_ms(mesh, op, mine, bufs, axis, rows) -> tuple:
     for r in range(mesh.process_count):
         if r == mesh.rank:
             times = _turns_ms((
-                landed, uva, lambda: remote_dma._place(bufs, blocks,
-                                                       geometry, None)), 3)
+                landed, uva, lambda: remote_dma._place(
+                    bufs, bufs.device, blocks, geometry, None)), 3)
             torch.cuda.synchronize()
         dist.barrier()
     bufs.staged.release()
@@ -965,10 +1035,7 @@ def _phase_38(dev, digest6, digest36, tmp) -> None:
     """This rank's part of phase 38: four ranks as two nodes of two, one
     fx shard a rank, both routes in every collective."""
     import torch
-    from dc_sand_tpu_torch.config import get_config
-    from dc_sand_tpu_torch.parallel import (build_global_mesh, build_mesh,
-                                            local_antenna_range)
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.parallel import build_global_mesh
     mesh = build_global_mesh([dev])
     rank = mesh.rank
     routes = mesh.routes()
@@ -978,10 +1045,20 @@ def _phase_38(dev, digest6, digest36, tmp) -> None:
                         a2a=2, staged=1)
     _rank_result(38, run=fx, routes=routes)
     torch.cuda.empty_cache()
-    # beam64 at full width on PHASE38_BEAM_CHUNKS chunks: beams against one
-    # card's (>= 100 dB) and, with the incoherent beam, bitwise against
-    # the one-process 4-shard mesh, whose sums add the shards in the same
-    # order; beam-parallel: this rank's share of the replicated beams
+    _beam64_ranks(dev, mesh, "38 beam64 2 nodes x 2 ranks", 38)
+
+
+def _beam64_ranks(dev, mesh, label, phase) -> None:
+    """beam64 at full width on PHASE38_BEAM_CHUNKS chunks over the
+    multi-process ``mesh``, replicated and beam-parallel: the beams >= 100
+    dB from one card's (on ``dev``, the rank's first card) and, with the
+    incoherent beam, bitwise the one-process 4-shard mesh's on ``dev``,
+    whose sums add the shards in the same order; the beam-parallel beams
+    this rank's share of the replicated ones."""
+    import torch
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.parallel import build_mesh, local_antenna_range
+    from dc_sand_tpu_torch.profile_step import production_runner
     base = get_config("beam64")
     a0, a1 = local_antenna_range(base.n_ants)
     n = PHASE38_BEAM_CHUNKS
@@ -997,6 +1074,8 @@ def _phase_38(dev, digest6, digest36, tmp) -> None:
         del runner, chunks
     outs = {}
     nb_l = BEAMS // SHARDS
+    _, fs = mesh.local_block()
+    local = len(mesh.local_shards)
     for ep in (False, True):
         gen = torch.Generator(device=dev)
         gen.manual_seed(BEAM_SEED)
@@ -1011,53 +1090,282 @@ def _phase_38(dev, digest6, digest36, tmp) -> None:
                    on_output=lambda i, o: got.append(o))
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t) / n * 1e3
-        launches = _counts(fengine=n, beamform=n, coarse=n)
+        launches = _counts(fengine=n * local, beamform=n * local, coarse=n)
         outs[ep] = got
-        share = slice(rank * nb_l, (rank + 1) * nb_l) if ep else slice(None)
+        share = (slice(fs[0] * nb_l, (fs[-1] + 1) * nb_l) if ep
+                 else slice(None))
         snr = min(_snr_db(r["beams"][share], o["beams"])
                   for r, o in zip(refs["card"], got))
         same = all(torch.equal(r["beams"][share], o["beams"])
                    and torch.equal(r["incoherent"], o["incoherent"])
                    for r, o in zip(refs["mesh"], got))
-        label = "38 beam64 2 nodes x 2 ranks" + (" beam-parallel" if ep
-                                                 else "")
-        print(f"[{label}] rank {rank}: {n} chunks; beams {snr:.2f} dB from "
-              f"one card's; beams and incoherent beam bitwise the "
+        name = label + (" beam-parallel" if ep else "")
+        print(f"[{name}] rank {mesh.rank}: {n} chunks; beams {snr:.2f} dB "
+              f"from one card's; beams and incoherent beam bitwise the "
               f"one-process 4-shard mesh's: {same}; launches {launches}; "
               f"run() per chunk {run_ms:.3f} ms (first run)", flush=True)
         if not (snr >= BEAM_SNR_DB and same):
-            raise RuntimeError(f"{label}: the beams across nodes disagree")
-        _rank_result(38, ep=ep, snr_beams=snr, launches=launches,
+            raise RuntimeError(f"{name}: the beams across the ranks "
+                               "disagree")
+        _rank_result(phase, ep=ep, snr_beams=snr, launches=launches,
                      run_ms=run_ms)
         del runner, chunks, got
-    if not all(torch.equal(r["beams"][rank * nb_l:(rank + 1) * nb_l],
+    if not all(torch.equal(r["beams"][fs[0] * nb_l:(fs[-1] + 1) * nb_l],
                            e["beams"])
                for r, e in zip(outs[False], outs[True])):
-        raise RuntimeError("38: the beam-parallel beams != the replicated "
-                           "beams' share")
+        raise RuntimeError(f"{phase}: the beam-parallel beams != the "
+                           "replicated beams' share")
+
+
+def _phase_40(cards, digest6, digest36, tmp) -> None:
+    """This rank's part of phase 40 on several cards: ``SHARDS`` fx
+    shards over the ranks, each rank's spread over its own cards
+    (``local_cards``), shard k of a rank on card k mod their count.  On
+    every layout: fx64 in both coarse modes (dump sha256 phase 6's and
+    36's; run(), the device step, the barriers and traced runs) and K7b
+    and K7a across the cards (K7a on the (time 2, fx 2) ``time_local``
+    mesh).  Where a rank holds several cards also SP fx64 with the time
+    axis inside each rank, beam64 replicated and beam-parallel, the cut
+    of a chunk to the rank's cards, and a per-rank checkpoint resumed in
+    a fresh runner to phase 6's sha256."""
+    import torch
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.models.pipeline import shard_inputs
+    from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, all_to_all,
+                                            build_global_mesh,
+                                            local_antenna_range,
+                                            ring_permute_right)
+    from dc_sand_tpu_torch.parallel.distributed import process_count
+    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
+                                           save_state)
+    from dc_sand_tpu_torch.windows import pfb_window
+    dev = cards[0]
+    devs = [cards[k % len(cards)] for k in range(SHARDS // process_count())]
+    mesh = build_global_mesh(devs)
+    sp = build_global_mesh(devs, time_shards=2, time_local=True)
+    rank = mesh.rank
+    layout = (f"{mesh.process_count} ranks x {len(mesh.local_cards)} "
+              f"card{'s' if len(mesh.local_cards) > 1 else ''}")
+    print(f"[40 {layout}] rank {rank}: cards {[str(c) for c in cards]}, "
+          f"shards {mesh.local_shards} on {[str(d) for d in devs]}; routes "
+          f"{mesh.routes()}", flush=True)
+    _rank_result(40, layout=layout, cards=len(mesh.local_cards))
+    fx = _fx64_mesh_run(dev, mesh, digest6, f"40 fx64 {layout}", step=True,
+                        trace=os.path.join(tmp, f"fx64_40_{rank}.json"))
+    # the device coarse mode, the JAX multi-process runner's only mode
+    fxd = _fx64_mesh_run(dev, mesh, digest36,
+                         f"40 fx64 {layout} device coarse",
+                         coarse_on_host=False,
+                         trace=os.path.join(tmp, f"fx64d_40_{rank}.json"))
+    _rank_result(40, run=fx, dev_run=fxd)
+    torch.cuda.empty_cache()
+    k7b = _rank_kernel_check(mesh, all_to_all, *_k7b_case(dev), FX_AXIS,
+                             2 * FX64_M // 2 // SHARDS,
+                             f"40 all_to_all {layout}")
+    _rank_result(40, k7b=k7b)
+    torch.cuda.empty_cache()
+    k7a = _rank_kernel_check(sp, ring_permute_right, *_k7a_case(dev),
+                             TIME_AXIS, 1, f"40 ring {layout}")
+    _rank_result(40, k7a=k7a)
+    torch.cuda.empty_cache()
+    if len(mesh.local_cards) == 1:
+        return
+    spx = _fx64_mesh_run(dev, sp, digest6, f"40 fx64 SP {layout}")
+    _rank_result(40, sp_run=spx)
+    torch.cuda.empty_cache()
+    _beam64_ranks(dev, mesh, f"40 beam64 {layout}", 40)
+    torch.cuda.empty_cache()
+    # the cut of a chunk to the rank's cards (its first card's rows stay,
+    # the others' cross card to card), then the per-rank checkpoint
+    cfg = get_config("fx64")
+    a0, a1 = local_antenna_range(cfg.n_ants)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(FX64_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, mesh=mesh,
+                                       rows=slice(a0, a1))
+    frames = chunks[0].reshape(-1, cfg.spectra_per_chunk, cfg.fft_size)
+    zeros = torch.zeros(frames.shape[:2], device=dev)
+    cut_ms = _events_ms(lambda: shard_inputs(mesh, frames, zeros, zeros), 4)
+    runner.run(lambda i: chunks[i], 2)
+    path = save_state(runner, os.path.join(tmp, "fx64_40"))
+    del runner, frames, zeros
+    resumed = FXRunner(
+        cfg, pfb_window(cfg.n_taps, cfg.fft_size, cfg.window),
+        delay_model=DelayModel.zeros(cfg.n_ants, cfg.n_pols, 32), mesh=mesh)
+    load_state(resumed, os.path.join(tmp, "fx64_40"))
+    if [h.device for h in resumed.history] != mesh.local_devices:
+        raise RuntimeError("40: a resumed carry is not on its shard's card")
+    dumps, _ = resumed.run(lambda i: chunks[i], 2)
+    torch.cuda.synchronize()
+    if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
+        raise RuntimeError(f"40 {layout}: the checkpoint did not resume to "
+                           "phase 6's sha256")
+    print(f"[40 checkpoint {layout}] rank {rank}: {os.path.basename(path)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB, shards of "
+          f"{len(mesh.local_cards)} cards), resumed in a fresh runner: chunks "
+          f"3-4 -> dump sha256 phase 6's; the cut of a chunk to the rank's "
+          f"cards {cut_ms:.3f} ms", flush=True)
+    _rank_result(40, resumed=True, cut_ms=cut_ms)
 
 
 def _rank_main(argv) -> int:
-    """A rank of phases 32-34 and 37-39: ``--rank {32-33,34,37-39,38}
-    DIGEST6 DIGEST36 DIR``."""
+    """A rank of phases 32-34, 37-39 and 40: ``--rank
+    {32-33,34,37-39,38,40} DIGEST6 DIGEST36 DIR``.  Its cards are
+    ``local_cards()``; phases 32-39 run on the first."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from dc_sand_tpu_torch.parallel import ipc
     from dc_sand_tpu_torch.parallel.distributed import (init_distributed,
-                                                        local_rank)
+                                                        local_cards)
     if not torch.cuda.is_available():
-        raise RuntimeError("a rank of phases 32-34 found no CUDA device")
+        raise RuntimeError("a rank of phases 32-40 found no CUDA device")
     init_distributed()
-    dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
-    torch.cuda.set_device(dev)
+    cards = local_cards()
+    torch.cuda.set_device(cards[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     which, digest6, digest36, tmp = argv
-    {"32-33": _phases_32_33, "34": _phase_34, "37-39": _phases_37_39,
-     "38": _phase_38}[which](dev, digest6, digest36, tmp)
+    if which == "40":
+        _phase_40(cards, digest6, digest36, tmp)
+    else:
+        {"32-33": _phases_32_33, "34": _phase_34, "37-39": _phases_37_39,
+         "38": _phase_38}[which](cards[0], digest6, digest36, tmp)
     ipc.close_all()
     dist.destroy_process_group()
+    return 0
+
+
+def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
+    """Phase 40 on a host of ``n_cards`` >= 2 cards: the cards' links
+    (``nvidia-smi topo -m``, and the first card's NVLink status, which
+    answers where the matrix is refused), then ``SHARDS`` fx shards over
+    ranks of one card each (as many ranks as cards) and over 2 ranks of 2
+    cards each (with 4 cards), through ``run_ranks`` (on 2 or 4 cards);
+    each rank checks its part (:func:`_phase_40`), and this prints the
+    numbers beside phase 16's one-process mesh."""
+    import subprocess
+    for argv in (["nvidia-smi", "topo", "-m"],
+                 ["nvidia-smi", "nvlink", "--status", "-i", "0"]):
+        got = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=60)
+        print(f"[40 topology] {' '.join(argv)}:", flush=True)
+        for line in (got.stdout or got.stderr).splitlines():
+            print(f"    {line}", flush=True)
+    # ranks of one card each, then (on 4) 2 ranks of 2 cards each
+    layouts = {2: [2], 4: [4, 2]}.get(n_cards, [])
+    if len(layouts) < 2:
+        print(f"[40 several cards] 2 ranks of 2 cards each need 4 cards"
+              + ("" if layouts else ", ranks of one card each 2 or 4")
+              + f", {n_cards} present: not run", flush=True)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = [_spawn_ranks(["40", digest6, digest36, tmp], timeout=600,
+                                world=w) for w in layouts]
+    took = time.perf_counter() - t
+    for ranks in results:
+        def pick(rank, key):
+            return next(r[key] for r in ranks[rank] if key in r)
+
+        world = len(ranks)
+        layout = pick(0, "layout")
+        runs = [pick(r, "run") for r in range(world)]
+        dev_runs = [pick(r, "dev_run") for r in range(world)]
+        idle, busy, traced = _idle_share(runs)
+        idle_d, busy_d, traced_d = _idle_share(dev_runs)
+        print(f"[40 fx64 {layout}] every rank's dump sha256 phase 6's; "
+              f"launches a rank {[x['launches'] for x in runs]}; steady run() "
+              "per chunk " + ", ".join(
+                  f"rank {r} {x['step_ms']:.3f} ms (device step "
+                  f"{x['device_step_ms']:.3f} ms, {x['barriers']:.1f} "
+                  f"barriers {x['barrier_ms']:.3f} ms host)"
+                  for r, x in enumerate(runs))
+              + f"; traced run: device busy summed over the cards "
+              f"{busy:.3f} ms in {traced:.3f} ms, idle share over all cards "
+              + (f"{idle:.4f}" if idle is not None else "not measured (the "
+                 "traces' clocks do not line up)")
+              + "; in the device coarse mode dumps phase 36's, run() per "
+              "chunk " + ", ".join(f"{x['step_ms']:.3f}" for x in dev_runs)
+              + " ms (barriers " + ", ".join(
+                  f"{x['barrier_ms']:.3f}" for x in dev_runs)
+              + " ms host), idle share over all cards "
+              + (f"{idle_d:.4f}" if idle_d is not None else "not measured")
+              + f" (busy {busy_d:.3f} ms in {traced_d:.3f} ms)"
+              + (f"; phase 16's one-process 4-way mesh {mesh_step_ms[16]:.3f}"
+                 " ms" if mesh_step_ms else "") + f" ({card})", flush=True)
+        for key, what in (("k7b", "K7b (corner-turn mode)"),
+                          ("k7a", "K7a (time ring, time_local)")):
+            x = [pick(r, key) for r in range(world)]
+            print(f"[40 {what} {layout}] bitwise its plain version; kernel "
+                  + ", ".join(f"{k['ms']:.4f}" for k in x) + " ms a rank, "
+                  + ", ".join(f"{k.get('gb_s_card', 0.0):.2f}" for k in x)
+                  + " GB/s a card to the others ("
+                  + f"{x[0].get('cross_mb', 0.0):.1f} MB a card a call; NVLink "
+                  f"bound {x[0].get('link_bound_ms', 0.0):.4f} ms); copy_ on "
+                  "the same route " + ", ".join(
+                      f"{k['library_ms']:.4f}" for k in x) + " ms; plain "
+                  + ", ".join(f"{k['plain_ms']:.3f}" for k in x) + " ms"
+                  + ("; block mode " + ", ".join(
+                      f"{k['block_ms']:.4f}" for k in x) + " ms, NCCL "
+                     "all_to_all_single " + ", ".join(
+                         f"{k['nccl_ms']:.4f}" if k["nccl_ms"] is not None
+                         else f"not run ({k['nccl_note']})" for k in x)
+                     + " ms" if "block_ms" in x[0] else "")
+                  + f" ({card})", flush=True)
+        if pick(0, "cards") == 1:
+            continue
+        sp = [pick(r, "sp_run") for r in range(world)]
+        print(f"[40 fx64 SP, beam64, checkpoint {layout}] SP (time inside "
+              f"each rank, its halo card to card) dumps phase 6's, run() per "
+              "chunk " + ", ".join(f"{x['step_ms']:.3f}" for x in sp)
+              + " ms; beam64 " + ", ".join(
+                  f"{'beam-parallel' if x['ep'] else 'replicated'} "
+                  f"{x['snr_beams']:.2f} dB" for r in range(world)
+                  for x in ranks[r] if "ep" in x)
+              + " from one card's, bitwise the one-process mesh's; the "
+              "per-rank checkpoint resumed to phase 6's sha256; the cut of a "
+              "chunk to a rank's cards " + ", ".join(
+                  f"{pick(r, 'cut_ms'):.3f}" for r in range(world))
+              + f" ms ({card})", flush=True)
+    print(f"[40 several cards] {took:.1f} s ({card})", flush=True)
+
+
+def _phase_40_alone() -> int:
+    """``--phase 40``: phase 40 alone, after the build and the fx64 runs
+    of phases 6 and 36 on the first card that give the sha256s its ranks
+    check (a shorter run on several cards; the script with no arguments
+    runs it after phases 1-39)."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
+        return 1
+    from dc_sand_tpu_torch import _build
+    from dc_sand_tpu_torch.bench.harness import card
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.profile_step import production_runner
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    dev = torch.device("cuda", 0)
+    digests = []
+    for on_host in (True, False):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(FX64_SEED)
+        runner, chunks = production_runner(get_config("fx64"), gen, dev,
+                                           coarse_on_host=on_host)
+        dumps, _ = runner.run(lambda i: chunks[i], len(chunks))
+        digests.append(_digest(dumps[0].vis))
+        del runner, chunks, dumps
+        torch.cuda.empty_cache()
+    print(f"[40 alone] phase 6's sha256 {digests[0]}, phase 36's "
+          f"{digests[1]} ({card()})", flush=True)
+    if torch.cuda.device_count() < 2:
+        print(f"[40 several cards] needs 2 or more cards, "
+              f"{torch.cuda.device_count()} present", flush=True)
+        return 1
+    _phase_40_main(*digests, torch.cuda.device_count(), None, card())
     return 0
 
 
@@ -1099,8 +1407,9 @@ def main() -> int:
     from dc_sand_tpu_torch.bench import cmac_phases, harness
     from dc_sand_tpu_torch.bench import probes
     from dc_sand_tpu_torch.bench.__main__ import main as bench_main
-    from dc_sand_tpu_torch.bench.harness import (bound_ms, fengine_flops,
-                                                 time_cuda)
+    from dc_sand_tpu_torch.bench.collectives import cross_bytes
+    from dc_sand_tpu_torch.bench.harness import (NVLINK_BYTES_S, bound_ms,
+                                                 fengine_flops, time_cuda)
     from dc_sand_tpu_torch.cli import main as cli_main
     from dc_sand_tpu_torch.bench.probes import read_probe, write_probe
     from dc_sand_tpu_torch.config import get_config
@@ -1682,8 +1991,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 14. peer-copy all-to-all (K7b) vs plain at the fx64 corner-turn --
-    n_cards = torch.cuda.device_count()
-    shard_devs = [torch.device("cuda", i % n_cards) for i in range(SHARDS)]
+    shard_devs = [torch.device("cuda", i % torch.cuda.device_count())
+                  for i in range(SHARDS)]
+    n_cards = len(set(shard_devs))
     fx_mesh = build_mesh(shard_devs)
     ct_shape = (nch, FX64_STREAMS // 2 // SHARDS, 2, FX64_SPECTRA, 2)
     xs = [torch.randint(-127, 128, ct_shape, generator=gen, device=dev,
@@ -1713,13 +2023,26 @@ def main() -> int:
         (lambda: all_to_all(xs, fx_mesh, FX_AXIS, impl="cuda"),
          lambda: copy_blocks(a2a_blocks)), 5)
     a2a_bound = bound_ms(2 * _nbytes(*xs))
+    # across cards: the most bytes one card sends to the others a call
+    a2a_cross = cross_bytes(fx_mesh, fx_mesh.all_to_all_sends(FX_AXIS),
+                            _nbytes(xs[0]) // SHARDS)
+
+    def across(ms, lib_ms):
+        if not a2a_cross:
+            return ""
+        return (f"; {a2a_cross / 1e6:.1f} MB a card to the other cards: "
+                f"kernel {a2a_cross / ms / 1e6:.2f} GB/s a card, copy_ "
+                f"{a2a_cross / lib_ms / 1e6:.2f}, NVLink bound "
+                f"{a2a_cross / NVLINK_BYTES_S * 1e3:.4f} ms")
+
     print(f"[14 all_to_all block mode] bitwise equal to plain, {SHARDS} "
           f"shards of int8 {ct_shape} on {[str(d) for d in shard_devs]}; "
           f"kernel {a2a_block_ms:.3f} ms "
           f"({_nbytes(*xs) / a2a_block_ms / 1e6:.1f} GB/s of payload), plain "
           f"{a2a_block_plain_ms:.3f} ms, copy_ of the {SHARDS * SHARDS} "
           f"blocks {a2a_block_lib_ms:.3f} ms, bound {a2a_bound[0]:.3f} ms "
-          f"({a2a_bound[1]}) ({card})", flush=True)
+          f"({a2a_bound[1]}){across(a2a_block_ms, a2a_block_lib_ms)} "
+          f"({card})", flush=True)
     del xs, outs_lib, a2a_blocks
     torch.cuda.empty_cache()
     # corner-turn mode: operand-layout shards (K, 2, s_l, b), each block's
@@ -1755,7 +2078,8 @@ def main() -> int:
           f"({_nbytes(*xs) / a2a_ms / 1e6:.1f} GB/s of payload), plain "
           f"{a2a_plain_ms:.3f} ms, copy_ into the {SHARDS * SHARDS} strided "
           f"views {a2a_lib_ms:.3f} ms, bound {a2a_bound[0]:.3f} ms "
-          f"({a2a_bound[1]}) ({card})", flush=True)
+          f"({a2a_bound[1]}){across(a2a_ms, a2a_lib_ms)} ({card})",
+          flush=True)
     del xs, outs_lib, views
     torch.cuda.empty_cache()
 
@@ -2763,6 +3087,15 @@ def main() -> int:
         raise RuntimeError("39: the bench's kernels launched nothing on the "
                            "staged route")
 
+    # ---- 40. ranks over several cards ------------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[40 several cards] needs 2 or more cards, {n_cards} present: "
+              f"layouts of one card a rank and of two cards a rank not run",
+              flush=True)
+    else:
+        _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card)
+
     for banned in ("jax", "dc_sand_tpu"):
         if banned in sys.modules:
             raise RuntimeError(f"the port must not import {banned}")
@@ -2838,7 +3171,7 @@ def main() -> int:
               "dc_sand_tpu/models/fengine.py:21", gather_launches, 0,
               *gather_times[("fx64", True)]),
     ]
-    print(f"[total] phases 1-39 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[total] phases 1-40 in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2850,4 +3183,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(_rank_main(sys.argv[2:]))
+    if sys.argv[1:] == ["--phase", "40"]:
+        sys.exit(_phase_40_alone())
     sys.exit(main())

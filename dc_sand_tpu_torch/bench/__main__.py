@@ -150,16 +150,20 @@ def _target(name: str, args, dev) -> list:
                 ib.bench_e2e_atrate(feed="device_replay", **kw)]
     # the collectives run on a mesh of --mesh shards, shard i on card
     # (i mod the card count); with --distributed --mesh/world shards a rank
-    # on its own card, beside (rank 0) the one-process mesh on that card;
-    # the scaling sweep over the cards present
+    # spread over its own cards (local_cards), beside (rank 0) the
+    # one-process mesh on its first card; the scaling sweep over the cards
+    # present
+    from dc_sand_tpu_torch.cli import _spread
     from dc_sand_tpu_torch.parallel import build_global_mesh, build_mesh
-    from dc_sand_tpu_torch.parallel.distributed import (process_count,
+    from dc_sand_tpu_torch.parallel.distributed import (local_cards,
+                                                        process_count,
                                                         process_index)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if name == "collectives":
         if args.distributed:
             n = args.mesh // process_count()
-            mesh = build_global_mesh([dev] * n)
+            mesh = build_global_mesh(_spread(n, local_cards()) if n_cards
+                                     else [dev] * n)
             print(f"routes: rank {process_index()} on {mesh.node_of(mesh.rank)}"
                   + "".join(f", rank {r} {how}" for r, how in
                             sorted(mesh.routes().items())), flush=True)
@@ -213,15 +217,14 @@ def main(argv=None) -> int:
             print("dc_sand_tpu_torch.bench: no CUDA device is present; "
                   "nothing measured", file=sys.stderr)
             return 1
-        if args.distributed:
-            from dc_sand_tpu_torch.parallel.distributed import local_rank
-            dev = torch.device("cuda",
-                               local_rank() % torch.cuda.device_count())
-        elif dev.index is None:
+        if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     if args.distributed:
-        from dc_sand_tpu_torch.parallel.distributed import init_distributed
+        from dc_sand_tpu_torch.parallel.distributed import (init_distributed,
+                                                            local_cards)
         init_distributed()
+        if dev.type == "cuda":
+            dev = local_cards()[0]
     ctx = contextlib.nullcontext()
     if args.profile:
         from dc_sand_tpu_torch.profile_step import chrome_trace

@@ -26,23 +26,40 @@ route (pinned host slots and gloo; the receiver's launch places each
 block), and the sums read the mappings or the staged mirrors.  ``link``
 says which (``CUDA IPC``, ``staged``, both, or ``gloo`` on the CPU),
 ``routes`` each other rank's route, and ``processes`` how many ranks share
-the mesh; the kernels' records carry ``copy_ms``, the same route with
-every block placed by ``Tensor.copy_`` (the yardstick).  Two ranks on one
-card time-slice it: their times are not a scaling measurement.
+the mesh.  Two ranks on one card time-slice it: their times are not a
+scaling measurement.
+
+The kernels' records (K7b, K7a) carry ``copy_ms``, the same blocks placed
+by ``Tensor.copy_`` into the same destinations (the yardstick; across
+processes the same route with ``place="copy"``), and, where senders and
+receivers lie on different cards, ``cross_mb`` (the bytes one card sends
+to the others in a call, the most over the rank's cards), ``gb_s_per_card``
+(those bytes over the call's time) and ``link_bound_ms`` (those bytes at
+NVLink's 450 GB/s each way).  Across ranks that each hold one card of
+their own and one shard, K7b's block-mode record also carries
+``nccl_ms``: NCCL's ``all_to_all_single`` over a ``nccl`` group of the
+same ranks on the same shards (bitwise checked against K7b), the library
+yardstick; where ranks share a card or hold several shards it stays None
+and ``nccl_note`` says why.
 """
 
 from __future__ import annotations
 
-import torch
+import sys
 
-from dc_sand_tpu_torch.bench.harness import BenchResult, time_cuda
+import torch
+import torch.distributed as dist
+
+from dc_sand_tpu_torch.bench.harness import (NVLINK_BYTES_S, BenchResult,
+                                             time_cuda)
 from dc_sand_tpu_torch.parallel import (FX_AXIS, SharedBuffers, all_shards,
                                         all_to_all, all_to_all_torch, psum,
                                         psum_scatter, ring_permute_right,
                                         ring_permute_right_torch,
                                         uses_shared_buffers)
 
-__all__ = ["bench_collective", "COLLECTIVES"]
+__all__ = ["bench_collective", "cross_bytes", "nccl_all_to_all",
+           "COLLECTIVES"]
 
 COLLECTIVES = ("all_to_all", "ppermute", "psum", "psum_scatter",
                "all_gather", "all_to_all_pallas", "ppermute_pallas")
@@ -55,6 +72,76 @@ def _all_gather(xs, mesh, buffers) -> list:
         group = next(g for g in mesh.groups(FX_AXIS) if j in g)
         outs.append(torch.cat([every[s].to(x.device) for s in group]))
     return outs
+
+
+def _pairs(op: str, mesh) -> tuple:
+    """K7b's or K7a's ``(device, ((src, dst), ...))`` over the fx axis,
+    this rank's senders by card."""
+    return (mesh.all_to_all_sends(FX_AXIS) if op == "all_to_all_pallas"
+            else mesh.ring_sends(FX_AXIS))
+
+
+def cross_bytes(mesh, sends, block: int) -> int:
+    """The most bytes one of this rank's cards sends to other cards (or
+    nodes) in one call of K7b or K7a: ``sends`` its pairs by card
+    (:meth:`~dc_sand_tpu_torch.parallel.mesh.Mesh.ring_sends`,
+    :meth:`~dc_sand_tpu_torch.parallel.mesh.Mesh.all_to_all_sends`),
+    ``block`` the bytes a pair moves."""
+    flat = mesh.flat_devices
+    return max((sum(block for i, j in pairs if flat[i] != flat[j]
+                    or mesh.route(i, j) == "staged")
+                for _, pairs in sends), default=0)
+
+
+def _copy_blocks(op: str, mesh, xs) -> tuple:
+    """One process: ``(outs, fn)``, ``fn`` placing K7b's or K7a's blocks
+    into ``outs`` with ``Tensor.copy_``, the kernel's yardstick."""
+    d = mesh.shape[FX_AXIS]
+    pos = {i: k for g in mesh.groups(FX_AXIS) for k, i in enumerate(g)}
+    outs = [torch.empty_like(x) for x in xs]
+
+    def fn():
+        for _, pairs in _pairs(op, mesh):
+            for i, j in pairs:
+                if op == "all_to_all_pallas":
+                    outs[j].view(d, -1)[pos[i]].copy_(
+                        xs[i].view(d, -1)[pos[j]])
+                else:
+                    outs[j].copy_(xs[i])
+
+    return outs, fn
+
+
+def nccl_all_to_all(mesh, xs, got, iters: int) -> tuple:
+    """``(ms, note)``: NCCL's ``all_to_all_single`` on this rank's shard
+    over a ``nccl`` group of every rank, timed, where every rank holds one
+    shard on a card of its own (``note`` None), its output bitwise
+    K7b's ``got``; else ``(None, why)``.  Collective: every rank reaches
+    the same verdict from the global mesh."""
+    if not mesh.multiprocess or xs[0].device.type != "cuda":
+        return None, "one process or the CPU"
+    if len(mesh.local_shards) != 1:
+        return None, (f"{len(mesh.local_shards)} shards a rank; NCCL's "
+                      "all_to_all_single moves one block a rank")
+    cards = [(mesh.node_of(mesh.process_of(k)), str(dev))
+             for k, dev in enumerate(mesh.flat_devices)]
+    if len(set(cards)) != len(cards):
+        return None, "ranks share a card"
+    dev = xs[0].device
+    with torch.cuda.device(dev):
+        group = dist.new_group(backend="nccl")
+        out = torch.empty_like(xs[0])
+        try:
+            wall = time_cuda(lambda: dist.all_to_all_single(
+                out, xs[0], group=group), warmup=2, iters=iters, device=dev)
+            dist.all_to_all_single(out, xs[0], group=group)
+            torch.cuda.synchronize(dev)
+            if not torch.equal(out, got[0]):
+                raise RuntimeError("NCCL's all_to_all_single != K7b's block "
+                                   "mode on the same shards")
+        finally:
+            dist.destroy_process_group(group)
+    return wall * 1e3, None
 
 
 def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
@@ -95,37 +182,63 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
                        local_bytes * (d - 1)),
     }
     fn, wire = ops[op]
-    xs = [torch.zeros((n_rows, 1024), device=dev) for dev in devices]
+    # distinct values a shard, so that a yardstick's output is checkable
+    xs = [(torch.arange(n_rows * 1024, device=dev) % 4096 + 4096 * k)
+          .float().reshape(n_rows, 1024)
+          for k, dev in zip(mesh.local_shards, devices)]
     others = sorted({dev for dev in devices if dev != first}, key=str)
 
-    def call():
-        fn(xs)
-        # the first card's stream waits for the others, so that the
-        # events on it span the whole collective
-        for dev in others:
-            torch.cuda.current_stream(first).wait_stream(
-                torch.cuda.current_stream(dev))
+    def spanned(run):
+        """``run``, then the first card's stream waits for the others, so
+        that the events on it span the whole collective."""
+        def go():
+            run()
+            for dev in others:
+                torch.cuda.current_stream(first).wait_stream(
+                    torch.cuda.current_stream(dev))
+        return go
 
-    wall = time_cuda(call, warmup=2, iters=iters, device=first)
+    wall = time_cuda(spanned(lambda: fn(xs)), warmup=2, iters=iters,
+                     device=first)
     cards = len(set(devices))
     extra = {"devices": d, "cards": cards, "processes": mesh.process_count,
              "local_mb": local_bytes / 1e6}
+    kernel = op.endswith("_pallas")
+
     if mesh.multiprocess:
         routes = mesh.routes()
         extra["routes"] = {str(r): how for r, how in routes.items()}
         extra["link"] = (" + ".join(name for how, name in (
             ("ipc", "CUDA IPC"), ("staged", "staged"))
             if how in routes.values()) if shared is not None else "gloo")
-        if shared is not None and op.endswith("_pallas"):
+        if shared is not None and kernel:
             copy_op = all_to_all if op == "all_to_all_pallas" else \
                 ring_permute_right
             extra["copy_ms"] = time_cuda(
-                lambda: copy_op(xs, mesh, FX_AXIS, out=shared,
-                                place="copy"),
+                spanned(lambda: copy_op(xs, mesh, FX_AXIS, out=shared,
+                                        place="copy")),
                 warmup=2, iters=iters, device=first) * 1e3
     else:
         extra["link"] = ("host memory" if first.type == "cpu" else "NVLink"
                          if cards > 1 else "one card's memory")
+        if kernel:
+            _, copy_fn = _copy_blocks(op, mesh, xs)
+            extra["copy_ms"] = time_cuda(spanned(copy_fn), warmup=2,
+                                         iters=iters, device=first) * 1e3
+    if kernel:
+        cross = cross_bytes(mesh, _pairs(op, mesh), local_bytes // d
+                            if op == "all_to_all_pallas" else local_bytes)
+        if cross:
+            extra["cross_mb"] = cross / 1e6
+            extra["gb_s_per_card"] = cross / wall / 1e9
+            extra["link_bound_ms"] = cross / NVLINK_BYTES_S * 1e3
+    if op == "all_to_all_pallas" and mesh.multiprocess:
+        got = fn(xs)
+        extra["nccl_ms"], extra["nccl_note"] = nccl_all_to_all(
+            mesh, xs, got, iters)
+        if extra["nccl_note"]:
+            print(f"collectives: no NCCL yardstick: {extra['nccl_note']}",
+                  file=sys.stderr, flush=True)
     procs = mesh.process_count
     return BenchResult(
         name=f"collective_{op}_{d}dev" + (f"_{procs}proc" if procs > 1

@@ -37,12 +37,15 @@ from dc_sand_tpu_torch.ops._dispatch import default_device
 
 __all__ = ["time_cuda", "BenchResult", "HBM_BW_BY_CHIP", "detect_chip",
            "card", "bound_ms", "fengine_flops", "HBM_BYTES_S", "FP32_FLOPS",
-           "INT8_OPS", "BF16_FLOPS"]
+           "INT8_OPS", "BF16_FLOPS", "NVLINK_BYTES_S"]
 
 # NVIDIA H100 SXM data sheet: HBM rate, fp32 without the tensor cores, int8
 # and bf16 tensor-core peaks (dense); the rates assume the card's full 700 W
 HBM_BYTES_S, FP32_FLOPS, INT8_OPS, BF16_FLOPS = 3.35e12, 67e12, 1979e12, 989e12
 L2_BYTES = 50 * 2 ** 20
+# NVLink 4 of an H100 SXM: 900 GB/s a card to the others of its host, 450
+# each way
+NVLINK_BYTES_S = 450e9
 
 # Peak HBM bandwidth per chip, GB/s (data sheets)
 HBM_BW_BY_CHIP = {"h100": 3350.0, "h200": 4800.0}

@@ -82,13 +82,15 @@ def _placement(args) -> tuple:
     """``(device, mesh)`` of the command, one of them None: the CPU with
     ``--cpu``, else the current card; a mesh with ``--mesh`` or
     ``--time-shards``; with ``--distributed`` the global mesh of
-    ``--mesh`` shards over the ranks (:func:`main` joined them)."""
+    ``--mesh`` shards over the ranks (:func:`main` joined them), each
+    rank's shards spread over its cards
+    (:func:`~dc_sand_tpu_torch.parallel.distributed.local_cards`)."""
     import torch
     from dc_sand_tpu_torch.ops._dispatch import default_device
     from dc_sand_tpu_torch.parallel import build_global_mesh, build_mesh
     n = args.mesh or (args.time_shards if args.time_shards > 1 else 0)
     if args.distributed:
-        from dc_sand_tpu_torch.parallel.distributed import (local_rank,
+        from dc_sand_tpu_torch.parallel.distributed import (local_cards,
                                                             process_count)
         world = process_count()
         if n % world:
@@ -97,8 +99,7 @@ def _placement(args) -> tuple:
             devices = ["cpu"] * (n // world)
         else:
             default_device(None)              # raises without a card
-            devices = [f"cuda:{local_rank() % torch.cuda.device_count()}"] \
-                * (n // world)
+            devices = _spread(n // world, local_cards())
         return None, build_global_mesh(devices, args.time_shards,
                                        time_local=True)
     if args.cpu:
@@ -109,6 +110,12 @@ def _placement(args) -> tuple:
     if n:
         return None, build_mesh(devices, time_shards=args.time_shards)
     return ("cpu" if args.cpu else None), None
+
+
+def _spread(n: int, cards) -> list:
+    """A rank's ``n`` shards over its ``cards``: shard k on card k mod
+    their count."""
+    return [cards[k % len(cards)] for k in range(n)]
 
 
 def _where(device, mesh) -> str:

@@ -277,7 +277,8 @@ def shard_inputs(mesh, *xs, time: bool = True) -> tuple:
     this process's shards of ``mesh``: fx shard f takes rows
     ``f*A*P/n_fx ...`` and, with ``time``, time shard t spectra
     ``t*B/n_t ...``, each moved to its
-    shard's device.  On a mesh over several processes the tensors hold
+    shard's device (a rank of several cards copies each card's rows from
+    the card the tensors lie on).  On a mesh over several processes the tensors hold
     this rank's rows only, those of its fx columns.  Returns one list per
     tensor in the order of :attr:`Mesh.local_shards` (a list of None for
     None); a slice that is the whole tensor on its own device is not

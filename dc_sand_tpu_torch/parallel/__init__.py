@@ -21,6 +21,7 @@ from .remote_dma import (ring_permute_right, all_to_all,  # noqa: F401
 from .corner_turn import corner_turn_all_to_all  # noqa: F401
 from .halo import halo_exchange_left, ring_tails  # noqa: F401
 from .reduce import psum, psum_scatter, all_shards  # noqa: F401
-from .distributed import init_distributed, local_antenna_range  # noqa: F401
+from .distributed import (init_distributed, local_antenna_range,  # noqa: F401
+                          local_cards)
 from .ipc import SharedBuffers, uses_shared_buffers  # noqa: F401
 from .staged import StagedRoute  # noqa: F401

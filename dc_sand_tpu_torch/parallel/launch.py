@@ -4,13 +4,15 @@ would, and collect what each printed.
     results = run_ranks([sys.executable, "-m", "dc_sand_tpu_torch.cli",
                          "verify", "fx4", "--distributed", "--mesh", "4"], 2)
 
-Each rank gets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
-(127.0.0.1) and ``MASTER_PORT`` (a free port of this host, unless ``env``
-names one), which :func:`~dc_sand_tpu_torch.parallel.distributed.
-init_distributed` reads.  With ``nodes=n`` the ranks form ``n`` nodes of
-``world / n`` consecutive ranks, as ``torchrun --nnodes n`` agents on
-this host would start them: ``GROUP_RANK`` (the node), ``LOCAL_RANK`` and
-``LOCAL_WORLD_SIZE`` within it; ranks of different nodes then exchange
+Each rank gets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` (127.0.0.1) and ``MASTER_PORT`` (a
+free port of this host, unless ``env`` names one), as torchrun sets them,
+which :func:`~dc_sand_tpu_torch.parallel.distributed.init_distributed`
+and :func:`~dc_sand_tpu_torch.parallel.distributed.local_cards` read.
+With ``nodes=n`` the ranks form ``n`` nodes of ``world / n`` consecutive
+ranks, as ``torchrun --nnodes n`` agents on this host would start them:
+``GROUP_RANK`` (the node), ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` within
+it; ranks of different nodes then exchange
 through the staged route (:mod:`.staged`), not CUDA IPC.  The ranks' outputs are drained while they run,
 so that a rank that fills its pipe cannot stall the others at a barrier;
 when one rank fails, the others are stopped at once rather than left
@@ -57,10 +59,9 @@ def run_ranks(argv: Sequence[str], world: int, *,
     procs, outs, readers = [], [], []
     for rank in range(world):
         rank_env = dict(base, RANK=str(rank), LOCAL_RANK=str(rank % per),
-                        WORLD_SIZE=str(world))
+                        WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(per))
         if nodes is not None:
-            rank_env.update(GROUP_RANK=str(rank // per),
-                            LOCAL_WORLD_SIZE=str(per))
+            rank_env.update(GROUP_RANK=str(rank // per))
         proc = subprocess.Popen(list(argv), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True,
                                 env=rank_env, cwd=cwd)

@@ -9,12 +9,19 @@ A mesh over several ``torch.distributed`` ranks
 (:func:`build_global_mesh`) also records each shard's process and each
 process's node.  A rank holds its own shards only, as a JAX process sees
 only its addressable shards: every per-shard list on such a mesh has one
-entry per :attr:`Mesh.local_shards`, in shard order.  The node map gives
-every pair of ranks its route (:meth:`Mesh.routes`): ``"ipc"`` within a
-node (:mod:`.ipc`), ``"staged"`` across nodes (:mod:`.staged`).  The
-process-major layout and ``time_local`` do not depend on it: with
-``time_local`` the time ring, and so the runner's halo, stays inside a
-rank, as the JAX package's ingest-locality layout keeps it off DCN.
+entry per :attr:`Mesh.local_shards`, in shard order.  A rank may hold
+several cards (:func:`~dc_sand_tpu_torch.parallel.distributed.
+local_cards`), as a JAX process holds its host's chips: its shards are
+grouped by card (:attr:`Mesh.local_cards`, and the senders of the
+peer-copy kernels by :meth:`Mesh.ring_sends` and
+:meth:`Mesh.all_to_all_sends`).
+The node map gives every pair of ranks its route (:meth:`Mesh.routes`):
+``"ipc"`` within a node (:mod:`.ipc`), ``"staged"`` across nodes
+(:mod:`.staged`); :meth:`Mesh.route` gives each pair of shards its own,
+``"peer"`` between two cards of one rank.  The process-major layout and
+``time_local`` do not depend on it: with ``time_local`` the time ring,
+and so the runner's halo, stays inside a rank, card to card, as the JAX
+package's ingest-locality layout keeps it off DCN.
 
 Every shard is a tensor of its own, so a device may appear more than
 once: four shards on ``cuda:0`` are four allocations, and the peer-copy
@@ -71,7 +78,7 @@ class Mesh:
             raise ValueError(f"{len(nodes)} nodes for {self.process_count} "
                              "processes")
         self.nodes = tuple(nodes)
-        self._ring_sends = {}
+        self._sends = {}
 
     @property
     def size(self) -> int:
@@ -93,6 +100,23 @@ class Mesh:
         """The devices of :attr:`local_shards`, in that order."""
         flat = self.devices.reshape(-1)
         return [flat[d] for d in self.local_shards]
+
+    @property
+    def local_cards(self) -> list:
+        """The distinct devices of this rank's shards, in the order of
+        their first shard."""
+        return list(dict.fromkeys(self.local_devices))
+
+    def route(self, i: int, j: int) -> str:
+        """How shard ``i``'s data reaches shard ``j``: ``"local"`` within
+        one device of one rank, ``"peer"`` between two cards of one rank
+        (peer access), else the route between their ranks
+        (:meth:`routes`), ``"ipc"`` or ``"staged"``."""
+        pi, pj = self.process_of(i), self.process_of(j)
+        if pi == pj:
+            flat = self.devices.reshape(-1)
+            return "local" if flat[i] == flat[j] else "peer"
+        return "ipc" if self.node_of(pi) == self.node_of(pj) else "staged"
 
     def process_of(self, d: int) -> int:
         """The rank that holds shard ``d``."""
@@ -152,19 +176,35 @@ class Mesh:
         group (the last one's is the first).  Every shard is ``src`` once
         and ``dst`` once; on a mesh over several processes the senders are
         this rank's shards only.  Computed once per axis and kept."""
-        if axis not in self._ring_sends:
-            flat = self.flat_devices
-            local = set(self.local_shards)
-            by_dev = {}
-            for group in self.groups(axis):
-                for k, src in enumerate(group):
-                    if src not in local:
-                        continue
-                    by_dev.setdefault(flat[src], []).append(
-                        (src, group[(k + 1) % len(group)]))
-            self._ring_sends[axis] = tuple(
-                (dev, tuple(sorted(pairs))) for dev, pairs in by_dev.items())
-        return self._ring_sends[axis]
+        if axis not in self._sends:
+            self._sends[axis] = self._by_card(sorted(
+                (src, group[(k + 1) % len(group)])
+                for group in self.groups(axis)
+                for k, src in enumerate(group)))
+        return self._sends[axis]
+
+    def all_to_all_sends(self, axis: str) -> tuple:
+        """K7b's pairs over ``axis`` grouped by the card that sends, as
+        :meth:`ring_sends` groups the ring's: every ``(src, dst)`` of a
+        group, this rank's senders only, each sender's receivers in group
+        order.  Computed once per axis and kept."""
+        key = ("all_to_all", axis)
+        if key not in self._sends:
+            self._sends[key] = self._by_card(
+                (src, dst) for group in self.groups(axis)
+                for src in group for dst in group)
+        return self._sends[key]
+
+    def _by_card(self, pairs) -> tuple:
+        """``(device, pairs)`` per card that holds one of this rank's
+        senders, in the order of the pairs given."""
+        flat = self.flat_devices
+        local = set(self.local_shards)
+        by_dev = {}
+        for src, dst in pairs:
+            if src in local:
+                by_dev.setdefault(flat[src], []).append((src, dst))
+        return tuple((dev, tuple(ps)) for dev, ps in by_dev.items())
 
 
 def _device(d) -> torch.device:

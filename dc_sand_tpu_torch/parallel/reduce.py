@@ -15,9 +15,11 @@ their CUDA IPC mappings within a node and from local mirrors, filled over
 the staged route (:mod:`.staged`), across nodes; on the CPU a gloo
 all-gather, or with ``buffers`` (peers all on other nodes) the staged
 route's mirrors.  A shard of another node crosses once a reader, and
-``psum_scatter`` fetches only the reader's blocks of it.  The adds run in
-the same shard order on the local device, so the sums are bitwise the
-one-process mesh's on either route.
+``psum_scatter`` fetches only the reader's blocks of it.  A rank that
+holds several cards reads its other cards' buffers directly (a copy to
+the reader's card, ordered after their writes by the buffers' rounds).
+The adds run in the same shard order on the reader's card, so the sums
+are bitwise the one-process mesh's on every route.
 """
 
 from __future__ import annotations

@@ -37,15 +37,19 @@ On the card the destinations are the receivers' persistent buffers
 the route of each pair of ranks is the mesh's
 (:meth:`~dc_sand_tpu_torch.parallel.mesh.Mesh.routes`):
 
+* within a rank of several cards the sender's card writes into the
+  receiver's card by peer access, as in one process;
 * within a node the sender's launch writes into the receiver's CUDA IPC
-  mapping, each rank launching the kernel once for its own senders;
+  mapping, each rank launching the kernel once a card of its own that
+  holds a sender, on that card's stream;
 * across nodes (:mod:`.staged`) the sender copies each block, contiguous
   in its shard, whole from the card into a pinned host slot, the slots
   cross in gloo point-to-point sends, the receiver copies each slot whole
   back onto the card (a copy-engine transfer into its landing buffer),
-  and the RECEIVER launches the same kernel with the landed block as the
-  source and its own buffer, at the sender's row offset and pitch, as
-  the destination: the kernel, not a ``copy_``, places every block.
+  and the RECEIVER launches the same kernel on the receiving shard's
+  card with the landed block as the source and its own buffer, at the
+  sender's row offset and pitch, as the destination: the kernel, not a
+  ``copy_``, places every block.
 
 Every launch adds one to the op's ``launches`` (a receiver's launch across
 nodes to its ``staged_launches`` as well); ``out.ready()`` before and
@@ -252,12 +256,7 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
     row_bytes = block // rows * esize
     pitch = n * row_bytes if rows > 1 else row_bytes
     pos = {i: k for group in groups for k, i in enumerate(group)}
-    by_dev = {}
-    for group in groups:
-        for i in group:
-            if i in loc:
-                by_dev.setdefault(xs_g[i].device, []).extend(
-                    (i, j) for j in group)
+    sends = mesh.all_to_all_sends(axis)
     lib = _build.library() if not plain else None
 
     def launch(pairs, stream, staged=False):
@@ -272,7 +271,7 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
         return pos[j] * block * esize, pos[i] * row_bytes
 
     if out is not None:
-        return _launch_shared(mesh, out, xs_g, tuple(by_dev.items()),
+        return _launch_shared(mesh, out, xs_g, sends,
                               [(i, j) for g in groups for i in g for j in g],
                               offsets, (rows, row_bytes, pitch),
                               _launcher(launch, plain, place))
@@ -283,7 +282,7 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
                  outs[j].data_ptr() + offsets(i, j)[1]) for i, j in pairs],
                stream)
 
-    _launch_by_card(tuple(by_dev.items()), xs_g, outs, by_card)
+    _launch_by_card(sends, xs_g, outs, by_card)
     return [outs[d] for d in mesh.local_shards]
 
 
@@ -358,40 +357,55 @@ def staged_round(mesh, out, xs_g, sends, pairs, offsets, nbytes) -> list:
 def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
                    launch) -> list:
     """The kernel over a multi-process mesh: ``sends`` holds this rank's
-    senders on its one device, ``pairs`` every (sender, receiver) pair of
-    the op, ``offsets(i, j)`` the byte offsets of a pair's block in the
+    senders grouped by their card (:meth:`~dc_sand_tpu_torch.parallel.
+    mesh.Mesh.ring_sends`), ``pairs`` every (sender, receiver) pair of the
+    op, ``offsets(i, j)`` the byte offsets of a pair's block in the
     sender's shard and in the receiver's buffer, ``geometry`` the rows,
     row bytes and destination pitch of a block.  Pairs whose receiver is
-    on this node launch here, into its buffers or IPC mappings; pairs
-    across nodes go through :func:`staged_round`, land on the card and
-    launch on the receiver.  With ``launch`` None (the CPU, or the
-    ``copy_`` yardstick) :func:`place_rows_torch` stands for each launch,
-    from the slots, and counts none.  ``out.ready()`` before and
-    ``out.done()`` after order the writes against every rank's use of the
+    on this node launch here, one launch a card on its own stream: on the
+    sender's card into this rank's own buffers (on another card by peer
+    access), on the card that holds a peer's IPC mapping into that
+    mapping (:class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`
+    maps each there); pairs across nodes go
+    through :func:`staged_round`, land on the receiver's card and launch
+    there.  With ``launch`` None (the CPU, or the ``copy_`` yardstick)
+    :func:`place_rows_torch` stands for each launch, from the slots, and
+    counts none.  ``out.ready()`` before and ``out.done()`` after order
+    the writes against every rank's, and every card's, use of the
     buffers."""
-    dev = out.device
     rows, row_bytes, _ = geometry
     nbytes = rows * row_bytes
-    for card, _ in sends:
-        if card != dev:
-            raise ValueError(f"a sender lies on {card}, the rank's device "
-                             f"is {dev}")
-    here = [(as_bytes(xs_g[i])[offsets(i, j)[0]:][:nbytes], j,
-             offsets(i, j)[1])
-            for _, ps in sends for i, j in ps if not out.remote(j)]
-    with (torch.cuda.device(dev) if dev.type == "cuda"
-          else contextlib.nullcontext()):
-        out.ready()
-        _place(out, here, geometry, launch)
-        if out.staged is not None:
-            blocks = staged_round(mesh, out, xs_g, sends, pairs, offsets,
-                                  nbytes)
-            if launch is not None:
-                blocks = [(d, j, off) for d, (_, j, off) in zip(
-                    out.staged.land([b for b, _, _ in blocks]), blocks)]
-            _place(out, blocks, geometry, launch, staged=True)
-            out.staged.release()
-        out.done()
+    for card, ps in sends:
+        for i, _ in ps:
+            if xs_g[i].device != card:
+                raise ValueError(f"shard {i} lies on {xs_g[i].device}, its "
+                                 f"mesh device is {card}")
+    # each block launches on the card that owns its destination's
+    # mapping: the sender's for this rank's own receivers, the mapping's
+    # card for a peer's IPC view (the source then read by peer access)
+    here = {}
+    for card, ps in sends:
+        for i, j in ps:
+            if not out.remote(j):
+                at = (out.views[j].device if mesh.process_of(j) != mesh.rank
+                      else card)
+                here.setdefault(at, []).append(
+                    (as_bytes(xs_g[i])[offsets(i, j)[0]:][:nbytes], j,
+                     offsets(i, j)[1]))
+    out.ready()
+    for card, blocks in here.items():
+        _place(out, card, blocks, geometry, launch)
+    if out.staged is not None:
+        blocks = staged_round(mesh, out, xs_g, sends, pairs, offsets, nbytes)
+        cards = [out.views[j].device for _, j, _ in blocks]
+        if launch is not None:
+            blocks = [(d, j, off) for d, (_, j, off) in zip(
+                out.staged.land([b for b, _, _ in blocks], cards), blocks)]
+        for card in dict.fromkeys(cards):
+            _place(out, card, [b for b, c in zip(blocks, cards)
+                               if c == card], geometry, launch, staged=True)
+        out.staged.release()
+    out.done()
     return list(out.local)
 
 
@@ -403,21 +417,33 @@ def _launcher(launch, plain: bool, place: str):
     return None if plain or place == "copy" else launch
 
 
-def _place(out, blocks, geometry, launch, staged: bool = False) -> None:
+def _place(out, card, blocks, geometry, launch, staged: bool = False) -> None:
     """``(source bytes, receiver, byte offset)`` blocks into ``out``'s
-    views: the kernel's ``launch`` (up to
-    :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs a launch; ``staged``
-    counts them as the receiver's launches across nodes), or with
-    ``launch`` None its plain version."""
+    views, launched on ``card``'s current stream: the kernel's ``launch``
+    (up to :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs a launch,
+    with peer access to each receiver's card; ``staged`` counts them as
+    the receiver's launches across nodes), or with ``launch`` None its
+    plain version."""
+    if not blocks:
+        return
     if launch is None:
+        # a copy into a peer's mapping must run on the mapping's card,
+        # where its address is valid: a source on another card goes there
+        # first (the torch copy runs on the source's card)
         for src, j, off in blocks:
+            if src.is_cuda and src.device != card:
+                src = src.to(card)
             place_rows_torch(src, out.views[j], off, *geometry)
         return
-    stream = torch.cuda.current_stream(out.device).cuda_stream
+    for src, j, _ in blocks:
+        _enable_peer(card, src.device)
+        _enable_peer(card, out.views[j].device)
     ptrs = [(src.data_ptr(), out.views[j].data_ptr() + off)
             for src, j, off in blocks]
-    for at in range(0, len(ptrs), _build.MAX_PEERS):
-        launch(ptrs[at:at + _build.MAX_PEERS], stream, staged)
+    with torch.cuda.device(card):
+        stream = torch.cuda.current_stream(card).cuda_stream
+        for at in range(0, len(ptrs), _build.MAX_PEERS):
+            launch(ptrs[at:at + _build.MAX_PEERS], stream, staged)
 
 
 def _exchange(xs, mesh, moves: dict, cut) -> dict:

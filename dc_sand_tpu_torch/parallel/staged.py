@@ -8,18 +8,18 @@ DCN: off the sender's card, over the network, onto the receiver's.  One
 :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` (the CMAC operand,
 the halo, the partial beams, the accumulators):
 
-* **sender**: each block bound for another node is copied whole from the
-  card into this rank's pinned send slot for that peer, on the route's
-  copy stream, after the work that produced it (the copy stream waits
-  for the current stream); the host waits for those copies, since gloo
-  reads the slot from the host;
+* **sender**: each block bound for another node is copied whole from its
+  card into this rank's pinned send slot for that peer, on that card's
+  copy stream of the route, after the work that produced it (the copy
+  stream waits for the card's current stream); the host waits for those
+  copies, since gloo reads the slot from the host;
 * **transfer**: one :func:`torch.distributed.batch_isend_irecv` of every
   move, one tag a move (``sender shard * mesh size + receiver``, the tags
   of ``remote_dma._exchange``), issued in tag order on every rank;
 * **receiver**: the block lands in its pinned receive slot.  For the
-  peer-copy kernels the receiver copies the slot whole onto the card, a
-  copy-engine transfer into a device landing buffer
-  (:meth:`StagedRoute.land`), and its K7b or K7a launch places the block
+  peer-copy kernels the receiver copies the slot whole onto the
+  receiving shard's card, a copy-engine transfer into that card's landing
+  buffer (:meth:`StagedRoute.land`), and its K7b or K7a launch places the block
   from there into its own buffer at the sender's offset and pitch; for
   the sums a host-to-device copy fills a mirror.  The landing copy, not
   the kernel reading the slot across the bus through its device address,
@@ -64,21 +64,26 @@ def as_bytes(x: torch.Tensor) -> torch.Tensor:
 
 class StagedRoute:
     """Pinned send and receive slots per remote peer of one rank's role,
-    double-buffered, and a copy stream (module docstring); on the CPU,
-    plain host slots and no stream."""
+    double-buffered, and a copy stream and a landing buffer per card of
+    the rank (module docstring); on the CPU, plain host slots and no
+    stream.  ``devices``: the rank's cards (one device, or several)."""
 
     sent_bytes = 0      # every route of this process, for the traces
     received_bytes = 0
     seconds = 0.0       # host seconds in round()
     rounds = 0
 
-    def __init__(self, device):
-        self.device = torch.device(device)
+    def __init__(self, devices):
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
         self.cuda = self.device.type == "cuda"
-        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.streams = ({d: torch.cuda.Stream(d) for d in self.devices}
+                        if self.cuda else {})
         self._slots = {}        # (peer, "send" | "recv", turn) -> uint8
-        self._guards = {}       # (peer, turn) -> event after its last read
-        self._landing = None    # the device landing buffer of land()
+        self._guards = {}       # (peer, turn) -> events after its last read
+        self._landing = {}      # card -> the device landing buffer of land()
         self._turn = 0
         self._read = ()         # the peers whose receive slots this round fills
 
@@ -116,19 +121,22 @@ class StagedRoute:
         incoming = list(incoming)
         self._read = tuple(sorted({p for _, p, _ in incoming}))
         for peer in self._read:    # before the slot is refilled or replaced
-            guard = self._guards.pop((peer, self._turn), None)
-            if guard is not None:
+            for guard in self._guards.pop((peer, self._turn), ()):
                 guard.synchronize()
         sends = self._layout([(t, p, b.numel() * b.element_size())
                               for t, p, b in outgoing], "send")
         recvs = self._layout(incoming, "recv")
         blocks = {t: b for t, _, b in outgoing}
         if self.cuda and sends:
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self.stream):
-                for tag, (_, view) in sends.items():
+            # each block off its own card, on that card's copy stream
+            used = {blocks[tag].device for tag in sends}
+            for dev in used:
+                self.streams[dev].wait_stream(torch.cuda.current_stream(dev))
+            for tag, (_, view) in sends.items():
+                with torch.cuda.stream(self.streams[blocks[tag].device]):
                     view.copy_(as_bytes(blocks[tag]), non_blocking=True)
-            self.stream.synchronize()
+            for dev in used:
+                self.streams[dev].synchronize()
         else:
             for tag, (_, view) in sends.items():
                 view.copy_(as_bytes(blocks[tag]))
@@ -149,36 +157,42 @@ class StagedRoute:
         StagedRoute.rounds += 1
         return {tag: view for tag, (_, view) in recvs.items()}
 
-    def release(self, stream=None) -> None:
+    def release(self) -> None:
         """After the reads of this round's receive slots are queued on
-        ``stream`` (the card's current stream by default): record the
-        event the round that reuses them waits for, and flip to the other
-        slots."""
+        the cards' current streams: record on each card the events the
+        round that reuses them waits for, and flip to the other slots."""
         if self.cuda and self._read:
-            stream = stream or torch.cuda.current_stream(self.device)
             for peer in self._read:
-                event = torch.cuda.Event()
-                event.record(stream)
-                self._guards[(peer, self._turn)] = event
+                events = []
+                for dev in self.devices:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(dev))
+                    events.append(event)
+                self._guards[(peer, self._turn)] = events
         self._read = ()
         self._turn ^= 1
 
-    def land(self, views) -> list:
-        """This round's received ``views`` on the card: each copied whole
-        (a host-to-device copy on the current stream, from pinned memory)
-        into this route's device landing buffer, at aligned offsets, grown
-        as needed and reused; the device views, in order.  Stream order
-        keeps the next round's copies behind the reads of this one's."""
-        offs, total = [], 0
-        for v in views:
-            offs.append(total)
-            total += -(-v.numel() // _ALIGN) * _ALIGN
-        if self._landing is None or self._landing.numel() < total:
-            self._landing = torch.empty(max(total, 1), dtype=torch.uint8,
-                                        device=self.device)
+    def land(self, views, devices=None) -> list:
+        """This round's received ``views`` on the cards: each copied whole
+        (a host-to-device copy on its card's current stream, from pinned
+        memory) into that card's landing buffer of this route, at aligned
+        offsets, grown as needed and reused; the device views, in order.
+        ``devices``: the card of each view (default the first card).
+        Stream order keeps the next round's copies behind the reads of
+        this one's."""
+        devices = devices or [self.device] * len(views)
+        offs, total = [], {}
+        for v, dev in zip(views, devices):
+            offs.append(total.get(dev, 0))
+            total[dev] = offs[-1] + -(-v.numel() // _ALIGN) * _ALIGN
+        for dev, need in total.items():
+            have = self._landing.get(dev)
+            if have is None or have.numel() < need:
+                self._landing[dev] = torch.empty(max(need, 1),
+                                                 dtype=torch.uint8, device=dev)
         out = []
-        for v, off in zip(views, offs):
-            dst = self._landing[off:off + v.numel()]
+        for v, dev, off in zip(views, devices, offs):
+            dst = self._landing[dev][off:off + v.numel()]
             dst.copy_(v, non_blocking=True)
             out.append(dst)
         return out

@@ -26,7 +26,10 @@ over one window of chunks, then prints:
    (beam outputs stay on the card): device time per kernel or copy name,
    and the device's idle share, ``1 - busy / wall``.  ``busy`` is the
    union of the device intervals in the trace (kernels, copies,
-   memsets), so nested host-side ops are not counted twice;
+   memsets), so nested host-side ops are not counted twice; on a mesh
+   over several cards also the share over every card, one minus the sum
+   of each card's union over the cards times the wall
+   (:func:`idle_share` takes the same over the ranks of a run);
 2. fx64 only: the dump alone (``extract_vis`` and the device-to-host
    copy), host clock, three times;
 3. ``run()`` (or ``run_batched``) fed with numpy chunks, so the
@@ -59,8 +62,8 @@ from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
 
 __all__ = ["noise_int8", "production_runner", "production_delay_model",
-           "device_busy_us", "overlap_us", "chrome_trace", "main",
-           "BEAM_CHUNKS"]
+           "device_busy_us", "card_spans_us", "idle_share", "overlap_us",
+           "chrome_trace", "main", "BEAM_CHUNKS"]
 
 # beam mode has no dump cadence: its window is a fixed count of chunks
 BEAM_CHUNKS = 8
@@ -135,15 +138,57 @@ def production_runner(cfg: ChainConfig, gen: torch.Generator, device,
 def device_busy_us(events) -> float:
     """Length of the union of the device intervals among chrome-trace
     ``events`` (``ts``/``dur`` in us, categories :data:`DEVICE_CATS`)."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in DEVICE_CATS and "dur" in e)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        if hi <= end:
-            continue
-        busy += hi - max(lo, end)
-        end = hi
+    return _union_us([(e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("cat") in DEVICE_CATS and "dur" in e])
+
+
+def _union_us(spans, lo: float = float("-inf")) -> float:
+    """Length of the union of the intervals ``spans``, from ``lo`` on."""
+    busy, end = 0.0, lo
+    for a, b in sorted(spans):
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
     return busy
+
+
+def card_spans_us(events, base_us: float = 0.0) -> dict:
+    """The device intervals of chrome-trace ``events`` by card: ``{card
+    index: [(lo, hi), ...]}`` in us, shifted by ``base_us`` (a trace's
+    ``baseTimeNanoseconds`` / 1e3 puts them on the host's clock)."""
+    out = defaultdict(list)
+    for e in events:
+        if e.get("cat") in DEVICE_CATS and "dur" in e:
+            card = int(e.get("args", {}).get("device", 0))
+            out[card].append((base_us + e["ts"], base_us + e["ts"] + e["dur"]))
+    return dict(out)
+
+
+def idle_share(runs) -> tuple:
+    """``(idle share, busy ms, wall ms, cards)`` over every card of the
+    ``runs`` (one per rank, or one: ``{"window_us": (lo, hi), "spans_us":
+    {card: [(lo, hi), ...]}}`` on one clock): each card's busy time is
+    the union of every run's intervals on it within the span of all the
+    windows, and the idle share is one minus their sum over the cards
+    times that span (on one card, one minus the union over the wall).
+    The share is None when the intervals do not line up with the windows
+    (less than 0.9 of their length inside)."""
+    lo = min(x["window_us"][0] for x in runs)
+    hi = max(x["window_us"][1] for x in runs)
+    by_card = defaultdict(list)
+    for x in runs:
+        for card, spans in x["spans_us"].items():
+            by_card[int(card)] += spans
+    total = inside = busy = 0.0
+    for spans in by_card.values():
+        total += sum(b - a for a, b in spans)
+        clipped = [(max(a, lo), min(b, hi)) for a, b in spans]
+        inside += sum(max(0.0, b - a) for a, b in clipped)
+        busy += _union_us(clipped, lo)
+    cards = max(len(by_card), 1)
+    share = (1 - busy / (cards * (hi - lo))
+             if total and inside >= 0.9 * total else None)
+    return share, busy / 1e3, (hi - lo) / 1e3, cards
 
 
 def _timed(fn) -> float:
@@ -204,6 +249,8 @@ def _trace(name: str, what: str, n: int, fn, out: Path) -> list:
         wall_ms = _timed(fn)
     events = json.loads(trace.read_text())["traceEvents"]
     busy_ms = device_busy_us(events) / 1e3
+    spans = card_spans_us(events)
+    cards_busy_ms = sum(_union_us(v) for v in spans.values()) / 1e3
     per_name = defaultdict(lambda: [0.0, 0])
     for e in events:
         if e.get("cat") in DEVICE_CATS and "dur" in e:
@@ -211,7 +258,10 @@ def _trace(name: str, what: str, n: int, fn, out: Path) -> list:
             per_name[e["name"]][1] += 1
     print(f"[{name} trace] {n} chunks, {what}: wall {wall_ms:.3f} "
           f"ms, device busy {busy_ms:.3f} ms (union of intervals), idle "
-          f"share {1 - busy_ms / wall_ms:.4f}")
+          f"share {1 - busy_ms / wall_ms:.4f}" + (
+              f"; over its {len(spans)} cards (each card's union) "
+              f"{1 - cards_busy_ms / (len(spans) * wall_ms):.4f}"
+              if len(spans) > 1 else ""))
     print(f"{'device ms per chunk':>20} {'share of wall':>14} "
           f"{'count':>6}  name")
     for item, (ms, cnt) in sorted(per_name.items(), key=lambda x: -x[1][0]):

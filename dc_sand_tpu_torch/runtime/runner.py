@@ -126,7 +126,9 @@ class FXRunner:
     counterpart of the JAX runner's ``impl="pallas"``.  Give ``device``
     for one device (a mesh of one shard; None is the current CUDA device,
     and raises without a card) or ``mesh`` for a mesh (whose first
-    shard's device is then :attr:`device`).  ``coarse_on_host``: the
+    local shard's device is then :attr:`device`: a rank's chunk lands on
+    its first card, and the cut to the shards copies each other card's
+    antennas there, card to card).  ``coarse_on_host``: the
     coarse mode (module docstring); :attr:`coarse_on_host` is True when
     the feed shifts, as the JAX runner's attribute.
     """

@@ -493,6 +493,7 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
         raise RuntimeError(f"{label}: the dump's sha256 is not "
                            + ("phase 6's" if coarse_on_host else "phase 36's"))
     b0, c0 = SharedBuffers.barrier_s, SharedBuffers.barriers
+    f0 = SharedBuffers.flag_rounds
     s0 = (StagedRoute.sent_bytes + StagedRoute.received_bytes,
           StagedRoute.seconds)
     torch.cuda.synchronize()
@@ -502,12 +503,14 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     step_ms = (time.perf_counter() - t) / n * 1e3
     barrier_ms = (SharedBuffers.barrier_s - b0) / n * 1e3
     barriers = (SharedBuffers.barriers - c0) / n
+    flag_rounds = (SharedBuffers.flag_rounds - f0) / n
     staged_mb = (StagedRoute.sent_bytes + StagedRoute.received_bytes
                  - s0[0]) / n / 1e6
     staged_ms = (StagedRoute.seconds - s0[1]) / n * 1e3
     out = {"launches": launches, "step_ms": step_ms,
            "barrier_ms": barrier_ms, "barriers": barriers,
-           "staged_mb": staged_mb, "staged_ms": staged_ms}
+           "flag_rounds": flag_rounds, "staged_mb": staged_mb,
+           "staged_ms": staged_ms}
     if step:
         frames = chunks[0].reshape(-1, cfg.spectra_per_chunk, cfg.fft_size)
         zeros = torch.zeros(frames.shape[:2], device=dev)
@@ -520,7 +523,8 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
           f"[{a0}, {a1}) -> 1 dump, sha256 phase "
           f"{6 if coarse_on_host else 36}'s; launches {launches}; "
           f"steady run() per chunk {step_ms:.3f} ms, of it {barriers:.1f} "
-          f"gloo barriers {barrier_ms:.3f} ms host time"
+          f"gloo barriers {barrier_ms:.3f} ms host time, {flag_rounds:.1f} "
+          "rounds of device flags"
           + (f", staged route {staged_mb:.1f} MB sent and received "
              f"{staged_ms:.3f} ms host time" if staged else "")
           + (f"; device step {out['device_step_ms']:.3f} ms" if step
@@ -567,19 +571,25 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
     CUDA-event ms, the plain version's, the same route with every block
     placed by ``Tensor.copy_`` (``place="copy"``, the library yardstick),
     the bound of the whole call, and the sha256 of this rank's outputs;
-    where blocks cross between cards, the most bytes a card sends to the
-    others and their GB/s; for K7b, its block mode and, where every rank
-    holds one shard on a card of its own, NCCL's ``all_to_all_single`` on
-    the same shards (bitwise K7b's block mode); across nodes also the
-    receiver's placement alone from one round's pinned slots, the kernel
-    against ``copy_``."""
+    beside the whole call's time the kernel's alone (CUDA events around
+    its launches, ``kernel_ms``); where blocks cross between cards, the
+    most bytes a card sends to the others and their GB/s; for K7b, both
+    schedules bitwise the plain version and timed in turns in this run
+    (``schedules``: whole call and kernel alone), its block mode and,
+    where every rank holds one shard on a card of its own, NCCL's
+    ``all_to_all_single`` on the same shards (bitwise K7b's block mode;
+    whole calls and each call alone); across nodes also the receiver's
+    placement alone from one round's pinned slots, the kernel against
+    ``copy_``."""
     import torch
     from dc_sand_tpu_torch.bench.collectives import (cross_bytes,
+                                                     kernel_alone_ms,
                                                      nccl_all_to_all)
     from dc_sand_tpu_torch.bench.harness import NVLINK_BYTES_S, bound_ms
     from dc_sand_tpu_torch.parallel import (SharedBuffers, all_to_all,
                                             all_to_all_torch,
                                             ring_permute_right_torch)
+    from dc_sand_tpu_torch.parallel.remote_dma import SCHEDULE, SCHEDULES
     every = xs_of()
     flat = mesh.flat_devices
     mine = [every[d].to(flat[d]) for d in mesh.local_shards]
@@ -604,16 +614,45 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
                            "plain version")
     digest = hashlib.sha256(b"".join(g.cpu().numpy().tobytes()
                                      for g in got)).hexdigest()
-    del got, want
+    del got
+    others = [x for x in SCHEDULES if x != SCHEDULE] \
+        if op is all_to_all else []
+    for schedule in others:
+        got = op(mine, mesh, axis, out=bufs, impl="cuda", schedule=schedule,
+                 **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"{label}: the {schedule} schedule != the "
+                               "plain version")
+        del got
+    del want
     ms, lib_ms = _turns_ms((lambda: op(mine, mesh, axis, out=bufs,
                                        impl="cuda", **kw),
                             lambda: op(mine, mesh, axis, out=bufs,
                                        place="copy", **kw)), 3)
+    kernel_ms = kernel_alone_ms(lambda: op(mine, mesh, axis, out=bufs,
+                                           impl="cuda", **kw), 5)
     plain_ms = _events_ms(lambda: plain(mine, mesh, axis, **kw), 1)
     bound = bound_ms(2 * nbytes)
     how = "/".join(sorted(set(mesh.routes().values())))
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound[0], "bound_by": bound[1], "digest": digest}
+    out = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound[0], "bound_by": bound[1],
+           "digest": digest}
+    cards = len(set(flat))
+    if op is all_to_all and cards > 1:
+        # the A/B of the schedules, in turns in this run: the whole call
+        # and the kernel alone, the median of four rounds each
+        calls = {x: (lambda x=x: op(mine, mesh, axis, out=bufs, impl="cuda",
+                                    schedule=x, **kw)) for x in SCHEDULES}
+        whole = dict(zip(SCHEDULES, _turns_ms([calls[x] for x in SCHEDULES],
+                                              3, rounds=4)))
+        alone = {x: [] for x in SCHEDULES}
+        for order in (SCHEDULES, SCHEDULES[::-1]) * 2:
+            for x in order:
+                alone[x].append(kernel_alone_ms(calls[x], 3, warmup=1))
+        out["schedules"] = {x: {"ms": whole[x], "kernel_ms":
+                                statistics.median(alone[x])}
+                            for x in SCHEDULES}
     n = len(mesh.groups(axis)[0])
     cross = cross_bytes(mesh, sends, _nbytes(mine[0]) // n
                         if op is all_to_all else _nbytes(mine[0]))
@@ -621,14 +660,16 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
         out.update(cross_mb=cross / 1e6, gb_s_card=cross / ms / 1e6,
                    copy_gb_s_card=cross / lib_ms / 1e6,
                    link_bound_ms=cross / NVLINK_BYTES_S * 1e3)
-    cards = len(set(flat))
     if op is all_to_all and cards > 1:
         # block mode, the same bytes, and NCCL's all-to-all beside it
         got = op(mine, mesh, axis, out=bufs, impl="cuda")
         out["block_ms"] = _events_ms(
             lambda: op(mine, mesh, axis, out=bufs, impl="cuda"), 3)
+        out["block_kernel_ms"] = kernel_alone_ms(
+            lambda: op(mine, mesh, axis, out=bufs, impl="cuda"), 5)
         got = op(mine, mesh, axis, out=bufs, impl="cuda")
-        out["nccl_ms"], out["nccl_note"] = nccl_all_to_all(mesh, mine, got, 3)
+        out["nccl_ms"], out["nccl_note"], out["nccl_kernel_ms"] = \
+            nccl_all_to_all(mesh, mine, got, 5)
         del got
     if bufs.staged is not None:
         (out["place_ms"], out["place_in_place_ms"], out["place_copy_ms"],
@@ -636,15 +677,23 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
                                                  rows)
     print(f"[{label}] rank {mesh.rank}: route {how}; bitwise equal to the "
           f"plain version (gloo), {launches} launch(es) a call; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, copy_ on the same route "
+          f"{ms:.4f} ms a call, {kernel_ms:.4f} ms alone, plain "
+          f"{plain_ms:.3f} ms, copy_ on the same route "
           f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) for the "
           f"whole call" + (
               f"; {out['cross_mb']:.1f} MB a card to other cards: kernel "
               f"{out['gb_s_card']:.2f} GB/s a card, copy_ "
               f"{out['copy_gb_s_card']:.2f}, NVLink bound "
               f"{out['link_bound_ms']:.4f} ms" if cross else "") + (
-              f"; block mode {out['block_ms']:.4f} ms, NCCL all_to_all_single "
-              + (f"{out['nccl_ms']:.4f} ms (bitwise K7b's block mode)"
+              "; schedules (whole call / kernel alone, in turns) " + ", ".join(
+                  f"{x} {v['ms']:.4f} / {v['kernel_ms']:.4f} ms"
+                  for x, v in out["schedules"].items())
+              if "schedules" in out else "") + (
+              f"; block mode {out['block_ms']:.4f} ms a call, "
+              f"{out['block_kernel_ms']:.4f} ms alone, NCCL "
+              "all_to_all_single "
+              + (f"{out['nccl_ms']:.4f} ms a call, {out['nccl_kernel_ms']:.4f}"
+                 " ms alone (bitwise K7b's block mode)"
                  if out["nccl_ms"] is not None else
                  f"not run: {out['nccl_note']}") if "block_ms" in out
               else "") + (
@@ -697,9 +746,10 @@ def _staged_placement_ms(mesh, op, mine, bufs, axis, rows) -> tuple:
             return 0, 0
     lib = _build.library()
 
-    def launch(ptrs, stream, staged=False):
+    def launch(ptrs, n_remote, stream, staged=False):
         _build.check(lib.dcs_all_to_all(remote_dma._pairs(ptrs), len(ptrs),
-                                        *geometry, stream), "placement")
+                                        n_remote, 0, *geometry, stream),
+                     "placement")
 
     def in_place(view):
         """The device address of a pinned slot view (read across PCIe)."""
@@ -718,7 +768,7 @@ def _staged_placement_ms(mesh, op, mine, bufs, axis, rows) -> tuple:
     def uva():
         stream = torch.cuda.current_stream().cuda_stream
         launch([(in_place(b), bufs.views[j].data_ptr() + o)
-                for b, j, o in blocks], stream)
+                for b, j, o in blocks], 0, stream)
 
     bufs.ready()
     blocks = remote_dma.staged_round(mesh, bufs, xs_g, sends, pairs, offsets,
@@ -1150,6 +1200,11 @@ def _phase_40(cards, digest6, digest36, tmp) -> None:
     print(f"[40 {layout}] rank {rank}: cards {[str(c) for c in cards]}, "
           f"shards {mesh.local_shards} on {[str(d) for d in devs]}; routes "
           f"{mesh.routes()}", flush=True)
+    from dc_sand_tpu_torch.parallel.ipc import stream_memops
+    print(f"[40 {layout}] rank {rank}: the driver's stream memory "
+          "operations (CAN_USE_STREAM_MEM_OPS_V1, CAN_FLUSH_REMOTE_WRITES) "
+          + ", ".join(f"{c} {stream_memops(c)}" for c in mesh.local_cards),
+          flush=True)
     _rank_result(40, layout=layout, cards=len(mesh.local_cards))
     fx = _fx64_mesh_run(dev, mesh, digest6, f"40 fx64 {layout}", step=True,
                         trace=os.path.join(tmp, f"fx64_40_{rank}.json"))
@@ -1279,7 +1334,8 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
               "per chunk " + ", ".join(
                   f"rank {r} {x['step_ms']:.3f} ms (device step "
                   f"{x['device_step_ms']:.3f} ms, {x['barriers']:.1f} "
-                  f"barriers {x['barrier_ms']:.3f} ms host)"
+                  f"barriers {x['barrier_ms']:.3f} ms host, "
+                  f"{x['flag_rounds']:.1f} flag rounds)"
                   for r, x in enumerate(runs))
               + f"; traced run: device busy summed over the cards "
               f"{busy:.3f} ms in {traced:.3f} ms, idle share over all cards "
@@ -1287,8 +1343,9 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
                  "traces' clocks do not line up)")
               + "; in the device coarse mode dumps phase 36's, run() per "
               "chunk " + ", ".join(f"{x['step_ms']:.3f}" for x in dev_runs)
-              + " ms (barriers " + ", ".join(
-                  f"{x['barrier_ms']:.3f}" for x in dev_runs)
+              + " ms (barriers a chunk " + ", ".join(
+                  f"{x['barriers']:.1f}" for x in dev_runs) + ", "
+              + ", ".join(f"{x['barrier_ms']:.3f}" for x in dev_runs)
               + " ms host), idle share over all cards "
               + (f"{idle_d:.4f}" if idle_d is not None else "not measured")
               + f" (busy {busy_d:.3f} ms in {traced_d:.3f} ms)"
@@ -1298,7 +1355,9 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
                           ("k7a", "K7a (time ring, time_local)")):
             x = [pick(r, key) for r in range(world)]
             print(f"[40 {what} {layout}] bitwise its plain version; kernel "
-                  + ", ".join(f"{k['ms']:.4f}" for k in x) + " ms a rank, "
+                  + ", ".join(f"{k['ms']:.4f}" for k in x) + " ms a call a "
+                  "rank, alone " + ", ".join(f"{k['kernel_ms']:.4f}"
+                                             for k in x) + " ms, "
                   + ", ".join(f"{k.get('gb_s_card', 0.0):.2f}" for k in x)
                   + " GB/s a card to the others ("
                   + f"{x[0].get('cross_mb', 0.0):.1f} MB a card a call; NVLink "
@@ -1306,12 +1365,21 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
                   "the same route " + ", ".join(
                       f"{k['library_ms']:.4f}" for k in x) + " ms; plain "
                   + ", ".join(f"{k['plain_ms']:.3f}" for k in x) + " ms"
+                  + ("; schedules A/B in turns (a call / alone) " + "; ".join(
+                      f"{name} " + ", ".join(
+                          f"{k['schedules'][name]['ms']:.4f} / "
+                          f"{k['schedules'][name]['kernel_ms']:.4f}"
+                          for k in x) + " ms"
+                      for name in x[0]["schedules"])
+                     if "schedules" in x[0] else "")
                   + ("; block mode " + ", ".join(
-                      f"{k['block_ms']:.4f}" for k in x) + " ms, NCCL "
+                      f"{k['block_ms']:.4f} / {k['block_kernel_ms']:.4f}"
+                      for k in x) + " ms (a call / alone), NCCL "
                      "all_to_all_single " + ", ".join(
-                         f"{k['nccl_ms']:.4f}" if k["nccl_ms"] is not None
+                         f"{k['nccl_ms']:.4f} / {k['nccl_kernel_ms']:.4f}"
+                         if k["nccl_ms"] is not None
                          else f"not run ({k['nccl_note']})" for k in x)
-                     + " ms" if "block_ms" in x[0] else "")
+                     + " ms (a call / alone)" if "block_ms" in x[0] else "")
                   + f" ({card})", flush=True)
         if pick(0, "cards") == 1:
             continue

@@ -61,10 +61,19 @@ _SIGNATURES = {
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},
     "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "remote_dma": {"dcs_all_to_all": [Pairs, _I, _L, _L, _L, _P],
+    "remote_dma": {"dcs_all_to_all": [Pairs, _I, _I, _I, _L, _L, _L, _P],
                    "dcs_ring": [Pairs, _I, _L, _P],
                    "dcs_enable_peer": [_I],
-                   "dcs_device_pointer": [_P, ctypes.POINTER(_P)]},
+                   "dcs_device_pointer": [_P, ctypes.POINTER(_P)],
+                   "dcs_memops_probe": [_I, ctypes.POINTER(_I),
+                                        ctypes.POINTER(_I), _P, _P],
+                   "dcs_flags_alloc": [_L, ctypes.POINTER(_P), _P],
+                   "dcs_free": [_P],
+                   "dcs_ipc_handle": [_P, _P, ctypes.POINTER(_L)],
+                   "dcs_ipc_open": [_P, ctypes.POINTER(_P)],
+                   "dcs_ipc_close": [_P],
+                   "dcs_signal": [_P, _P, _I, ctypes.c_uint],
+                   "dcs_wait": [_P, _P, _I, ctypes.c_uint]},
     "probes": {"dcs_read_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
                "dcs_write_probe": [_P, _I, _I, _I, _I, _I, _P]},
     "coarse": {"dcs_coarse_gather": [_P, _L, _L, _P, _L, _L, _P, _I, _P, _L,

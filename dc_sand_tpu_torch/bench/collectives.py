@@ -19,7 +19,8 @@ one card copy through its memory, not over NVLink.
 
 On a mesh over several processes (``bench collectives --distributed``,
 the JAX bench's ``--distributed`` over global devices) each rank times its
-own part, each call ordered by two gloo barriers (in the time), and the
+own part, each call ordered by two rounds of device flags within a node
+(and gloo barriers where the mesh spans nodes; in the time), and the
 plain versions go over gloo.  The kernels reach a rank of the same node
 through its CUDA IPC mappings, a rank of another node over the staged
 route (pinned host slots and gloo; the receiver's launch places each
@@ -29,9 +30,12 @@ says which (``CUDA IPC``, ``staged``, both, or ``gloo`` on the CPU),
 the mesh.  Two ranks on one card time-slice it: their times are not a
 scaling measurement.
 
-The kernels' records (K7b, K7a) carry ``copy_ms``, the same blocks placed
-by ``Tensor.copy_`` into the same destinations (the yardstick; across
-processes the same route with ``place="copy"``), and, where senders and
+The kernels' records (K7b, K7a) carry ``kernel_ms``, CUDA events around
+the launches alone (a card's launches of a call, the slowest card's;
+``remote_dma.kernel_events``) beside the whole call's time, ``copy_ms``,
+the same blocks placed by ``Tensor.copy_`` into the same destinations
+(the yardstick; across processes the same route with ``place="copy"``),
+and, where senders and
 receivers lie on different cards, ``cross_mb`` (the bytes one card sends
 to the others in a call, the most over the rank's cards), ``gb_s_per_card``
 (those bytes over the call's time) and ``link_bound_ms`` (those bytes at
@@ -39,8 +43,9 @@ NVLink's 450 GB/s each way).  Across ranks that each hold one card of
 their own and one shard, K7b's block-mode record also carries
 ``nccl_ms``: NCCL's ``all_to_all_single`` over a ``nccl`` group of the
 same ranks on the same shards (bitwise checked against K7b), the library
-yardstick; where ranks share a card or hold several shards it stays None
-and ``nccl_note`` says why.
+yardstick, and ``nccl_kernel_ms``, CUDA events around each call alone;
+where ranks share a card or hold several shards they stay None and
+``nccl_note`` says why.
 """
 
 from __future__ import annotations
@@ -57,9 +62,10 @@ from dc_sand_tpu_torch.parallel import (FX_AXIS, SharedBuffers, all_shards,
                                         psum_scatter, ring_permute_right,
                                         ring_permute_right_torch,
                                         uses_shared_buffers)
+from dc_sand_tpu_torch.parallel.remote_dma import events_ms, kernel_events
 
 __all__ = ["bench_collective", "cross_bytes", "nccl_all_to_all",
-           "COLLECTIVES"]
+           "kernel_alone_ms", "COLLECTIVES"]
 
 COLLECTIVES = ("all_to_all", "ppermute", "psum", "psum_scatter",
                "all_gather", "all_to_all_pallas", "ppermute_pallas")
@@ -112,36 +118,63 @@ def _copy_blocks(op: str, mesh, xs) -> tuple:
     return outs, fn
 
 
+def kernel_alone_ms(fn, calls: int, warmup: int = 2) -> float:
+    """K7b's or K7a's kernel ms a call with CUDA events around its
+    launches alone (``remote_dma.kernel_events``), over ``calls`` calls of
+    ``fn`` after ``warmup``: what the whole call's time holds beside the
+    ordering around the launches."""
+    for _ in range(warmup):
+        fn()
+    with kernel_events() as events:
+        for _ in range(calls):
+            fn()
+    return events_ms(events, calls)
+
+
 def nccl_all_to_all(mesh, xs, got, iters: int) -> tuple:
-    """``(ms, note)``: NCCL's ``all_to_all_single`` on this rank's shard
-    over a ``nccl`` group of every rank, timed, where every rank holds one
-    shard on a card of its own (``note`` None), its output bitwise
-    K7b's ``got``; else ``(None, why)``.  Collective: every rank reaches
-    the same verdict from the global mesh."""
+    """``(ms, note, kernel ms)``: NCCL's ``all_to_all_single`` on this
+    rank's shard over a ``nccl`` group of every rank, timed over
+    back-to-back calls and with CUDA events around each call alone, where
+    every rank holds one shard on a card of its own (``note`` None), its
+    output bitwise K7b's ``got``; else ``(None, why, None)``.
+    Collective: every rank reaches the same verdict from the global
+    mesh."""
     if not mesh.multiprocess or xs[0].device.type != "cuda":
-        return None, "one process or the CPU"
+        return None, "one process or the CPU", None
     if len(mesh.local_shards) != 1:
         return None, (f"{len(mesh.local_shards)} shards a rank; NCCL's "
-                      "all_to_all_single moves one block a rank")
+                      "all_to_all_single moves one block a rank"), None
     cards = [(mesh.node_of(mesh.process_of(k)), str(dev))
              for k, dev in enumerate(mesh.flat_devices)]
     if len(set(cards)) != len(cards):
-        return None, "ranks share a card"
+        return None, "ranks share a card", None
     dev = xs[0].device
     with torch.cuda.device(dev):
         group = dist.new_group(backend="nccl")
         out = torch.empty_like(xs[0])
-        try:
-            wall = time_cuda(lambda: dist.all_to_all_single(
-                out, xs[0], group=group), warmup=2, iters=iters, device=dev)
+
+        def call():
             dist.all_to_all_single(out, xs[0], group=group)
+
+        try:
+            wall = time_cuda(call, warmup=2, iters=iters, device=dev)
+            pairs = []
+            for _ in range(iters):
+                pairs.append([torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)])
+                pairs[-1][0].record()
+                call()
+                pairs[-1][1].record()
+            torch.cuda.synchronize(dev)
+            alone = sum(a.elapsed_time(b) for a, b in pairs) / iters
+            call()
             torch.cuda.synchronize(dev)
             if not torch.equal(out, got[0]):
                 raise RuntimeError("NCCL's all_to_all_single != K7b's block "
                                    "mode on the same shards")
         finally:
             dist.destroy_process_group(group)
-    return wall * 1e3, None
+    return wall * 1e3, None, alone
 
 
 def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
@@ -225,6 +258,8 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
             _, copy_fn = _copy_blocks(op, mesh, xs)
             extra["copy_ms"] = time_cuda(spanned(copy_fn), warmup=2,
                                          iters=iters, device=first) * 1e3
+    if kernel and first.type == "cuda":
+        extra["kernel_ms"] = kernel_alone_ms(lambda: fn(xs), iters)
     if kernel:
         cross = cross_bytes(mesh, _pairs(op, mesh), local_bytes // d
                             if op == "all_to_all_pallas" else local_bytes)
@@ -234,8 +269,8 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
             extra["link_bound_ms"] = cross / NVLINK_BYTES_S * 1e3
     if op == "all_to_all_pallas" and mesh.multiprocess:
         got = fn(xs)
-        extra["nccl_ms"], extra["nccl_note"] = nccl_all_to_all(
-            mesh, xs, got, iters)
+        (extra["nccl_ms"], extra["nccl_note"],
+         extra["nccl_kernel_ms"]) = nccl_all_to_all(mesh, xs, got, iters)
         if extra["nccl_note"]:
             print(f"collectives: no NCCL yardstick: {extra['nccl_note']}",
                   file=sys.stderr, flush=True)

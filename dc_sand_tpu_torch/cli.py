@@ -22,14 +22,18 @@ becomes ``--device cpu``).
 ranks of the launcher's environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``; ``torchrun`` sets them), prints
 ``distributed: {...}`` and runs over the global mesh of ``--mesh N``
-shards (default: one a rank), ``N / world`` on each rank, on
-``cuda:(LOCAL_RANK mod the card count)`` or on CPU shards with ``--cpu``;
-with ``--time-shards`` the time axis runs within each rank
-(``time_local``), as the multi-process runner needs.  Each rank feeds its
-own antennas and prints its own lines.  The ranks may span nodes: ranks of
-one node reach each other through CUDA IPC, ranks of different nodes over
-the staged route (pinned host slots and gloo), as the node map of
-``init_distributed`` says::
+shards (default: one a device, ``init_distributed``'s
+``global_devices``; times ``--time-shards`` where a rank's devices are
+not a multiple of SP's time shards), ``N / world`` on each rank, spread
+over the rank's ``local_cards()`` (shard k on card k mod their count)
+or on CPU shards with ``--cpu``; with ``--time-shards`` the time axis
+runs within each rank (``time_local``), as the multi-process runner
+needs.  An explicit ``--mesh`` is honoured, where the JAX CLI always
+takes every global device.  Each rank feeds its own antennas and prints
+its own lines.  The ranks may span nodes: ranks of one node reach each
+other through CUDA IPC, ranks of different nodes over the staged route
+(pinned host slots and gloo), as the node map of ``init_distributed``
+says::
 
     torchrun --nproc-per-node 2 -m dc_sand_tpu_torch.cli verify fx4 \
         --distributed --mesh 4
@@ -323,7 +327,13 @@ def main(argv=None) -> int:
     info = init_distributed()
     print(f"distributed: {info}", flush=True)
     if not args.mesh:
-        args.mesh = info["process_count"] * max(args.time_shards, 1)
+        # one shard a device; SP's time axis runs within each rank, so a
+        # rank whose devices the time shards do not divide takes each
+        # device that many times
+        args.mesh = info["global_devices"]
+        per_rank = args.mesh // info["process_count"]
+        if args.time_shards > 1 and per_rank % args.time_shards:
+            args.mesh *= args.time_shards
     rc = args.fn(args)
     ipc.close_all()
     return rc

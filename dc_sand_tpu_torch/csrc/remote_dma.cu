@@ -14,9 +14,13 @@
 // the shards of a mesh may share one card (every shard is an allocation of its
 // own, and the kernel still does all the cross-shard copying) or sit on
 // different cards, where the stores go to the peer card's memory over NVLink
-// (unified addressing, peer access enabled by dcs_enable_peer).  The wrapper
-// (dc_sand_tpu_torch/parallel/remote_dma.py) orders the launches with stream
-// events in place of the DMA semaphores.
+// (unified addressing, peer access enabled by dcs_enable_peer), or, in
+// another process of the node, into its buffer mapped through CUDA IPC into
+// the context of the sending card (dcs_ipc_open): every launch runs on the
+// card that holds its senders, and every byte crosses NVLink once.  The
+// wrapper (dc_sand_tpu_torch/parallel/remote_dma.py) orders the launches with
+// stream waits within a process and with device flags between processes in
+// place of the DMA semaphores.
 //
 // Between ranks on different nodes (the staged route,
 // dc_sand_tpu_torch/parallel/staged.py) the receiver launches the same
@@ -44,30 +48,56 @@
 // it.  On one card a 4-shard all-to-all (16 pairs) or both 2-shard rings of
 // a (2, 2) mesh is one launch.
 //
-// One block a tile of kUnroll x kThreads 16-byte units, the tiles of all
-// pairs numbered pair after pair (two short divisions a tile find its pair
-// and row), so the card streams through one block at a time as back-to-back
-// copies do.  A thread loads all kUnroll of its units before it stores
-// them, so a warp keeps kUnroll 512-byte loads in flight.  On an H100 80GB
-// HBM3 at 700 W a grid sized to the SMs (8 blocks each) walking the tiles
-// in a loop took 1.750 ms for block mode at the fx64 corner-turn, where the
-// same run's copy_ of the 16 blocks took 1.713; one block a tile takes 1.458
-// against copy_'s 1.476 (another run).  A launch whose addresses, row length
-// or pitch are not all multiples of 16 bytes copies byte by byte.
+// One block a tile of kUnroll x kThreads 16-byte units; a thread loads all
+// kUnroll of its units before it stores them, so a warp keeps kUnroll
+// 512-byte loads in flight.  On one card (every pair an HBM copy) the tiles
+// are numbered pair after pair, so the card streams through one block at a
+// time as back-to-back copies do: on an H100 80GB HBM3 at 700 W one block a
+// tile took 1.458 ms for block mode at the fx64 corner-turn against copy_'s
+// 1.476, where a grid sized to the SMs walking the tiles took 1.750.  A
+// launch whose addresses, row length or pitch are not all multiples of 16
+// bytes copies byte by byte.
+//
+// Across cards the schedule is the TPU kernel's (_a2a_kernel): the first
+// `n_remote` pairs go to other cards and take the first tiles, the local
+// pair (same card: an HBM copy) takes the last tiles, a CTA range of its own
+// that runs beside the tail of the remote stores instead of taking SM slots
+// from their start.  The wrapper passes each sender's remote pairs in the
+// reference's symmetric order, receiver my + j at offset j
+// (Mesh.all_to_all_sends), and `interleave` picks how the remote tiles are
+// numbered: pair after pair (then at each moment the senders of a group
+// write into different receivers, a Latin square), or tile t to remote pair
+// t mod n_remote (every sender spreads over all its receivers at once, each
+// receiver's ingress taking a share of every sender's egress).  Before this
+// order, every sender of a group wrote into receiver 0 first, then 1, and
+// so on, and one receiver's NVLink ingress carried three cards' bytes.
 //
 // What bounds it on the H100: bytes.  Each byte is read once and written
 // once, so on one card a call moves 2x its payload at 3.35 TB/s: K7b at the
 // fx64 corner-turn (4 shards of int8 (4096, 2, 32, 2048), 537 MB each,
 // 2.15 GB in all) has a bound of 2 x 2.15 GB / 3.35 TB/s = 1.282 ms.  Across
 // cards the stores of the blocks for other shards cross NVLink at 450 GB/s
-// each way per card.  K7a at the SP halo (4 blocks of 8.4 MB, bound 0.020 ms)
-// is small enough that the launches and the host work around them, not the
-// bytes, decide its time: one launch for the ring takes 0.054-0.069 ms where
-// four took 0.126 ms (an H100 80GB HBM3 at 700 W), which is why the pairs of
-// a card share a launch.
+// each way per card: 402.7 MB a card, 0.895 ms.  K7a at the SP halo (4
+// blocks of 8.4 MB, bound 0.020 ms) is small enough that the launches and
+// the host work around them, not the bytes, decide its time: one launch for
+// the ring takes 0.054-0.069 ms where four took 0.126 ms (an H100 80GB HBM3
+// at 700 W), which is why the pairs of a card share a launch.
+//
+// Between processes of one node the TPU kernels' DMA semaphores become
+// device flags (dc_sand_tpu_torch/parallel/ipc.py): a small uint32 buffer a
+// card (dcs_flags_alloc), exported and mapped like the data buffers
+// (dcs_ipc_handle, dcs_ipc_open in the context of each card that writes into
+// it), written by the writer's stream after its kernel (dcs_signal,
+// cuStreamWriteValue32 with its default memory barrier, so the kernel's
+// NVLink stores are visible before the flag) and waited on by the reader's
+// stream (dcs_wait, cuStreamWaitValue32 ">= seq"): the host takes no part,
+// and no kernel spins (two ranks may time-slice one card).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -86,21 +116,32 @@ constexpr int kUnroll = 4;
 
 // `rows` rows of `row_units` units (16 bytes when kVec, else 1) from
 // pairs.src[d] (contiguous) to pairs.dst[d] (rows `pitch` units apart), for
-// every pair d < n_pairs.  The tiles of all pairs form one sequence, one
-// block a tile, so the card streams through one pair's block at a time.
+// every pair d < n_pairs, one block a tile.  Pairs d < n_remote take the
+// first tiles, pair after pair or (interleave) tile t to pair t mod
+// n_remote; the others follow, pair after pair.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    copy_rows(const __grid_constant__ DcsPairs pairs, int n_pairs, unsigned rows,
-              long long row_units, long long pitch) {
+    copy_rows(const __grid_constant__ DcsPairs pairs, int n_pairs, int n_remote,
+              int interleave, unsigned rows, long long row_units, long long pitch) {
   using Unit = typename std::conditional<kVec, uint4, char>::type;
   constexpr int kTile = kUnroll * kThreads;
   // tile indices fit 32 bits (the launch checks): the divisions that place a
   // tile stay short beside its loads
   const unsigned tiles_per_row = static_cast<unsigned>((row_units + kTile - 1) / kTile);
   const unsigned tiles_per_pair = rows * tiles_per_row;
+  const unsigned remote_tiles = static_cast<unsigned>(n_remote) * tiles_per_pair;
   const unsigned tile = blockIdx.x;
-  const unsigned d = n_pairs == 1 ? 0u : tile / tiles_per_pair;
-  const unsigned in_pair = tile - d * tiles_per_pair;
+  unsigned d, in_pair;
+  if (tile < remote_tiles && interleave) {
+    d = tile % static_cast<unsigned>(n_remote);
+    in_pair = tile / static_cast<unsigned>(n_remote);
+  } else {
+    const unsigned t = tile < remote_tiles ? tile : tile - remote_tiles;
+    const unsigned first = tile < remote_tiles ? 0u : static_cast<unsigned>(n_remote);
+    const unsigned k = n_pairs == 1 ? 0u : t / tiles_per_pair;
+    d = first + k;
+    in_pair = t - k * tiles_per_pair;
+  }
   const unsigned row = rows == 1 ? 0u : in_pair / tiles_per_row;
   const long long c0 =
       static_cast<long long>(in_pair - row * tiles_per_row) * kTile + threadIdx.x;
@@ -115,10 +156,10 @@ __global__ void __launch_bounds__(kThreads)
     if (c0 + i * kThreads < row_units) dst[c0 + i * kThreads] = v[i];
 }
 
-int launch(const DcsPairs& pairs, int n_pairs, long long rows, long long row_bytes,
-           long long dst_pitch, void* stream) {
-  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || rows < 0 || row_bytes < 0 ||
-      (rows > 1 && dst_pitch < row_bytes))
+int launch(const DcsPairs& pairs, int n_pairs, int n_remote, int interleave, long long rows,
+           long long row_bytes, long long dst_pitch, void* stream) {
+  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || n_remote < 0 || n_remote > n_pairs ||
+      rows < 0 || row_bytes < 0 || (rows > 1 && dst_pitch < row_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   bool vec = row_bytes % 16 == 0 && dst_pitch % 16 == 0;
   for (int d = 0; d < n_pairs; ++d) {
@@ -135,29 +176,165 @@ int launch(const DcsPairs& pairs, int n_pairs, long long rows, long long row_byt
   const unsigned grid = static_cast<unsigned>(tiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
-    copy_rows<true><<<grid, kThreads, 0, st>>>(pairs, n_pairs, static_cast<unsigned>(rows),
-                                                units, dst_pitch / 16);
+    copy_rows<true><<<grid, kThreads, 0, st>>>(pairs, n_pairs, n_remote, interleave,
+                                                static_cast<unsigned>(rows), units,
+                                                dst_pitch / 16);
   else
-    copy_rows<false><<<grid, kThreads, 0, st>>>(pairs, n_pairs, static_cast<unsigned>(rows),
-                                                 units, dst_pitch);
+    copy_rows<false><<<grid, kThreads, 0, st>>>(pairs, n_pairs, n_remote, interleave,
+                                                 static_cast<unsigned>(rows), units, dst_pitch);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The driver's stream memory operations and address range, looked up at run
+// time in the libcuda.so.1 that the CUDA runtime has loaded (the library is
+// not linked against libcuda).  The _v2 entry points are the ones a CUDA 12
+// driver serves without the v1 memory-operation switch.
+using WriteValue32 = CUresult (*)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
+using WaitValue32 = CUresult (*)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
+using GetAttribute = CUresult (*)(int*, CUdevice_attribute, CUdevice);
+using AddressRange = CUresult (*)(CUdeviceptr*, size_t*, CUdeviceptr);
+
+struct Driver {
+  WriteValue32 write32 = nullptr;
+  WaitValue32 wait32 = nullptr;
+  GetAttribute attribute = nullptr;
+  AddressRange range = nullptr;
+};
+
+void* symbol(void* lib, const char* v2, const char* v1) {
+  void* fn = dlsym(lib, v2);
+  return fn != nullptr || v1 == nullptr ? fn : dlsym(lib, v1);
+}
+
+const Driver& driver() {
+  static const Driver drv = [] {
+    Driver d;
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (lib == nullptr) return d;
+    d.write32 = reinterpret_cast<WriteValue32>(
+        symbol(lib, "cuStreamWriteValue32_v2", "cuStreamWriteValue32"));
+    d.wait32 = reinterpret_cast<WaitValue32>(
+        symbol(lib, "cuStreamWaitValue32_v2", "cuStreamWaitValue32"));
+    d.attribute = reinterpret_cast<GetAttribute>(symbol(lib, "cuDeviceGetAttribute", nullptr));
+    d.range = reinterpret_cast<AddressRange>(
+        symbol(lib, "cuMemGetAddressRange_v2", "cuMemGetAddressRange"));
+    return d;
+  }();
+  return drv;
+}
+
+// CUDA_ERROR_NOT_FOUND's value: a driver entry point this library needs is
+// missing
+constexpr int kMissing = 500;
 
 }  // namespace
 
 // K7b, every sender of one card: pair d moves `rows` rows of `row_bytes`
 // from pairs.src[d] (contiguous) to pairs.dst[d] (rows `dst_pitch` bytes
-// apart), d < n_pairs.  Launches on the current device, which must own
-// `stream`; returns cudaGetLastError().
-extern "C" int dcs_all_to_all(DcsPairs pairs, int n_pairs, long long rows,
-                              long long row_bytes, long long dst_pitch, void* stream) {
-  return launch(pairs, n_pairs, rows, row_bytes, dst_pitch, stream);
+// apart), d < n_pairs; pairs d < n_remote (to other cards) first, in the
+// order given or, with `interleave`, tile by tile over them.  Launches on
+// the current device, which must own `stream`; returns cudaGetLastError().
+extern "C" int dcs_all_to_all(DcsPairs pairs, int n_pairs, int n_remote, int interleave,
+                              long long rows, long long row_bytes, long long dst_pitch,
+                              void* stream) {
+  return launch(pairs, n_pairs, n_remote, interleave, rows, row_bytes, dst_pitch, stream);
 }
 
 // K7a, every sender of one card: the whole block of nbytes at pairs.src[d]
 // goes to pairs.dst[d] (its right neighbour's output), d < n_pairs.
 extern "C" int dcs_ring(DcsPairs pairs, int n_pairs, long long nbytes, void* stream) {
-  return launch(pairs, n_pairs, 1, nbytes, nbytes, stream);
+  return launch(pairs, n_pairs, n_pairs, 0, 1, nbytes, nbytes, stream);
+}
+
+// What `device` offers the device flags: `memops` the driver's
+// CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_MEM_OPS_V1 (92), `flush`
+// CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES (98); then a write and a
+// ">=" wait on a word of the device's own memory, on `stream`, whose
+// results are returned (0 both: the operations run).  kMissing when the
+// driver lacks an entry point.
+extern "C" int dcs_memops_probe(int device, int* memops, int* flush, void* word, void* stream) {
+  const Driver& drv = driver();
+  if (drv.write32 == nullptr || drv.wait32 == nullptr || drv.attribute == nullptr)
+    return kMissing;
+  CUresult r = drv.attribute(memops, static_cast<CUdevice_attribute>(92), device);
+  if (r == CUDA_SUCCESS) r = drv.attribute(flush, static_cast<CUdevice_attribute>(98), device);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  CUstream st = static_cast<CUstream>(stream);
+  const CUdeviceptr at = reinterpret_cast<CUdeviceptr>(word);
+  r = drv.write32(st, at, 1u, 0);
+  if (r == CUDA_SUCCESS) r = drv.wait32(st, at, 1u, CU_STREAM_WAIT_VALUE_GEQ);
+  return static_cast<int>(r);
+}
+
+// `bytes` of zeroed device memory of its own allocation on the current
+// device, for the flags, and its IPC handle (64 bytes at `handle`).
+extern "C" int dcs_flags_alloc(long long bytes, void** ptr, void* handle) {
+  cudaError_t err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  return static_cast<int>(err);
+}
+
+extern "C" int dcs_free(void* ptr) { return static_cast<int>(cudaFree(ptr)); }
+
+// The IPC handle (64 bytes at `handle`) of the allocation that holds device
+// address `ptr`, and `ptr`'s byte offset in it: a tensor of PyTorch's caching
+// allocator may lie inside a larger allocation.
+extern "C" int dcs_ipc_handle(const void* ptr, void* handle, long long* offset) {
+  const Driver& drv = driver();
+  if (drv.range == nullptr) return kMissing;
+  CUdeviceptr base = 0;
+  size_t size = 0;
+  CUresult r = drv.range(&base, &size, reinterpret_cast<CUdeviceptr>(ptr));
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  *offset = static_cast<long long>(reinterpret_cast<CUdeviceptr>(ptr) - base);
+  return static_cast<int>(
+      cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), reinterpret_cast<void*>(base)));
+}
+
+// Map another process's allocation (its 64-byte IPC handle) into the current
+// device's context, the card whose kernels and streams write into it.  PyTorch
+// keeps one mapping a handle for the whole process; a card of this process
+// that writes into a peer's buffer needs one in its own context.
+extern "C" int dcs_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+// Unmap what dcs_ipc_open mapped, in the same device's context.
+extern "C" int dcs_ipc_close(void* ptr) { return static_cast<int>(cudaIpcCloseMemHandle(ptr)); }
+
+// After the work enqueued so far on `stream`: write `value` into each of the
+// `n` 32-bit words at `addrs` (peers' flag slots mapped into this device's
+// context, which must be current), each write preceded by the default memory
+// barrier.
+extern "C" int dcs_signal(void* stream, const unsigned long long* addrs, int n, unsigned value) {
+  const Driver& drv = driver();
+  if (drv.write32 == nullptr) return kMissing;
+  for (int k = 0; k < n; ++k) {
+    CUresult r = drv.write32(static_cast<CUstream>(stream), static_cast<CUdeviceptr>(addrs[k]),
+                             value, CU_STREAM_WRITE_VALUE_DEFAULT);
+    if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  }
+  return 0;
+}
+
+// Make `stream` wait until each of the `n` words at `addrs` (this device's own
+// flag slots) reads >= `value` in the driver's cyclic comparison.  No flush of
+// remote writes (CAN_FLUSH_REMOTE_WRITES reads 0 on the H100): the writer's
+// memory barrier orders its stores before the flag.
+extern "C" int dcs_wait(void* stream, const unsigned long long* addrs, int n, unsigned value) {
+  const Driver& drv = driver();
+  if (drv.wait32 == nullptr) return kMissing;
+  for (int k = 0; k < n; ++k) {
+    CUresult r = drv.wait32(static_cast<CUstream>(stream), static_cast<CUdeviceptr>(addrs[k]),
+                            value, CU_STREAM_WAIT_VALUE_GEQ);
+    if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  }
+  return 0;
 }
 
 // The address at which the current device's kernels read the pinned host

@@ -5,23 +5,36 @@ into another chip's memory by its device id and signal DMA semaphores.
 Across processes on Hopper the counterpart is a CUDA IPC mapping: each
 rank allocates its shards' buffers of one role once (the corner-turn's
 CMAC operand, the halo, the partial beams, the accumulator), exports
-their IPC handles (``torch.multiprocessing.reductions.reduce_tensor``),
-and every other rank maps them into its own address space (lazy peer
-access), so that a kernel of one process writes into, or a sum reads from,
-the memory of another.  Two interprocess events a rank and role stand for
-the semaphores:
+their IPC handles, and every other rank of its node maps them into its
+own address space (lazy peer access), so that a kernel of one process
+writes into, or a sum reads from, the memory of another.
 
-* ``consumed``: recorded on the rank's stream after the work that reads
-  its buffers (the CMAC, the halo's use, a sum), so that a writer waits
+The semaphores are device flags, ordered on the cards with the host
+taking no part.  Each card of each rank has a small ``uint32`` flag
+buffer of its own allocation (:class:`FlagPlan` lays out its slots: one a
+writing card of the mesh and kind), exported and mapped like the data
+buffers into the context of every card of the node's other ranks.  Two
+kinds of round stand for the semaphores:
+
+* ``consumed`` (:meth:`SharedBuffers.ready`): after the work that reads
+  the buffers (the CMAC, the halo's use, a sum), so that a writer waits
   before it overwrites them;
-* ``sent``: recorded after the work that writes them, so that a reader
-  waits before it reads.
+* ``sent`` (:meth:`SharedBuffers.done`): after the work that writes them,
+  so that a reader waits before it reads.
 
-A wait on an IPC event waits for its most recent ``record`` at the time
-the wait is issued, so each :meth:`SharedBuffers.ready` and
-:meth:`SharedBuffers.done` is a record, a gloo barrier, and a wait on
-every peer's event of that kind.  The barriers' host time adds up in
-:attr:`SharedBuffers.barrier_s` (count :attr:`SharedBuffers.barriers`).
+Each round of a kind carries the next number of a sequence that every
+rank counts alike (every rank calls its collectives in the same order):
+each card's stream writes it into its slot of every peer card's buffer
+(``cuStreamWriteValue32``, whose default memory barrier makes the
+kernel's NVLink stores visible first), then waits until every peer
+card's slot in its own buffer reads at least that number
+(``cuStreamWaitValue32``, ">=" in the driver's cyclic comparison).  A
+peer that is a round ahead satisfies the wait as well, so no slot is
+reset and no wait can pass on a stale round.  The waits are stream
+operations, not a spinning kernel, so ranks that time-slice one card
+still take turns.  A card without the driver's stream memory operations
+raises: nothing falls back to a host barrier.  Within a rank, cards
+order each other with stream waits.
 
 The mapping reaches the processes of one node only.  A rank of another
 node (:meth:`~dc_sand_tpu_torch.parallel.mesh.Mesh.routes`, from the node
@@ -31,37 +44,41 @@ it, and :attr:`SharedBuffers.views` holds, for each of its shards, a
 local mirror that :meth:`SharedBuffers.fetch` fills for readers (None
 until a read needs it); a writer sends its blocks there through
 :attr:`SharedBuffers.staged`, and the receiver places them into its own
-buffer.  The barrier rounds stay as they are for both routes.  On CPU
-tensors a mesh whose peers are all on other nodes takes the staged role
-(the CPU tests hold its bookkeeping); IPC is the card's.
+buffer.  Where the mesh has such a rank every round also takes a gloo
+barrier, as before the flags; their host time adds up in
+:attr:`SharedBuffers.barrier_s` (count :attr:`SharedBuffers.barriers`),
+which within a node stays at 0.  On CPU tensors a mesh whose peers are
+all on other nodes takes the staged role (the CPU tests hold its
+bookkeeping); IPC and the flags are the card's.
 
 A rank may hold several cards (:func:`~dc_sand_tpu_torch.parallel.
-distributed.local_cards`): each shard's buffer lies on its own card, each
-card has its pair of events, and a round records on every card's stream
-and makes each wait for every peer card's events and for the rank's own
-other cards' streams (between two cards of one rank the kernels write by
-peer access, with no IPC).  On the H100 machine an IPC handle is used
-only in the context of the card that uses it, as NCCL does:
+distributed.local_cards`): each shard's buffer lies on its own card.  On
+the H100 machine an IPC handle is used only in the context of the card
+that uses it, as NCCL does (a mapping opened in another card's context
+faults when written), and PyTorch keeps one mapping a handle for the
+whole process.  So:
 
-* a peer's events are opened in this rank's first card's context and
-  waited on from its stream, which the rank's other streams then wait
-  for (an event opened in the context of the peer's card index and
-  waited on from another card's stream crashes the process);
-* a peer's buffer is mapped into the context of the one card of this
-  rank whose kernels write into it (a mapping opened in another card's
-  context faults when written).
+* :attr:`SharedBuffers.views` maps a peer's k-th shard into this rank's
+  k-th card (``rebuild_cuda_tensor`` on that card), for the readers;
+* a card that writes into a peer's shard gets its own mapping of it
+  (``dcs_ipc_open`` of ``csrc/remote_dma.cu`` in that card's context,
+  :meth:`SharedBuffers.target`), so that K7b and K7a launch on the
+  sender's card and every byte crosses NVLink once;
+* a peer card's flag buffer is mapped into each of this rank's cards.
 
-Neither depends on the exporter's card index, so the ranks of a node
-need not number the cards alike.  Two processes on one
-card time-slice it: they run correctly, not side by side.  A handle that
-will not open raises, and so does a staged exchange that fails; neither
-route stands in for the other.  Peers' buffers stay mapped until
-:func:`close_all`, which every rank calls before it exits
-(the exporter keeps its memory alive until then).
+None depends on the exporter's card index, so the ranks of a node need
+not number the cards alike.  Two processes on one card time-slice it:
+they run correctly, not side by side.  A handle that will not open
+raises, and so does a staged exchange that fails; neither route stands
+in for the other.  Peers' buffers stay mapped until :func:`close_all`,
+which every rank calls before it exits (the exporter keeps its memory
+alive until then).
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import os
 import time
 
@@ -70,9 +87,13 @@ import torch.distributed as dist
 
 from dc_sand_tpu_torch.parallel.staged import StagedRoute
 
-__all__ = ["SharedBuffers", "close_all", "uses_shared_buffers"]
+__all__ = ["SharedBuffers", "FlagPlan", "close_all", "uses_shared_buffers",
+           "stream_memops"]
 
 _OPEN = []      # every SharedBuffers of this process, held until close_all
+_MEMOPS = {}    # card -> (stream memory operations, remote-write flush)
+HANDLE_BYTES = 64   # sizeof(cudaIpcMemHandle_t)
+CONSUMED, SENT = 0, 1
 
 
 def _check_alloc_conf() -> None:
@@ -87,15 +108,89 @@ def _check_alloc_conf() -> None:
             "mesh on the card")
 
 
+def _lib():
+    from dc_sand_tpu_torch import _build
+    return _build.library()
+
+
+def _check(err: int, what: str) -> None:
+    from dc_sand_tpu_torch import _build
+    _build.check(err, what)
+
+
+def stream_memops(card: torch.device) -> tuple:
+    """``(memops, flush)``: the driver's
+    ``CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_MEM_OPS_V1`` and
+    ``CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES`` of ``card``, once a
+    write and a ">=" wait on a word of its memory have run on its stream
+    (checked once a card and process).  Raises where the driver lacks the
+    stream memory operations or they fail: the device flags need them,
+    and nothing stands in for them.
+
+    The run, not the first attribute, decides: on the H100 machine (CUDA
+    12.8 driver) both attributes read 0 while the ``_v2`` entry points run
+    (the first reports the legacy v1 ones, which a CUDA 12 driver leaves
+    off).  The waits take no flush: the order of the writes comes from the
+    writer's side, whose flag write follows a system-wide memory barrier
+    (``cuStreamWriteValue32``'s default), so a reader that sees the flag
+    sees the kernel's stores before it."""
+    if card not in _MEMOPS:
+        word = torch.zeros(1, dtype=torch.int32, device=card)
+        memops, flush = ctypes.c_int(-1), ctypes.c_int(-1)
+        with torch.cuda.device(card):
+            err = _lib().dcs_memops_probe(
+                card.index, ctypes.byref(memops), ctypes.byref(flush),
+                word.data_ptr(), torch.cuda.current_stream(card).cuda_stream)
+            if err == 0:
+                torch.cuda.synchronize(card)
+        if err != 0 or word.item() != 1:
+            raise RuntimeError(
+                f"{card}: the driver's stream memory operations "
+                f"(cuStreamWriteValue32 / cuStreamWaitValue32) failed "
+                f"(error {err}); the device flags that order the ranks of "
+                "a node need them")
+        _MEMOPS[card] = (memops.value, flush.value)
+    return _MEMOPS[card]
+
+
+def _current(card: torch.device):
+    """``card`` made the current device, unless it is."""
+    if card.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(card)
+
+
+def _export(t: torch.Tensor) -> tuple:
+    """``(handle, offset)``: the IPC handle of the allocation that holds
+    ``t`` and ``t``'s byte offset in it."""
+    handle = ctypes.create_string_buffer(HANDLE_BYTES)
+    offset = ctypes.c_longlong()
+    with torch.cuda.device(t.device):
+        _check(_lib().dcs_ipc_handle(t.data_ptr(), handle,
+                                     ctypes.byref(offset)), "dcs_ipc_handle")
+    return handle.raw, offset.value
+
+
+def _ipc_open(handle: bytes, card: torch.device, what: str) -> int:
+    """Map a peer's allocation into ``card``'s context; its address."""
+    ptr = ctypes.c_void_p()
+    with torch.cuda.device(card):
+        err = _lib().dcs_ipc_open(handle, ctypes.byref(ptr))
+    if err != 0:
+        raise RuntimeError(f"{what} did not open through CUDA IPC in "
+                           f"{card}'s context: CUDA error {err}")
+    return ptr.value
+
+
 def _open(args: tuple, rank: int, shard: int, on: torch.device):
     """Map a peer's buffer into card ``on``'s context, the card whose
-    kernels write into it (with CUDA's lazy peer access), as NCCL
-    maps its peers' buffers: a mapping opened in another card's context
-    is not addressable from ``on`` (on the H100 machine the write faults),
-    which is why ``rebuild_cuda_tensor``'s own choice, the exporter's
-    device index, is replaced.  The tensor then names ``on`` as its
-    device.  The exporter synchronised its card before exporting, so the
-    producer's event is not waited on."""
+    streams read it (with CUDA's lazy peer access), as NCCL maps its
+    peers' buffers: a mapping opened in another card's context is not
+    addressable from ``on`` (on the H100 machine a write faults), which
+    is why ``rebuild_cuda_tensor``'s own choice, the exporter's device
+    index, is replaced.  The tensor then names ``on`` as its device.  The
+    exporter synchronised its card before exporting, so the producer's
+    event is not waited on."""
     import inspect
     from torch.multiprocessing.reductions import rebuild_cuda_tensor
     names = list(inspect.signature(rebuild_cuda_tensor).parameters)
@@ -121,26 +216,77 @@ def uses_shared_buffers(mesh) -> bool:
             or set(mesh.routes().values()) == {"staged"})
 
 
+def _cards_of(mesh, rank: int) -> list:
+    """The distinct devices of ``rank``'s shards, in the order of their
+    first shard, as that rank named them (its ``Mesh.local_cards``)."""
+    flat = mesh.flat_devices
+    return list(dict.fromkeys(flat[d] for d in mesh.shards_of(rank)))
+
+
+class FlagPlan:
+    """The slots of one role's device flags, for one rank: pure
+    bookkeeping, no device.  Every card of every rank has a flag buffer
+    of ``2 * width`` words, ``width`` the cards of the whole mesh; the word
+    of kind ``which`` (:data:`CONSUMED` or :data:`SENT`) written by card
+    ``k`` of rank ``r`` is ``which * width + base[r] + k``.  Each card of
+    this rank writes its slot of every card of ``peers`` (the ranks of its
+    node) and waits on those peer cards' slots in its own buffer.
+    :meth:`next` numbers a kind's rounds, alike on every rank.
+
+    ``counts``: the number of cards of each rank, in rank order."""
+
+    def __init__(self, counts, rank: int, peers):
+        self.counts = list(counts)
+        self.rank = rank
+        self.peers = sorted(peers)
+        self.width = sum(self.counts)
+        self.base = [sum(self.counts[:r]) for r in range(len(self.counts))]
+        self.seq = [0, 0]
+
+    def slot(self, which: int, rank: int, k: int) -> int:
+        """The word that card ``k`` of ``rank`` writes, of kind
+        ``which``."""
+        return which * self.width + self.base[rank] + k
+
+    def signals(self, which: int, k: int) -> list:
+        """``(peer rank, its card, word)``: where this rank's card ``k``
+        writes a round of kind ``which``."""
+        return [(r, c, self.slot(which, self.rank, k)) for r in self.peers
+                for c in range(self.counts[r])]
+
+    def waits(self, which: int) -> list:
+        """The words of a card's own buffer that it waits on in a round of
+        kind ``which``: every peer card's."""
+        return [self.slot(which, r, c) for r in self.peers
+                for c in range(self.counts[r])]
+
+    def next(self, which: int) -> int:
+        """The number of the next round of kind ``which`` (1, 2, ...; the
+        driver's ">=" is cyclic, so it may wrap)."""
+        self.seq[which] = (self.seq[which] + 1) & 0xFFFFFFFF
+        return self.seq[which]
+
+
 class SharedBuffers:
     """One persistent buffer of ``shape`` and ``dtype`` per shard of a
     multi-process ``mesh``, zeroed, each on its shard's card (a rank may
     hold several: :attr:`cards`), with the buffers of every rank of its
-    node mapped in and a staged route to the ranks of other nodes.
+    node mapped in, device flags to order them, and a staged route to the
+    ranks of other nodes.
 
     :attr:`local` lists this rank's buffers in :attr:`Mesh.local_shards`
     order; :attr:`views` has one tensor per shard of the mesh (this rank's
     own, on whichever of its cards, its node's peers' IPC mappings, other
-    nodes' mirrors).  A peer's k-th shard is mapped into this rank's k-th
-    card (mod their count), whose device its view names: the kernels that
-    write into it launch there (:func:`~dc_sand_tpu_torch.parallel.
-    remote_dma._launch_shared`), reading their sources on the rank's
-    other cards by peer access.  Each card of the rank has its pair of
-    interprocess events.  Collective: every rank builds it with the same
+    nodes' mirrors).  A peer's k-th shard's view is mapped into this
+    rank's k-th card (mod their count), whose device it names; a kernel
+    that writes into a shard takes its address in the sender's card from
+    :meth:`target`.  Collective: every rank builds it with the same
     arguments, in the same order as its other collectives.
     """
 
     barrier_s = 0.0     # host seconds in the barriers, all instances
     barriers = 0
+    flag_rounds = 0     # rounds ordered by device flags, all instances
 
     def __init__(self, mesh, shape, dtype: torch.dtype):
         if not mesh.multiprocess:
@@ -167,20 +313,29 @@ class SharedBuffers:
         self.mesh, self.device = mesh, self.cards[0]
         self.local = [torch.zeros(tuple(shape), dtype=dtype, device=dev)
                       for dev in mesh.local_devices]
-        self._events = {}       # card -> (consumed, sent)
+        self.plan = None        # FlagPlan where the node has other ranks
+        self._own_flags = {}    # card -> its flag buffer's address
+        self._maps = {}         # (shard, card) -> a peer shard's mapping
+        self._flag_maps = []    # (card, address) of peer flag mappings
         mine = None
         if ipc:
             from torch.multiprocessing.reductions import reduce_tensor
-            handles = []
+            counts = [len(_cards_of(mesh, r))
+                      for r in range(mesh.process_count)]
+            self.plan = FlagPlan(counts, mesh.rank, ipc)
+            flags = []
             for dev in self.cards:
-                # an event is made on the current device when its handle is
+                stream_memops(dev)
+                ptr, handle = ctypes.c_void_p(), \
+                    ctypes.create_string_buffer(HANDLE_BYTES)
                 with torch.cuda.device(dev):
-                    ev = (torch.cuda.Event(interprocess=True),
-                          torch.cuda.Event(interprocess=True))
-                    handles.append((bytes(ev[0].ipc_handle()),
-                                    bytes(ev[1].ipc_handle())))
-                self._events[dev] = ev
-            mine = ([reduce_tensor(t)[1] for t in self.local], handles)
+                    _check(_lib().dcs_flags_alloc(
+                        8 * self.plan.width, ctypes.byref(ptr), handle),
+                        "dcs_flags_alloc")
+                self._own_flags[dev] = ptr.value
+                flags.append(handle.raw)
+            mine = ([reduce_tensor(t)[1] for t in self.local],
+                    [_export(t) for t in self.local], flags)
             for dev in self.cards:
                 torch.cuda.synchronize(dev)
         every = [None] * mesh.process_count
@@ -188,9 +343,10 @@ class SharedBuffers:
         self.views = [None] * mesh.size
         for d, t in zip(mesh.local_shards, self.local):
             self.views[d] = t
-        self._peers = []        # (consumed, sent) of every peer card
+        self._raw = {}          # a peer's shard -> (handle, offset)
+        peer_flags = {}         # (rank, card k) -> flag handle
         for rank in ipc:
-            tensors, events = every[rank]
+            tensors, raw, flags = every[rank]
             shards = mesh.shards_of(rank)
             if len(tensors) != len(shards):
                 raise ValueError(f"rank {rank} exported {len(tensors)} "
@@ -199,48 +355,95 @@ class SharedBuffers:
                 # the peer's k-th shard on this rank's k-th card (mod)
                 self.views[d] = _open(h, rank, d,
                                       self.cards[k % len(self.cards)])
-            # opened in, and waited on from, this rank's first card
-            self._peers += [tuple(torch.cuda.Event.from_ipc_handle(
-                self.cards[0], h) for h in pair) for pair in events]
+                self._raw[d] = raw[k]
+            peer_flags.update({(rank, k): h for k, h in enumerate(flags)})
+        self._signal, self._wait = {}, {}
+        if self.plan is not None:
+            # each card writes into every peer card's buffer through a
+            # mapping of its own context, and waits on its own buffer
+            for k, dev in enumerate(self.cards):
+                mapped = {}
+                for key, h in peer_flags.items():
+                    mapped[key] = _ipc_open(h, dev, f"rank {key[0]}'s flags "
+                                            f"of its card {key[1]}")
+                    self._flag_maps.append((dev, mapped[key]))
+                for which in (CONSUMED, SENT):
+                    sig = [mapped[(r, c)] + 4 * w
+                           for r, c, w in self.plan.signals(which, k)]
+                    own = self._own_flags[dev]
+                    wait = [own + 4 * w for w in self.plan.waits(which)]
+                    self._signal[(dev, which)] = (
+                        (ctypes.c_ulonglong * len(sig))(*sig), len(sig))
+                    self._wait[(dev, which)] = (
+                        (ctypes.c_ulonglong * len(wait))(*wait), len(wait))
         self._remote = frozenset(d for r in staged for d in mesh.shards_of(r))
         self.staged = StagedRoute(self.cards) if staged else None
         _OPEN.append(self)
+
+    def target(self, d: int, card: torch.device) -> int:
+        """The address at which ``card``'s kernels write shard ``d``'s
+        buffer: this rank's own (another of its cards by peer access), or
+        a peer's of this node mapped into ``card``'s own context (opened
+        at the first use, kept until :func:`close_all`)."""
+        view = self.views[d]
+        if self.mesh.process_of(d) == self.mesh.rank or view.device == card:
+            return view.data_ptr()
+        if (d, card) not in self._maps:
+            handle, _ = self._raw[d]
+            self._maps[(d, card)] = _ipc_open(
+                handle, card, f"rank {self.mesh.process_of(d)}'s buffer of "
+                f"shard {d}")
+        return self._maps[(d, card)] + self._raw[d][1]
 
     def remote(self, d: int) -> bool:
         """True when shard ``d`` lies on another node (the staged role)."""
         return d in self._remote
 
     def _round(self, which: int) -> None:
+        """One round of kind ``which``: the flags within the node, a gloo
+        barrier where the mesh has ranks on other nodes, then each card's
+        stream waits for the rank's other cards'."""
         streams = ([torch.cuda.current_stream(dev) for dev in self.cards]
                    if self.cuda else [])
-        for dev, stream in zip(self.cards, streams):
-            if dev in self._events:
-                self._events[dev][which].record(stream)
-        t = time.perf_counter()
-        dist.barrier()
-        SharedBuffers.barrier_s += time.perf_counter() - t
-        SharedBuffers.barriers += 1
-        for events in self._peers:
-            streams[0].wait_event(events[which])
+        lib = _lib() if self.plan is not None else None
+        if lib is not None:
+            seq = self.plan.next(which)
+            for dev, stream in zip(self.cards, streams):
+                addrs, n = self._signal[(dev, which)]
+                # the driver checks the addresses in the current context
+                with _current(dev):
+                    _check(lib.dcs_signal(stream.cuda_stream, addrs, n, seq),
+                           "dcs_signal")
+        if self.staged is not None:
+            t = time.perf_counter()
+            dist.barrier()
+            SharedBuffers.barrier_s += time.perf_counter() - t
+            SharedBuffers.barriers += 1
+        if lib is not None:
+            for dev, stream in zip(self.cards, streams):
+                addrs, n = self._wait[(dev, which)]
+                with _current(dev):
+                    _check(lib.dcs_wait(stream.cuda_stream, addrs, n, seq),
+                           "dcs_wait")
+            SharedBuffers.flag_rounds += 1
         for stream in streams:
-            # the rank's other cards (and through the first, the peers'):
-            # a card writes into, or reads, another's
+            # the rank's other cards: a card writes into, or reads, another's
             for other in streams:
                 if other is not stream:
                     stream.wait_stream(other)
 
     def ready(self) -> None:
-        """Before writing into any rank's buffers: this rank's reads so
-        far are recorded as done on each of its cards, and each card's
-        stream waits for every peer card's and for the rank's other
-        cards'."""
-        self._round(0)
+        """Before writing into any rank's buffers: each of this rank's
+        cards signals that its reads so far are done (``consumed``), and
+        its stream waits for every peer card's signal of the same round
+        and for the rank's other cards'."""
+        self._round(CONSUMED)
 
     def done(self) -> None:
-        """After the writes: recorded as sent on each card, and each
-        card's stream waits for every peer card's writes and for the
+        """After the writes: each card signals ``sent``, and its stream
+        waits for every peer card's writes of the round and for the
         rank's other cards' before it reads."""
-        self._round(1)
+        self._round(SENT)
 
     def fetch(self, need) -> None:
         """Fill the mirrors of the other nodes' shards that this rank
@@ -280,17 +483,29 @@ def _region(x: torch.Tensor, region) -> torch.Tensor:
 
 
 def close_all() -> None:
-    """Unmap every peer's buffers once every rank's cards have finished
-    with them: synchronise each, drop the mappings, then a barrier, after
-    which each exporter may free its memory.  Collective."""
+    """Unmap every peer's buffers and flags once every rank's cards have
+    finished with them: synchronise each card, close this process's own
+    mappings in their cards' contexts and drop PyTorch's, then a barrier,
+    after which each exporter frees its flags and may free its memory.
+    Collective."""
     if not _OPEN:
         return
     for dev in dict.fromkeys(d for bufs in _OPEN if bufs.cuda
                              for d in bufs.cards):
         torch.cuda.synchronize(dev)
+    own = []
     for bufs in _OPEN:
+        mapped = [(card, ptr) for (_, card), ptr in bufs._maps.items()]
+        for card, ptr in mapped + bufs._flag_maps:
+            with torch.cuda.device(card):
+                _check(_lib().dcs_ipc_close(ptr), "dcs_ipc_close")
+        own += list(bufs._own_flags.items())
         bufs.views = None
-        bufs._peers = []
+        bufs._maps, bufs._flag_maps, bufs._own_flags = {}, [], {}
+        bufs.plan = None
         bufs.staged = None
     _OPEN.clear()
     dist.barrier()
+    for card, ptr in own:
+        with torch.cuda.device(card):
+            _check(_lib().dcs_free(ptr), "dcs_free")

@@ -186,13 +186,18 @@ class Mesh:
     def all_to_all_sends(self, axis: str) -> tuple:
         """K7b's pairs over ``axis`` grouped by the card that sends, as
         :meth:`ring_sends` groups the ring's: every ``(src, dst)`` of a
-        group, this rank's senders only, each sender's receivers in group
-        order.  Computed once per axis and kept."""
+        group, this rank's senders only, in the TPU kernel's symmetric
+        schedule (``_a2a_kernel``): the sender at position ``p`` of its
+        group lists the receiver at ``p + j`` (mod the group's size) at
+        offset ``j``, its own block first (offset 0, the local copy), so
+        that at every offset the senders of a group write into different
+        receivers.  Computed once per axis and kept."""
         key = ("all_to_all", axis)
         if key not in self._sends:
             self._sends[key] = self._by_card(
-                (src, dst) for group in self.groups(axis)
-                for src in group for dst in group)
+                (src, group[(p + j) % len(group)])
+                for group in self.groups(axis)
+                for p, src in enumerate(group) for j in range(len(group)))
         return self._sends[key]
 
     def _by_card(self, pairs) -> tuple:

@@ -30,6 +30,16 @@ pair without it raises.  No ``copy_``, ``cat`` or NCCL stands in for the
 kernel.  On CPU tensors they run the plain versions (``*_torch``): index
 arithmetic and ``.to(device)`` copies.
 
+K7b keeps the TPU kernel's schedule (``_a2a_kernel``): each sender's
+pairs come in its symmetric order (:meth:`~dc_sand_tpu_torch.parallel.
+mesh.Mesh.all_to_all_sends`), the pairs that stay on the sending card (an
+HBM copy) take a CTA range of their own after the pairs to other cards,
+and ``schedule`` numbers the remote tiles: ``"interleaved"`` (tile t to
+remote pair t mod their count) or ``"rotated"`` (pair after pair in the
+symmetric order); :data:`SCHEDULE` is the default.  :func:`kernel_events`
+records CUDA events around the launches alone, the kernel's time without
+the ordering around it.
+
 On a mesh over several processes (:func:`~dc_sand_tpu_torch.parallel.mesh.
 build_global_mesh`) each rank passes and gets back its own shards only.
 On the card the destinations are the receivers' persistent buffers
@@ -39,9 +49,11 @@ the route of each pair of ranks is the mesh's
 
 * within a rank of several cards the sender's card writes into the
   receiver's card by peer access, as in one process;
-* within a node the sender's launch writes into the receiver's CUDA IPC
-  mapping, each rank launching the kernel once a card of its own that
-  holds a sender, on that card's stream;
+* within a node the sender's launch writes into the receiver's buffer
+  through a CUDA IPC mapping opened in the sending card's own context
+  (:meth:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers.target`), each
+  rank launching the kernel once a card of its own that holds a sender,
+  on that card's stream: every byte crosses NVLink once;
 * across nodes (:mod:`.staged`) the sender copies each block, contiguous
   in its shard, whole from the card into a pinned host slot, the slots
   cross in gloo point-to-point sends, the receiver copies each slot whole
@@ -54,9 +66,10 @@ the route of each pair of ranks is the mesh's
 Every launch adds one to the op's ``launches`` (a receiver's launch across
 nodes to its ``staged_launches`` as well); ``out.ready()`` before and
 ``out.done()`` after order the writes against every rank's reads in place
-of the stream waits.  On CPU tensors with ``out`` (a mesh whose peers are
-all on other nodes) the same staged bookkeeping runs with the kernel's
-plain version (:func:`place_rows_torch`) placing the blocks.  The plain
+of the stream waits (device flags within a node, :mod:`.ipc`).  On CPU
+tensors with ``out`` (a mesh whose peers are all on other nodes) the same
+staged bookkeeping runs with the kernel's plain version
+(:func:`place_rows_torch`) placing the blocks.  The plain
 versions copy to the host and send the blocks between ranks over gloo
 (``batch_isend_irecv``), the receiver interleaving them: bitwise the
 one-process result over the same global mesh.
@@ -74,11 +87,74 @@ from dc_sand_tpu_torch.ops._dispatch import resolve_impl
 from dc_sand_tpu_torch.parallel.staged import as_bytes
 
 __all__ = ["ring_permute_right", "ring_permute_right_torch", "all_to_all",
-           "all_to_all_torch", "place_rows_torch"]
+           "all_to_all_torch", "place_rows_torch", "kernel_events",
+           "events_ms", "SCHEDULE", "SCHEDULES"]
 
 # (sender, receiver) card pairs whose peer access is on: like the CUDA
 # state it mirrors, it holds for the whole process
 _peers_enabled = set()
+
+# K7b's numbering of the tiles of the pairs to other cards (module
+# docstring); the default is the faster of the two, in turns in one run on
+# four H100s (PERF.md §6, chip_smoke.py phase 40); the other stays for that
+# A/B
+SCHEDULES = ("interleaved", "rotated")
+SCHEDULE = "rotated"
+
+_events = None      # while kernel_events() is active: (card, start, end)
+
+
+@contextlib.contextmanager
+def kernel_events():
+    """While active, each card's launches of K7a and K7b in a call are
+    bracketed by a pair of CUDA events on its stream, after whatever the
+    stream waits for: yields the list of ``(card, start, end)`` that
+    :func:`events_ms` reads."""
+    global _events
+    _events = got = []
+    try:
+        yield got
+    finally:
+        _events = None
+
+
+def events_ms(events, calls: int) -> float:
+    """The kernel's ms a call from :func:`kernel_events`' list over
+    ``calls`` calls: each card's launches summed, the slowest card's."""
+    per = {}
+    for card, start, end in events:
+        end.synchronize()
+        per[card] = per.get(card, 0.0) + start.elapsed_time(end)
+    return max(per.values()) / calls
+
+
+@contextlib.contextmanager
+def _bracket(card, stream):
+    if _events is None:
+        yield
+        return
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record(stream)
+    yield
+    end.record(stream)
+    _events.append((card, start, end))
+
+
+def _remote_first(items, is_local) -> list:
+    """``(chunk, n_remote)`` of up to MAX_PEERS items each: the items to
+    other cards first, in their order, then those that stay on the card."""
+    ordered = ([x for x in items if not is_local(x)]
+               + [x for x in items if is_local(x)])
+    return [(ordered[at:at + _build.MAX_PEERS],
+             sum(not is_local(x) for x in ordered[at:at + _build.MAX_PEERS]))
+            for at in range(0, len(ordered), _build.MAX_PEERS)]
+
+
+def _interleave(schedule) -> int:
+    schedule = SCHEDULE if schedule is None else schedule
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule is one of {SCHEDULES}, got {schedule!r}")
+    return int(schedule == "interleaved")
 
 
 def _check(xs, mesh) -> None:
@@ -123,9 +199,10 @@ def _launch_by_card(sends, xs, outs, launch) -> None:
     sender, with the shard pairs whose sender sits on it; ``xs`` and
     ``outs`` map shard numbers to tensors.  Each card's
     stream first waits for its receivers' streams on other cards, then
-    ``launch(pairs, stream)`` runs once per
-    :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs on it, and every such
-    receiver's stream waits for it after."""
+    ``launch(pairs, n_remote, stream)`` runs once per
+    :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs on it (those to other
+    cards first, ``n_remote`` of them), and every such receiver's stream
+    waits for it after."""
     waits = []
     current = torch.cuda.current_device()
     for dev, pairs in sends:
@@ -141,9 +218,10 @@ def _launch_by_card(sends, xs, outs, launch) -> None:
                 stream.wait_stream(waits[-1][0])
         # switching the device costs as much host time as the launch
         with (torch.cuda.device(dev) if dev.index != current
-              else contextlib.nullcontext()):
-            for at in range(0, len(pairs), _build.MAX_PEERS):
-                launch(pairs[at:at + _build.MAX_PEERS], stream.cuda_stream)
+              else contextlib.nullcontext()), _bracket(dev, stream):
+            for chunk, n_remote in _remote_first(
+                    pairs, lambda ij: outs[ij[1]].device == dev):
+                launch(chunk, n_remote, stream.cuda_stream)
     for receiver, sender in waits:
         receiver.wait_stream(sender)
 
@@ -180,7 +258,8 @@ def ring_permute_right(xs, mesh, axis: str, *, out=None,
     nbytes = xs[0].numel() * xs[0].element_size()
     lib = _build.library() if not plain else None
 
-    def launch(pairs, stream, staged=False):
+    def launch(pairs, n_remote, stream, staged=False):
+        # K7a's pairs in one range, pair after pair, whatever n_remote
         arg = _pairs(pairs)
         _build.check(lib.dcs_ring(arg, len(pairs), nbytes, stream), "dcs_ring")
         ring_permute_right.launches += 1
@@ -193,9 +272,10 @@ def ring_permute_right(xs, mesh, axis: str, *, out=None,
                               lambda i, j: (0, 0), (1, nbytes, nbytes),
                               _launcher(launch, plain, place))
     outs = {d: torch.empty_like(xs_g[d]) for d in loc}
-    _launch_by_card(mesh.ring_sends(axis), xs_g, outs, lambda pairs, st:
-                    launch([(xs_g[i].data_ptr(), outs[j].data_ptr())
-                            for i, j in pairs], st))
+    _launch_by_card(mesh.ring_sends(axis), xs_g, outs,
+                    lambda pairs, n_remote, st: launch(
+                        [(xs_g[i].data_ptr(), outs[j].data_ptr())
+                         for i, j in pairs], n_remote, st))
     return [outs[d] for d in mesh.local_shards]
 
 
@@ -230,7 +310,8 @@ def _block(xs, n: int, rows: int) -> int:
 
 
 def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
-               impl: str = "auto", place: str = "kernel") -> list:
+               impl: str = "auto", place: str = "kernel",
+               schedule: str = None) -> list:
     """Direct-send all-to-all on the leading axis over ``axis`` (K7b):
     output row-block s of shard ``my`` is shard s's row-block ``my``; with
     ``rows > 1``, each row-block cut into ``rows`` rows, the receivers'
@@ -240,8 +321,11 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
     (a :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` of the
     shards' size, required on the card there and refused in one process;
     on the CPU it takes the staged route's bookkeeping).  ``place``: as
-    :func:`ring_permute_right`'s."""
+    :func:`ring_permute_right`'s.  ``schedule``: how the tiles of the
+    pairs to other cards are numbered, one of :data:`SCHEDULES`
+    (default :data:`SCHEDULE`)."""
     _check(xs, mesh)
+    interleave = _interleave(schedule)
     groups = mesh.groups(axis)
     n = len(groups[0])
     block = _block(xs, n, rows)
@@ -259,10 +343,10 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
     sends = mesh.all_to_all_sends(axis)
     lib = _build.library() if not plain else None
 
-    def launch(pairs, stream, staged=False):
-        _build.check(lib.dcs_all_to_all(_pairs(pairs), len(pairs), rows,
-                                        row_bytes, pitch, stream),
-                     "dcs_all_to_all")
+    def launch(pairs, n_remote, stream, staged=False):
+        _build.check(lib.dcs_all_to_all(_pairs(pairs), len(pairs), n_remote,
+                                        interleave, rows, row_bytes, pitch,
+                                        stream), "dcs_all_to_all")
         all_to_all.launches += 1
         all_to_all.staged_launches += staged
 
@@ -277,10 +361,10 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
                               _launcher(launch, plain, place))
     outs = {d: torch.empty_like(xs_g[d]) for d in loc}
 
-    def by_card(pairs, stream):
+    def by_card(pairs, n_remote, stream):
         launch([(xs_g[i].data_ptr() + offsets(i, j)[0],
                  outs[j].data_ptr() + offsets(i, j)[1]) for i, j in pairs],
-               stream)
+               n_remote, stream)
 
     _launch_by_card(sends, xs_g, outs, by_card)
     return [outs[d] for d in mesh.local_shards]
@@ -362,17 +446,16 @@ def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
     op, ``offsets(i, j)`` the byte offsets of a pair's block in the
     sender's shard and in the receiver's buffer, ``geometry`` the rows,
     row bytes and destination pitch of a block.  Pairs whose receiver is
-    on this node launch here, one launch a card on its own stream: on the
-    sender's card into this rank's own buffers (on another card by peer
-    access), on the card that holds a peer's IPC mapping into that
-    mapping (:class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers`
-    maps each there); pairs across nodes go
-    through :func:`staged_round`, land on the receiver's card and launch
-    there.  With ``launch`` None (the CPU, or the ``copy_`` yardstick)
-    :func:`place_rows_torch` stands for each launch, from the slots, and
-    counts none.  ``out.ready()`` before and ``out.done()`` after order
-    the writes against every rank's, and every card's, use of the
-    buffers."""
+    on this node launch on the sender's card, one launch a card on its
+    own stream, into this rank's own buffers (on another card by peer
+    access) or into a peer's through its mapping in that card's context
+    (:meth:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers.target`);
+    pairs across nodes go through :func:`staged_round`, land on the
+    receiver's card and launch there.  With ``launch`` None (the CPU, or
+    the ``copy_`` yardstick) :func:`place_rows_torch` stands for each
+    launch, from the slots, and counts none.  ``out.ready()`` before and
+    ``out.done()`` after order the writes against every rank's, and every
+    card's, use of the buffers."""
     rows, row_bytes, _ = geometry
     nbytes = rows * row_bytes
     for card, ps in sends:
@@ -380,16 +463,13 @@ def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
             if xs_g[i].device != card:
                 raise ValueError(f"shard {i} lies on {xs_g[i].device}, its "
                                  f"mesh device is {card}")
-    # each block launches on the card that owns its destination's
-    # mapping: the sender's for this rank's own receivers, the mapping's
-    # card for a peer's IPC view (the source then read by peer access)
+    # each block launches on its sender's card, which writes every
+    # receiver of the node directly: the source is read in place
     here = {}
     for card, ps in sends:
         for i, j in ps:
             if not out.remote(j):
-                at = (out.views[j].device if mesh.process_of(j) != mesh.rank
-                      else card)
-                here.setdefault(at, []).append(
+                here.setdefault(card, []).append(
                     (as_bytes(xs_g[i])[offsets(i, j)[0]:][:nbytes], j,
                      offsets(i, j)[1]))
     out.ready()
@@ -418,32 +498,43 @@ def _launcher(launch, plain: bool, place: str):
 
 
 def _place(out, card, blocks, geometry, launch, staged: bool = False) -> None:
-    """``(source bytes, receiver, byte offset)`` blocks into ``out``'s
-    views, launched on ``card``'s current stream: the kernel's ``launch``
-    (up to :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs a launch,
-    with peer access to each receiver's card; ``staged`` counts them as
-    the receiver's launches across nodes), or with ``launch`` None its
-    plain version."""
+    """``(source bytes, receiver, byte offset)`` blocks, each source on
+    ``card``, into ``out``'s buffers, launched on ``card``'s current
+    stream: the kernel's ``launch`` (up to
+    :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs a launch, those to
+    other cards first, each destination at its address in ``card``'s
+    context; ``staged`` counts them as the receiver's launches across
+    nodes), or with ``launch`` None its plain version."""
     if not blocks:
         return
     if launch is None:
-        # a copy into a peer's mapping must run on the mapping's card,
-        # where its address is valid: a source on another card goes there
-        # first (the torch copy runs on the source's card)
+        # a copy into a peer's view must run on the view's card, where its
+        # address is valid: a source on another card goes there first (the
+        # torch copy runs on the source's card)
         for src, j, off in blocks:
-            if src.is_cuda and src.device != card:
-                src = src.to(card)
+            to = out.views[j].device
+            if src.is_cuda and src.device != to:
+                src = src.to(to)
             place_rows_torch(src, out.views[j], off, *geometry)
         return
+    mine = out.mesh.rank
+    local = {}
     for src, j, _ in blocks:
-        _enable_peer(card, src.device)
-        _enable_peer(card, out.views[j].device)
-    ptrs = [(src.data_ptr(), out.views[j].data_ptr() + off)
+        if src.device != card:
+            raise ValueError(f"a block's source lies on {src.device}, its "
+                             f"launch on {card}")
+        own = out.mesh.process_of(j) == mine
+        if own:
+            _enable_peer(card, out.views[j].device)
+        local[j] = own and out.views[j].device == card
+    ptrs = [(src.data_ptr(), out.target(j, card) + off, local[j])
             for src, j, off in blocks]
     with torch.cuda.device(card):
-        stream = torch.cuda.current_stream(card).cuda_stream
-        for at in range(0, len(ptrs), _build.MAX_PEERS):
-            launch(ptrs[at:at + _build.MAX_PEERS], stream, staged)
+        stream = torch.cuda.current_stream(card)
+        with _bracket(card, stream):
+            for chunk, n_remote in _remote_first(ptrs, lambda p: p[2]):
+                launch([p[:2] for p in chunk], n_remote, stream.cuda_stream,
+                       staged)
 
 
 def _exchange(xs, mesh, moves: dict, cut) -> dict:

@@ -126,9 +126,9 @@ def test_mesh_two_ranks_of_two_cards(rank):
             want = ("local" if i == j else "peer" if i // 2 == j // 2
                     else "ipc")
             assert mesh.route(i, j) == want, (i, j)
-    # each sender lists its receivers in group order
+    # each sender lists its receivers in the symmetric order, its own first
     assert mesh.all_to_all_sends(FX_AXIS) == tuple(
-        (c[i], tuple((i, j) for j in range(4))) for i in mine)
+        (c[i], tuple((i, (i + j) % 4) for j in range(4))) for i in mine)
     assert mesh.ring_sends(FX_AXIS) == tuple(
         (c[i], ((i, (i + 1) % 4),)) for i in mine)
     # on other nodes the other rank's pairs are staged; a rank's own stay
@@ -155,7 +155,7 @@ def test_mesh_time_local_keeps_the_halo_on_the_rank(rank):
         (c[2 * rank], ((head, tail),)), (c[2 * rank + 1], ((tail, head),)))
     assert mesh.route(head, tail) == mesh.route(tail, head) == "peer"
     sends = dict(mesh.all_to_all_sends(FX_AXIS))
-    assert sends[c[2 * rank]] == ((head, 0), (head, 1))
+    assert sends[c[2 * rank]] == ((head, head), (head, 1 - head))
     assert all(mesh.route(i, j) == "ipc" for ps in sends.values()
                for i, j in ps if i != j)
 

@@ -572,13 +572,14 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
     placed by ``Tensor.copy_`` (``place="copy"``, the library yardstick),
     the bound of the whole call, and the sha256 of this rank's outputs;
     beside the whole call's time the kernel's alone (CUDA events around
-    its launches, ``kernel_ms``); where blocks cross between cards, the
-    most bytes a card sends to the others and their GB/s; for K7b, both
-    schedules bitwise the plain version and timed in turns in this run
-    (``schedules``: whole call and kernel alone), its block mode and,
-    where every rank holds one shard on a card of its own, NCCL's
-    ``all_to_all_single`` on the same shards (bitwise K7b's block mode;
-    whole calls and each call alone); across nodes also the receiver's
+    its launches, ``kernel_ms``) and the call on the device (events
+    around it on each card's stream, its flag rounds and the waits for
+    the peers in them included, ``span_ms``); where blocks cross between
+    cards, the most bytes a card sends to the others and their GB/s; for
+    K7b, its block mode and, where every rank holds one shard on a card
+    of its own, NCCL's ``all_to_all_single`` on the same shards (bitwise
+    K7b's block mode; whole calls, and each call on the device with
+    events around it, like ``span_ms``); across nodes also the receiver's
     placement alone from one round's pinned slots, the kernel against
     ``copy_``."""
     import torch
@@ -589,7 +590,6 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
     from dc_sand_tpu_torch.parallel import (SharedBuffers, all_to_all,
                                             all_to_all_torch,
                                             ring_permute_right_torch)
-    from dc_sand_tpu_torch.parallel.remote_dma import SCHEDULE, SCHEDULES
     every = xs_of()
     flat = mesh.flat_devices
     mine = [every[d].to(flat[d]) for d in mesh.local_shards]
@@ -615,44 +615,22 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
     digest = hashlib.sha256(b"".join(g.cpu().numpy().tobytes()
                                      for g in got)).hexdigest()
     del got
-    others = [x for x in SCHEDULES if x != SCHEDULE] \
-        if op is all_to_all else []
-    for schedule in others:
-        got = op(mine, mesh, axis, out=bufs, impl="cuda", schedule=schedule,
-                 **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise RuntimeError(f"{label}: the {schedule} schedule != the "
-                               "plain version")
-        del got
     del want
     ms, lib_ms = _turns_ms((lambda: op(mine, mesh, axis, out=bufs,
                                        impl="cuda", **kw),
                             lambda: op(mine, mesh, axis, out=bufs,
                                        place="copy", **kw)), 3)
-    kernel_ms = kernel_alone_ms(lambda: op(mine, mesh, axis, out=bufs,
-                                           impl="cuda", **kw), 5)
+    kernel_ms, span_ms = (kernel_alone_ms(
+        lambda: op(mine, mesh, axis, out=bufs, impl="cuda", **kw), 5,
+        span=span) for span in (False, True))
     plain_ms = _events_ms(lambda: plain(mine, mesh, axis, **kw), 1)
     bound = bound_ms(2 * nbytes)
     how = "/".join(sorted(set(mesh.routes().values())))
-    out = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    out = {"ms": ms, "kernel_ms": kernel_ms, "span_ms": span_ms,
+           "plain_ms": plain_ms,
            "library_ms": lib_ms, "bound_ms": bound[0], "bound_by": bound[1],
            "digest": digest}
     cards = len(set(flat))
-    if op is all_to_all and cards > 1:
-        # the A/B of the schedules, in turns in this run: the whole call
-        # and the kernel alone, the median of four rounds each
-        calls = {x: (lambda x=x: op(mine, mesh, axis, out=bufs, impl="cuda",
-                                    schedule=x, **kw)) for x in SCHEDULES}
-        whole = dict(zip(SCHEDULES, _turns_ms([calls[x] for x in SCHEDULES],
-                                              3, rounds=4)))
-        alone = {x: [] for x in SCHEDULES}
-        for order in (SCHEDULES, SCHEDULES[::-1]) * 2:
-            for x in order:
-                alone[x].append(kernel_alone_ms(calls[x], 3, warmup=1))
-        out["schedules"] = {x: {"ms": whole[x], "kernel_ms":
-                                statistics.median(alone[x])}
-                            for x in SCHEDULES}
     n = len(mesh.groups(axis)[0])
     cross = cross_bytes(mesh, sends, _nbytes(mine[0]) // n
                         if op is all_to_all else _nbytes(mine[0]))
@@ -665,8 +643,9 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
         got = op(mine, mesh, axis, out=bufs, impl="cuda")
         out["block_ms"] = _events_ms(
             lambda: op(mine, mesh, axis, out=bufs, impl="cuda"), 3)
-        out["block_kernel_ms"] = kernel_alone_ms(
-            lambda: op(mine, mesh, axis, out=bufs, impl="cuda"), 5)
+        out["block_kernel_ms"], out["block_span_ms"] = (kernel_alone_ms(
+            lambda: op(mine, mesh, axis, out=bufs, impl="cuda"), 5,
+            span=span) for span in (False, True))
         got = op(mine, mesh, axis, out=bufs, impl="cuda")
         out["nccl_ms"], out["nccl_note"], out["nccl_kernel_ms"] = \
             nccl_all_to_all(mesh, mine, got, 5)
@@ -677,7 +656,8 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
                                                  rows)
     print(f"[{label}] rank {mesh.rank}: route {how}; bitwise equal to the "
           f"plain version (gloo), {launches} launch(es) a call; kernel "
-          f"{ms:.4f} ms a call, {kernel_ms:.4f} ms alone, plain "
+          f"{ms:.4f} ms a call, {kernel_ms:.4f} ms alone, {span_ms:.4f} "
+          "ms on the device with its flag rounds, plain "
           f"{plain_ms:.3f} ms, copy_ on the same route "
           f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) for the "
           f"whole call" + (
@@ -685,15 +665,12 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
               f"{out['gb_s_card']:.2f} GB/s a card, copy_ "
               f"{out['copy_gb_s_card']:.2f}, NVLink bound "
               f"{out['link_bound_ms']:.4f} ms" if cross else "") + (
-              "; schedules (whole call / kernel alone, in turns) " + ", ".join(
-                  f"{x} {v['ms']:.4f} / {v['kernel_ms']:.4f} ms"
-                  for x, v in out["schedules"].items())
-              if "schedules" in out else "") + (
               f"; block mode {out['block_ms']:.4f} ms a call, "
-              f"{out['block_kernel_ms']:.4f} ms alone, NCCL "
+              f"{out['block_kernel_ms']:.4f} ms alone, "
+              f"{out['block_span_ms']:.4f} ms on the device, NCCL "
               "all_to_all_single "
               + (f"{out['nccl_ms']:.4f} ms a call, {out['nccl_kernel_ms']:.4f}"
-                 " ms alone (bitwise K7b's block mode)"
+                 " ms on the device (bitwise K7b's block mode)"
                  if out["nccl_ms"] is not None else
                  f"not run: {out['nccl_note']}") if "block_ms" in out
               else "") + (
@@ -746,10 +723,9 @@ def _staged_placement_ms(mesh, op, mine, bufs, axis, rows) -> tuple:
             return 0, 0
     lib = _build.library()
 
-    def launch(ptrs, n_remote, stream, staged=False):
+    def launch(ptrs, stream, staged=False):
         _build.check(lib.dcs_all_to_all(remote_dma._pairs(ptrs), len(ptrs),
-                                        n_remote, 0, *geometry, stream),
-                     "placement")
+                                        *geometry, stream), "placement")
 
     def in_place(view):
         """The device address of a pinned slot view (read across PCIe)."""
@@ -768,7 +744,7 @@ def _staged_placement_ms(mesh, op, mine, bufs, axis, rows) -> tuple:
     def uva():
         stream = torch.cuda.current_stream().cuda_stream
         launch([(in_place(b), bufs.views[j].data_ptr() + o)
-                for b, j, o in blocks], 0, stream)
+                for b, j, o in blocks], stream)
 
     bufs.ready()
     blocks = remote_dma.staged_round(mesh, bufs, xs_g, sends, pairs, offsets,
@@ -1357,7 +1333,9 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
             print(f"[40 {what} {layout}] bitwise its plain version; kernel "
                   + ", ".join(f"{k['ms']:.4f}" for k in x) + " ms a call a "
                   "rank, alone " + ", ".join(f"{k['kernel_ms']:.4f}"
-                                             for k in x) + " ms, "
+                                             for k in x)
+                  + " ms, on the device with its flag rounds " + ", ".join(
+                      f"{k['span_ms']:.4f}" for k in x) + " ms, "
                   + ", ".join(f"{k.get('gb_s_card', 0.0):.2f}" for k in x)
                   + " GB/s a card to the others ("
                   + f"{x[0].get('cross_mb', 0.0):.1f} MB a card a call; NVLink "
@@ -1365,21 +1343,16 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
                   "the same route " + ", ".join(
                       f"{k['library_ms']:.4f}" for k in x) + " ms; plain "
                   + ", ".join(f"{k['plain_ms']:.3f}" for k in x) + " ms"
-                  + ("; schedules A/B in turns (a call / alone) " + "; ".join(
-                      f"{name} " + ", ".join(
-                          f"{k['schedules'][name]['ms']:.4f} / "
-                          f"{k['schedules'][name]['kernel_ms']:.4f}"
-                          for k in x) + " ms"
-                      for name in x[0]["schedules"])
-                     if "schedules" in x[0] else "")
                   + ("; block mode " + ", ".join(
-                      f"{k['block_ms']:.4f} / {k['block_kernel_ms']:.4f}"
-                      for k in x) + " ms (a call / alone), NCCL "
+                      f"{k['block_ms']:.4f} / {k['block_kernel_ms']:.4f} / "
+                      f"{k['block_span_ms']:.4f}" for k in x)
+                     + " ms (a call / alone / on the device), NCCL "
                      "all_to_all_single " + ", ".join(
                          f"{k['nccl_ms']:.4f} / {k['nccl_kernel_ms']:.4f}"
                          if k["nccl_ms"] is not None
                          else f"not run ({k['nccl_note']})" for k in x)
-                     + " ms (a call / alone)" if "block_ms" in x[0] else "")
+                     + " ms (a call / on the device)" if "block_ms" in x[0]
+                     else "")
                   + f" ({card})", flush=True)
         if pick(0, "cards") == 1:
             continue

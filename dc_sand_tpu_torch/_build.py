@@ -61,7 +61,7 @@ _SIGNATURES = {
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},
     "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "remote_dma": {"dcs_all_to_all": [Pairs, _I, _I, _I, _L, _L, _L, _P],
+    "remote_dma": {"dcs_all_to_all": [Pairs, _I, _L, _L, _L, _P],
                    "dcs_ring": [Pairs, _I, _L, _P],
                    "dcs_enable_peer": [_I],
                    "dcs_device_pointer": [_P, ctypes.POINTER(_P)],

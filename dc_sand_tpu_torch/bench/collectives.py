@@ -32,7 +32,10 @@ scaling measurement.
 
 The kernels' records (K7b, K7a) carry ``kernel_ms``, CUDA events around
 the launches alone (a card's launches of a call, the slowest card's;
-``remote_dma.kernel_events``) beside the whole call's time, ``copy_ms``,
+``remote_dma.kernel_events``) beside the whole call's time; across
+processes ``span_ms``, CUDA events around the call on each card's stream,
+its two flag rounds and the waits for the peers in them included (what
+events around NCCL's call hold); ``copy_ms``,
 the same blocks placed by ``Tensor.copy_`` into the same destinations
 (the yardstick; across processes the same route with ``place="copy"``),
 and, where senders and
@@ -43,9 +46,10 @@ NVLink's 450 GB/s each way).  Across ranks that each hold one card of
 their own and one shard, K7b's block-mode record also carries
 ``nccl_ms``: NCCL's ``all_to_all_single`` over a ``nccl`` group of the
 same ranks on the same shards (bitwise checked against K7b), the library
-yardstick, and ``nccl_kernel_ms``, CUDA events around each call alone;
-where ranks share a card or hold several shards they stay None and
-``nccl_note`` says why.
+yardstick, and ``nccl_kernel_ms``, CUDA events around each call alone on
+the device (NCCL's handshake with its peers in it: K7b's ``span_ms`` is
+the like measure); where ranks share a card or hold several shards they
+stay None and ``nccl_note`` says why.
 """
 
 from __future__ import annotations
@@ -118,14 +122,16 @@ def _copy_blocks(op: str, mesh, xs) -> tuple:
     return outs, fn
 
 
-def kernel_alone_ms(fn, calls: int, warmup: int = 2) -> float:
+def kernel_alone_ms(fn, calls: int, warmup: int = 2,
+                    span: bool = False) -> float:
     """K7b's or K7a's kernel ms a call with CUDA events around its
     launches alone (``remote_dma.kernel_events``), over ``calls`` calls of
     ``fn`` after ``warmup``: what the whole call's time holds beside the
-    ordering around the launches."""
+    ordering around the launches.  ``span``: the events around the call
+    on the device instead, its flag rounds included."""
     for _ in range(warmup):
         fn()
-    with kernel_events() as events:
+    with kernel_events(span) as events:
         for _ in range(calls):
             fn()
     return events_ms(events, calls)
@@ -134,7 +140,8 @@ def kernel_alone_ms(fn, calls: int, warmup: int = 2) -> float:
 def nccl_all_to_all(mesh, xs, got, iters: int) -> tuple:
     """``(ms, note, kernel ms)``: NCCL's ``all_to_all_single`` on this
     rank's shard over a ``nccl`` group of every rank, timed over
-    back-to-back calls and with CUDA events around each call alone, where
+    back-to-back calls and with CUDA events around each call alone (its
+    handshake with the peers in it), where
     every rank holds one shard on a card of its own (``note`` None), its
     output bitwise K7b's ``got``; else ``(None, why, None)``.
     Collective: every rank reaches the same verdict from the global
@@ -260,6 +267,9 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
                                          iters=iters, device=first) * 1e3
     if kernel and first.type == "cuda":
         extra["kernel_ms"] = kernel_alone_ms(lambda: fn(xs), iters)
+        if shared is not None:
+            extra["span_ms"] = kernel_alone_ms(lambda: fn(xs), iters,
+                                               span=True)
     if kernel:
         cross = cross_bytes(mesh, _pairs(op, mesh), local_bytes // d
                             if op == "all_to_all_pallas" else local_bytes)

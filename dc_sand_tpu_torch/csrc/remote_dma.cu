@@ -58,19 +58,19 @@
 // launch whose addresses, row length or pitch are not all multiples of 16
 // bytes copies byte by byte.
 //
-// Across cards the schedule is the TPU kernel's (_a2a_kernel): the first
-// `n_remote` pairs go to other cards and take the first tiles, the local
-// pair (same card: an HBM copy) takes the last tiles, a CTA range of its own
-// that runs beside the tail of the remote stores instead of taking SM slots
-// from their start.  The wrapper passes each sender's remote pairs in the
-// reference's symmetric order, receiver my + j at offset j
-// (Mesh.all_to_all_sends), and `interleave` picks how the remote tiles are
-// numbered: pair after pair (then at each moment the senders of a group
-// write into different receivers, a Latin square), or tile t to remote pair
-// t mod n_remote (every sender spreads over all its receivers at once, each
-// receiver's ingress taking a share of every sender's egress).  Before this
-// order, every sender of a group wrote into receiver 0 first, then 1, and
-// so on, and one receiver's NVLink ingress carried three cards' bytes.
+// Across cards the schedule is the TPU kernel's (_a2a_kernel): the wrapper
+// passes each sender's pairs to other cards first, in the reference's
+// symmetric order, receiver my + j at offset j (Mesh.all_to_all_sends), so
+// that at each moment the senders of a group write into different
+// receivers (a Latin square), and the local pair (same card: an HBM copy)
+// last, a CTA range of its own that runs beside the tail of the remote
+// stores instead of taking SM slots from their start.  Before this order,
+// every sender of a group wrote into receiver 0 first, then 1, and so on,
+// and one receiver's NVLink ingress carried three cards' bytes.  (Tiles
+// spread over the remote pairs, tile t to pair t mod their count, were 1-2%
+// slower alone on four H100s: PERF.md §6.)  The tile shape was timed for
+// the NVLink stores too (dc_sand_tpu_torch/bench/k7b_sizing.py builds the
+// kernel with other DCS_K7_THREADS and DCS_K7_UNROLL: PERF.md §6).
 //
 // What bounds it on the H100: bytes.  Each byte is read once and written
 // once, so on one card a call moves 2x its payload at 3.35 TB/s: K7b at the
@@ -111,37 +111,34 @@ struct DcsPairs {
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
+// the tile: kUnroll x kThreads 16-byte units (DCS_K7_THREADS and
+// DCS_K7_UNROLL at build time, for dc_sand_tpu_torch/bench/k7b_sizing.py)
+#ifndef DCS_K7_THREADS
+#define DCS_K7_THREADS 256
+#endif
+#ifndef DCS_K7_UNROLL
+#define DCS_K7_UNROLL 4
+#endif
+constexpr int kThreads = DCS_K7_THREADS;
+constexpr int kUnroll = DCS_K7_UNROLL;
 
 // `rows` rows of `row_units` units (16 bytes when kVec, else 1) from
 // pairs.src[d] (contiguous) to pairs.dst[d] (rows `pitch` units apart), for
-// every pair d < n_pairs, one block a tile.  Pairs d < n_remote take the
-// first tiles, pair after pair or (interleave) tile t to pair t mod
-// n_remote; the others follow, pair after pair.
+// every pair d < n_pairs, one block a tile, the tiles numbered pair after
+// pair.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    copy_rows(const __grid_constant__ DcsPairs pairs, int n_pairs, int n_remote,
-              int interleave, unsigned rows, long long row_units, long long pitch) {
+    copy_rows(const __grid_constant__ DcsPairs pairs, int n_pairs, unsigned rows,
+              long long row_units, long long pitch) {
   using Unit = typename std::conditional<kVec, uint4, char>::type;
   constexpr int kTile = kUnroll * kThreads;
   // tile indices fit 32 bits (the launch checks): the divisions that place a
   // tile stay short beside its loads
   const unsigned tiles_per_row = static_cast<unsigned>((row_units + kTile - 1) / kTile);
   const unsigned tiles_per_pair = rows * tiles_per_row;
-  const unsigned remote_tiles = static_cast<unsigned>(n_remote) * tiles_per_pair;
   const unsigned tile = blockIdx.x;
-  unsigned d, in_pair;
-  if (tile < remote_tiles && interleave) {
-    d = tile % static_cast<unsigned>(n_remote);
-    in_pair = tile / static_cast<unsigned>(n_remote);
-  } else {
-    const unsigned t = tile < remote_tiles ? tile : tile - remote_tiles;
-    const unsigned first = tile < remote_tiles ? 0u : static_cast<unsigned>(n_remote);
-    const unsigned k = n_pairs == 1 ? 0u : t / tiles_per_pair;
-    d = first + k;
-    in_pair = t - k * tiles_per_pair;
-  }
+  const unsigned d = n_pairs == 1 ? 0u : tile / tiles_per_pair;
+  const unsigned in_pair = tile - d * tiles_per_pair;
   const unsigned row = rows == 1 ? 0u : in_pair / tiles_per_row;
   const long long c0 =
       static_cast<long long>(in_pair - row * tiles_per_row) * kTile + threadIdx.x;
@@ -156,10 +153,10 @@ __global__ void __launch_bounds__(kThreads)
     if (c0 + i * kThreads < row_units) dst[c0 + i * kThreads] = v[i];
 }
 
-int launch(const DcsPairs& pairs, int n_pairs, int n_remote, int interleave, long long rows,
-           long long row_bytes, long long dst_pitch, void* stream) {
-  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || n_remote < 0 || n_remote > n_pairs ||
-      rows < 0 || row_bytes < 0 || (rows > 1 && dst_pitch < row_bytes))
+int launch(const DcsPairs& pairs, int n_pairs, long long rows, long long row_bytes,
+           long long dst_pitch, void* stream) {
+  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || rows < 0 || row_bytes < 0 ||
+      (rows > 1 && dst_pitch < row_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   bool vec = row_bytes % 16 == 0 && dst_pitch % 16 == 0;
   for (int d = 0; d < n_pairs; ++d) {
@@ -176,12 +173,11 @@ int launch(const DcsPairs& pairs, int n_pairs, int n_remote, int interleave, lon
   const unsigned grid = static_cast<unsigned>(tiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
-    copy_rows<true><<<grid, kThreads, 0, st>>>(pairs, n_pairs, n_remote, interleave,
-                                                static_cast<unsigned>(rows), units,
-                                                dst_pitch / 16);
+    copy_rows<true><<<grid, kThreads, 0, st>>>(pairs, n_pairs, static_cast<unsigned>(rows),
+                                                units, dst_pitch / 16);
   else
-    copy_rows<false><<<grid, kThreads, 0, st>>>(pairs, n_pairs, n_remote, interleave,
-                                                 static_cast<unsigned>(rows), units, dst_pitch);
+    copy_rows<false><<<grid, kThreads, 0, st>>>(pairs, n_pairs, static_cast<unsigned>(rows),
+                                                 units, dst_pitch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,19 +227,17 @@ constexpr int kMissing = 500;
 
 // K7b, every sender of one card: pair d moves `rows` rows of `row_bytes`
 // from pairs.src[d] (contiguous) to pairs.dst[d] (rows `dst_pitch` bytes
-// apart), d < n_pairs; pairs d < n_remote (to other cards) first, in the
-// order given or, with `interleave`, tile by tile over them.  Launches on
-// the current device, which must own `stream`; returns cudaGetLastError().
-extern "C" int dcs_all_to_all(DcsPairs pairs, int n_pairs, int n_remote, int interleave,
-                              long long rows, long long row_bytes, long long dst_pitch,
-                              void* stream) {
-  return launch(pairs, n_pairs, n_remote, interleave, rows, row_bytes, dst_pitch, stream);
+// apart), d < n_pairs, in the order given.  Launches on the current device,
+// which must own `stream`; returns cudaGetLastError().
+extern "C" int dcs_all_to_all(DcsPairs pairs, int n_pairs, long long rows, long long row_bytes,
+                              long long dst_pitch, void* stream) {
+  return launch(pairs, n_pairs, rows, row_bytes, dst_pitch, stream);
 }
 
 // K7a, every sender of one card: the whole block of nbytes at pairs.src[d]
 // goes to pairs.dst[d] (its right neighbour's output), d < n_pairs.
 extern "C" int dcs_ring(DcsPairs pairs, int n_pairs, long long nbytes, void* stream) {
-  return launch(pairs, n_pairs, n_pairs, 0, 1, nbytes, nbytes, stream);
+  return launch(pairs, n_pairs, 1, nbytes, nbytes, stream);
 }
 
 // What `device` offers the device flags: `memops` the driver's
@@ -295,9 +289,9 @@ extern "C" int dcs_ipc_handle(const void* ptr, void* handle, long long* offset) 
 }
 
 // Map another process's allocation (its 64-byte IPC handle) into the current
-// device's context, the card whose kernels and streams write into it.  PyTorch
-// keeps one mapping a handle for the whole process; a card of this process
-// that writes into a peer's buffer needs one in its own context.
+// device's context, the card whose kernels and streams write into it or read
+// it: parallel/ipc.py maps each peer buffer once a handle and card this way,
+// for the writers' kernels and the readers' views alike.
 extern "C" int dcs_ipc_open(const void* handle, void** ptr) {
   cudaIpcMemHandle_t h;
   memcpy(&h, handle, sizeof(h));

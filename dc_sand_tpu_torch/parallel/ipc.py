@@ -55,14 +55,17 @@ A rank may hold several cards (:func:`~dc_sand_tpu_torch.parallel.
 distributed.local_cards`): each shard's buffer lies on its own card.  On
 the H100 machine an IPC handle is used only in the context of the card
 that uses it, as NCCL does (a mapping opened in another card's context
-faults when written), and PyTorch keeps one mapping a handle for the
-whole process.  So:
+faults when written).  So every mapping is the port's own,
+``dcs_ipc_open`` of ``csrc/remote_dma.cu`` in the context of the card
+that uses it, once a handle and card (PyTorch's ``rebuild_cuda_tensor``
+keeps one mapping a handle for the whole process, on the exporter's
+device index):
 
 * :attr:`SharedBuffers.views` maps a peer's k-th shard into this rank's
-  k-th card (``rebuild_cuda_tensor`` on that card), for the readers;
+  k-th card, for the readers, wrapped as a tensor on that card through
+  a DLPack capsule (:func:`pointer_view`);
 * a card that writes into a peer's shard gets its own mapping of it
-  (``dcs_ipc_open`` of ``csrc/remote_dma.cu`` in that card's context,
-  :meth:`SharedBuffers.target`), so that K7b and K7a launch on the
+  (:meth:`SharedBuffers.target`), so that K7b and K7a launch on the
   sender's card and every byte crosses NVLink once;
 * a peer card's flag buffer is mapped into each of this rank's cards.
 
@@ -72,7 +75,7 @@ they run correctly, not side by side.  A handle that will not open
 raises, and so does a staged exchange that fails; neither route stands
 in for the other.  Peers' buffers stay mapped until :func:`close_all`,
 which every rank calls before it exits (the exporter keeps its memory
-alive until then).
+alive until then); a view of a peer's buffer is not used after it.
 """
 
 from __future__ import annotations
@@ -88,10 +91,12 @@ import torch.distributed as dist
 from dc_sand_tpu_torch.parallel.staged import StagedRoute
 
 __all__ = ["SharedBuffers", "FlagPlan", "close_all", "uses_shared_buffers",
-           "stream_memops"]
+           "stream_memops", "pointer_view"]
 
 _OPEN = []      # every SharedBuffers of this process, held until close_all
 _MEMOPS = {}    # card -> (stream memory operations, remote-write flush)
+_CAPSULES = []  # every pointer_view's DLPack structures (read at its free)
+_MAPS = {}      # (IPC handle, card) -> its mapping in the card's context
 HANDLE_BYTES = 64   # sizeof(cudaIpcMemHandle_t)
 CONSUMED, SENT = 0, 1
 
@@ -172,36 +177,72 @@ def _export(t: torch.Tensor) -> tuple:
 
 
 def _ipc_open(handle: bytes, card: torch.device, what: str) -> int:
-    """Map a peer's allocation into ``card``'s context; its address."""
-    ptr = ctypes.c_void_p()
-    with torch.cuda.device(card):
-        err = _lib().dcs_ipc_open(handle, ctypes.byref(ptr))
-    if err != 0:
-        raise RuntimeError(f"{what} did not open through CUDA IPC in "
-                           f"{card}'s context: CUDA error {err}")
-    return ptr.value
+    """A peer's allocation mapped into ``card``'s context, the card whose
+    kernels and streams use it (not the exporter's device index); its
+    address.  Mapped once a handle and card for the process (two buffers
+    may share an allocation), until :func:`close_all`."""
+    if (handle, card) not in _MAPS:
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(card):
+            err = _lib().dcs_ipc_open(handle, ctypes.byref(ptr))
+        if err != 0:
+            raise RuntimeError(f"{what} did not open through CUDA IPC in "
+                               f"{card}'s context: CUDA error {err}")
+        _MAPS[(handle, card)] = ptr.value
+    return _MAPS[(handle, card)]
 
 
-def _open(args: tuple, rank: int, shard: int, on: torch.device):
-    """Map a peer's buffer into card ``on``'s context, the card whose
-    streams read it (with CUDA's lazy peer access), as NCCL maps its
-    peers' buffers: a mapping opened in another card's context is not
-    addressable from ``on`` (on the H100 machine a write faults), which
-    is why ``rebuild_cuda_tensor``'s own choice, the exporter's device
-    index, is replaced.  The tensor then names ``on`` as its device.  The
-    exporter synchronised its card before exporting, so the producer's
-    event is not waited on."""
-    import inspect
-    from torch.multiprocessing.reductions import rebuild_cuda_tensor
-    names = list(inspect.signature(rebuild_cuda_tensor).parameters)
-    args = list(args)
-    args[names.index("storage_device")] = on.index
-    args[names.index("event_sync_required")] = False
-    try:
-        return rebuild_cuda_tensor(*args)
-    except RuntimeError as err:
-        raise RuntimeError(f"rank {rank}'s buffer of shard {shard} did not "
-                           f"open through CUDA IPC: {err}") from err
+class _DLDevice(ctypes.Structure):
+    _fields_ = [("device_type", ctypes.c_int32),
+                ("device_id", ctypes.c_int32)]
+
+
+class _DLDataType(ctypes.Structure):
+    _fields_ = [("code", ctypes.c_uint8), ("bits", ctypes.c_uint8),
+                ("lanes", ctypes.c_uint16)]
+
+
+class _DLTensor(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p), ("device", _DLDevice),
+                ("ndim", ctypes.c_int32), ("dtype", _DLDataType),
+                ("shape", ctypes.POINTER(ctypes.c_int64)),
+                ("strides", ctypes.POINTER(ctypes.c_int64)),
+                ("byte_offset", ctypes.c_uint64)]
+
+
+class _DLManagedTensor(ctypes.Structure):
+    _fields_ = [("dl_tensor", _DLTensor), ("manager_ctx", ctypes.c_void_p),
+                ("deleter", ctypes.c_void_p)]
+
+
+def _dlpack(address: int, nbytes: int, device: torch.device):
+    """The DLPack description of the ``nbytes`` bytes at ``address`` as a
+    1-D uint8 tensor on ``device`` (``kDLCPU`` 1, ``kDLCUDA`` 2), with no
+    deleter: the memory is not the tensor's."""
+    shape = (ctypes.c_int64 * 1)(nbytes)
+    managed = _DLManagedTensor()
+    managed.dl_tensor = _DLTensor(
+        address, _DLDevice(2 if device.type == "cuda" else 1,
+                           device.index or 0),
+        1, _DLDataType(1, 8, 1), shape, None, 0)
+    return managed, shape
+
+
+def pointer_view(address: int, nbytes: int, device: torch.device
+                 ) -> torch.Tensor:
+    """The ``nbytes`` bytes at ``address`` as a uint8 tensor that names
+    ``device`` (a peer's buffer mapped into that card's context by
+    ``dcs_ipc_open``), through a DLPack capsule: PyTorch takes the device
+    from the capsule, not from the pointer.  The memory stays the
+    mapper's; the capsule's structures are kept for the process, since
+    PyTorch reads them when the tensor is freed."""
+    managed, shape = _dlpack(address, nbytes, device)
+    _CAPSULES.append((managed, shape))
+    new = ctypes.pythonapi.PyCapsule_New
+    new.restype = ctypes.py_object
+    new.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p]
+    return torch.from_dlpack(new(ctypes.addressof(managed), b"dltensor",
+                                 None))
 
 
 def uses_shared_buffers(mesh) -> bool:
@@ -315,11 +356,9 @@ class SharedBuffers:
                       for dev in mesh.local_devices]
         self.plan = None        # FlagPlan where the node has other ranks
         self._own_flags = {}    # card -> its flag buffer's address
-        self._maps = {}         # (shard, card) -> a peer shard's mapping
-        self._flag_maps = []    # (card, address) of peer flag mappings
+        self._maps = {}         # (shard, card) -> a peer shard's address
         mine = None
         if ipc:
-            from torch.multiprocessing.reductions import reduce_tensor
             counts = [len(_cards_of(mesh, r))
                       for r in range(mesh.process_count)]
             self.plan = FlagPlan(counts, mesh.rank, ipc)
@@ -334,8 +373,7 @@ class SharedBuffers:
                         "dcs_flags_alloc")
                 self._own_flags[dev] = ptr.value
                 flags.append(handle.raw)
-            mine = ([reduce_tensor(t)[1] for t in self.local],
-                    [_export(t) for t in self.local], flags)
+            mine = ([_export(t) for t in self.local], flags)
             for dev in self.cards:
                 torch.cuda.synchronize(dev)
         every = [None] * mesh.process_count
@@ -345,17 +383,19 @@ class SharedBuffers:
             self.views[d] = t
         self._raw = {}          # a peer's shard -> (handle, offset)
         peer_flags = {}         # (rank, card k) -> flag handle
+        nbytes = self.local[0].numel() * self.local[0].element_size()
         for rank in ipc:
-            tensors, raw, flags = every[rank]
+            raw, flags = every[rank]
             shards = mesh.shards_of(rank)
-            if len(tensors) != len(shards):
-                raise ValueError(f"rank {rank} exported {len(tensors)} "
+            if len(raw) != len(shards):
+                raise ValueError(f"rank {rank} exported {len(raw)} "
                                  f"buffers for {len(shards)} shards")
-            for k, (d, h) in enumerate(zip(shards, tensors)):
+            for k, (d, h) in enumerate(zip(shards, raw)):
+                self._raw[d] = h
                 # the peer's k-th shard on this rank's k-th card (mod)
-                self.views[d] = _open(h, rank, d,
-                                      self.cards[k % len(self.cards)])
-                self._raw[d] = raw[k]
+                on = self.cards[k % len(self.cards)]
+                self.views[d] = pointer_view(self.target(d, on), nbytes,
+                                             on).view(dtype).view(shape)
             peer_flags.update({(rank, k): h for k, h in enumerate(flags)})
         self._signal, self._wait = {}, {}
         if self.plan is not None:
@@ -366,7 +406,6 @@ class SharedBuffers:
                 for key, h in peer_flags.items():
                     mapped[key] = _ipc_open(h, dev, f"rank {key[0]}'s flags "
                                             f"of its card {key[1]}")
-                    self._flag_maps.append((dev, mapped[key]))
                 for which in (CONSUMED, SENT):
                     sig = [mapped[(r, c)] + 4 * w
                            for r, c, w in self.plan.signals(which, k)]
@@ -381,19 +420,18 @@ class SharedBuffers:
         _OPEN.append(self)
 
     def target(self, d: int, card: torch.device) -> int:
-        """The address at which ``card``'s kernels write shard ``d``'s
-        buffer: this rank's own (another of its cards by peer access), or
-        a peer's of this node mapped into ``card``'s own context (opened
-        at the first use, kept until :func:`close_all`)."""
-        view = self.views[d]
-        if self.mesh.process_of(d) == self.mesh.rank or view.device == card:
-            return view.data_ptr()
+        """The address at which ``card``'s kernels write, or its streams
+        read, shard ``d``'s buffer: this rank's own (another of its cards
+        by peer access), or a peer's of this node mapped into ``card``'s
+        own context (at the first use, kept until :func:`close_all`)."""
+        if self.mesh.process_of(d) == self.mesh.rank:
+            return self.views[d].data_ptr()
         if (d, card) not in self._maps:
-            handle, _ = self._raw[d]
+            handle, offset = self._raw[d]
             self._maps[(d, card)] = _ipc_open(
                 handle, card, f"rank {self.mesh.process_of(d)}'s buffer of "
-                f"shard {d}")
-        return self._maps[(d, card)] + self._raw[d][1]
+                f"shard {d}") + offset
+        return self._maps[(d, card)]
 
     def remote(self, d: int) -> bool:
         """True when shard ``d`` lies on another node (the staged role)."""
@@ -484,8 +522,8 @@ def _region(x: torch.Tensor, region) -> torch.Tensor:
 
 def close_all() -> None:
     """Unmap every peer's buffers and flags once every rank's cards have
-    finished with them: synchronise each card, close this process's own
-    mappings in their cards' contexts and drop PyTorch's, then a barrier,
+    finished with them: synchronise each card, drop the views and close
+    this process's mappings in their cards' contexts, then a barrier,
     after which each exporter frees its flags and may free its memory.
     Collective."""
     if not _OPEN:
@@ -495,16 +533,16 @@ def close_all() -> None:
         torch.cuda.synchronize(dev)
     own = []
     for bufs in _OPEN:
-        mapped = [(card, ptr) for (_, card), ptr in bufs._maps.items()]
-        for card, ptr in mapped + bufs._flag_maps:
-            with torch.cuda.device(card):
-                _check(_lib().dcs_ipc_close(ptr), "dcs_ipc_close")
         own += list(bufs._own_flags.items())
         bufs.views = None
-        bufs._maps, bufs._flag_maps, bufs._own_flags = {}, [], {}
+        bufs._maps, bufs._own_flags = {}, {}
         bufs.plan = None
         bufs.staged = None
     _OPEN.clear()
+    for (_, card), ptr in _MAPS.items():
+        with torch.cuda.device(card):
+            _check(_lib().dcs_ipc_close(ptr), "dcs_ipc_close")
+    _MAPS.clear()
     dist.barrier()
     for card, ptr in own:
         with torch.cuda.device(card):

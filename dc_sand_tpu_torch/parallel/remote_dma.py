@@ -32,13 +32,12 @@ arithmetic and ``.to(device)`` copies.
 
 K7b keeps the TPU kernel's schedule (``_a2a_kernel``): each sender's
 pairs come in its symmetric order (:meth:`~dc_sand_tpu_torch.parallel.
-mesh.Mesh.all_to_all_sends`), the pairs that stay on the sending card (an
-HBM copy) take a CTA range of their own after the pairs to other cards,
-and ``schedule`` numbers the remote tiles: ``"interleaved"`` (tile t to
-remote pair t mod their count) or ``"rotated"`` (pair after pair in the
-symmetric order); :data:`SCHEDULE` is the default.  :func:`kernel_events`
-records CUDA events around the launches alone, the kernel's time without
-the ordering around it.
+mesh.Mesh.all_to_all_sends`), the pairs to other cards first, pair after
+pair, and the pairs that stay on the sending card (an HBM copy) last, on
+a CTA range of their own.  :func:`kernel_events` records CUDA events
+around the launches alone (the kernel's time without the ordering around
+it) or, across processes, around the whole call on the device, its flag
+rounds included (what events around NCCL's call hold).
 
 On a mesh over several processes (:func:`~dc_sand_tpu_torch.parallel.mesh.
 build_global_mesh`) each rank passes and gets back its own shards only.
@@ -88,30 +87,28 @@ from dc_sand_tpu_torch.parallel.staged import as_bytes
 
 __all__ = ["ring_permute_right", "ring_permute_right_torch", "all_to_all",
            "all_to_all_torch", "place_rows_torch", "kernel_events",
-           "events_ms", "SCHEDULE", "SCHEDULES"]
+           "events_ms"]
 
 # (sender, receiver) card pairs whose peer access is on: like the CUDA
 # state it mirrors, it holds for the whole process
 _peers_enabled = set()
 
-# K7b's numbering of the tiles of the pairs to other cards (module
-# docstring); the default is the faster of the two, in turns in one run on
-# four H100s (PERF.md §6, chip_smoke.py phase 40); the other stays for that
-# A/B
-SCHEDULES = ("interleaved", "rotated")
-SCHEDULE = "rotated"
-
-_events = None      # while kernel_events() is active: (card, start, end)
+_events = None      # while kernel_events() is active: (span, the list)
 
 
 @contextlib.contextmanager
-def kernel_events():
+def kernel_events(span: bool = False):
     """While active, each card's launches of K7a and K7b in a call are
     bracketed by a pair of CUDA events on its stream, after whatever the
-    stream waits for: yields the list of ``(card, start, end)`` that
+    stream waits for; with ``span``, on a multi-process mesh, the events
+    bracket the whole call on each card's stream instead, from before
+    the flag round that precedes the writes (``out.ready()``) to after
+    the one that follows them (``out.done()``), waits for the peers
+    included.  Yields the list of ``(card, start, end)`` that
     :func:`events_ms` reads."""
     global _events
-    _events = got = []
+    got = []
+    _events = (span, got)
     try:
         yield got
     finally:
@@ -129,32 +126,31 @@ def events_ms(events, calls: int) -> float:
 
 
 @contextlib.contextmanager
-def _bracket(card, stream):
-    if _events is None:
+def _bracket(cards, span):
+    """Events on each of ``cards``' current streams around the body, where
+    :func:`kernel_events` is active and ``span`` is its kind (None: either
+    kind)."""
+    if _events is None or span not in (None, _events[0]):
         yield
         return
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record(stream)
+    starts = []
+    for card in cards:
+        starts.append((card, torch.cuda.Event(enable_timing=True)))
+        starts[-1][1].record(torch.cuda.current_stream(card))
     yield
-    end.record(stream)
-    _events.append((card, start, end))
+    for card, start in starts:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(card))
+        _events[1].append((card, start, end))
 
 
 def _remote_first(items, is_local) -> list:
-    """``(chunk, n_remote)`` of up to MAX_PEERS items each: the items to
-    other cards first, in their order, then those that stay on the card."""
+    """Chunks of up to MAX_PEERS items: the items to other cards first, in
+    their order, then those that stay on the card."""
     ordered = ([x for x in items if not is_local(x)]
                + [x for x in items if is_local(x)])
-    return [(ordered[at:at + _build.MAX_PEERS],
-             sum(not is_local(x) for x in ordered[at:at + _build.MAX_PEERS]))
+    return [ordered[at:at + _build.MAX_PEERS]
             for at in range(0, len(ordered), _build.MAX_PEERS)]
-
-
-def _interleave(schedule) -> int:
-    schedule = SCHEDULE if schedule is None else schedule
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule is one of {SCHEDULES}, got {schedule!r}")
-    return int(schedule == "interleaved")
 
 
 def _check(xs, mesh) -> None:
@@ -199,9 +195,9 @@ def _launch_by_card(sends, xs, outs, launch) -> None:
     sender, with the shard pairs whose sender sits on it; ``xs`` and
     ``outs`` map shard numbers to tensors.  Each card's
     stream first waits for its receivers' streams on other cards, then
-    ``launch(pairs, n_remote, stream)`` runs once per
+    ``launch(pairs, stream)`` runs once per
     :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs on it (those to other
-    cards first, ``n_remote`` of them), and every such receiver's stream
+    cards first), and every such receiver's stream
     waits for it after."""
     waits = []
     current = torch.cuda.current_device()
@@ -216,12 +212,13 @@ def _launch_by_card(sends, xs, outs, launch) -> None:
                 _enable_peer(dev, to)
                 waits.append((torch.cuda.current_stream(to), stream))
                 stream.wait_stream(waits[-1][0])
-        # switching the device costs as much host time as the launch
+        # switching the device costs as much host time as the launch; in
+        # one process the launches are the whole call
         with (torch.cuda.device(dev) if dev.index != current
-              else contextlib.nullcontext()), _bracket(dev, stream):
-            for chunk, n_remote in _remote_first(
+              else contextlib.nullcontext()), _bracket([dev], None):
+            for chunk in _remote_first(
                     pairs, lambda ij: outs[ij[1]].device == dev):
-                launch(chunk, n_remote, stream.cuda_stream)
+                launch(chunk, stream.cuda_stream)
     for receiver, sender in waits:
         receiver.wait_stream(sender)
 
@@ -258,10 +255,9 @@ def ring_permute_right(xs, mesh, axis: str, *, out=None,
     nbytes = xs[0].numel() * xs[0].element_size()
     lib = _build.library() if not plain else None
 
-    def launch(pairs, n_remote, stream, staged=False):
-        # K7a's pairs in one range, pair after pair, whatever n_remote
-        arg = _pairs(pairs)
-        _build.check(lib.dcs_ring(arg, len(pairs), nbytes, stream), "dcs_ring")
+    def launch(pairs, stream, staged=False):
+        _build.check(lib.dcs_ring(_pairs(pairs), len(pairs), nbytes, stream),
+                     "dcs_ring")
         ring_permute_right.launches += 1
         ring_permute_right.staged_launches += staged
 
@@ -273,9 +269,9 @@ def ring_permute_right(xs, mesh, axis: str, *, out=None,
                               _launcher(launch, plain, place))
     outs = {d: torch.empty_like(xs_g[d]) for d in loc}
     _launch_by_card(mesh.ring_sends(axis), xs_g, outs,
-                    lambda pairs, n_remote, st: launch(
+                    lambda pairs, st: launch(
                         [(xs_g[i].data_ptr(), outs[j].data_ptr())
-                         for i, j in pairs], n_remote, st))
+                         for i, j in pairs], st))
     return [outs[d] for d in mesh.local_shards]
 
 
@@ -310,8 +306,7 @@ def _block(xs, n: int, rows: int) -> int:
 
 
 def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
-               impl: str = "auto", place: str = "kernel",
-               schedule: str = None) -> list:
+               impl: str = "auto", place: str = "kernel") -> list:
     """Direct-send all-to-all on the leading axis over ``axis`` (K7b):
     output row-block s of shard ``my`` is shard s's row-block ``my``; with
     ``rows > 1``, each row-block cut into ``rows`` rows, the receivers'
@@ -321,11 +316,8 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
     (a :class:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers` of the
     shards' size, required on the card there and refused in one process;
     on the CPU it takes the staged route's bookkeeping).  ``place``: as
-    :func:`ring_permute_right`'s.  ``schedule``: how the tiles of the
-    pairs to other cards are numbered, one of :data:`SCHEDULES`
-    (default :data:`SCHEDULE`)."""
+    :func:`ring_permute_right`'s."""
     _check(xs, mesh)
-    interleave = _interleave(schedule)
     groups = mesh.groups(axis)
     n = len(groups[0])
     block = _block(xs, n, rows)
@@ -343,10 +335,10 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
     sends = mesh.all_to_all_sends(axis)
     lib = _build.library() if not plain else None
 
-    def launch(pairs, n_remote, stream, staged=False):
-        _build.check(lib.dcs_all_to_all(_pairs(pairs), len(pairs), n_remote,
-                                        interleave, rows, row_bytes, pitch,
-                                        stream), "dcs_all_to_all")
+    def launch(pairs, stream, staged=False):
+        _build.check(lib.dcs_all_to_all(_pairs(pairs), len(pairs), rows,
+                                        row_bytes, pitch, stream),
+                     "dcs_all_to_all")
         all_to_all.launches += 1
         all_to_all.staged_launches += staged
 
@@ -361,10 +353,10 @@ def all_to_all(xs, mesh, axis: str, *, rows: int = 1, out=None,
                               _launcher(launch, plain, place))
     outs = {d: torch.empty_like(xs_g[d]) for d in loc}
 
-    def by_card(pairs, n_remote, stream):
+    def by_card(pairs, stream):
         launch([(xs_g[i].data_ptr() + offsets(i, j)[0],
                  outs[j].data_ptr() + offsets(i, j)[1]) for i, j in pairs],
-               n_remote, stream)
+               stream)
 
     _launch_by_card(sends, xs_g, outs, by_card)
     return [outs[d] for d in mesh.local_shards]
@@ -472,20 +464,24 @@ def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
                 here.setdefault(card, []).append(
                     (as_bytes(xs_g[i])[offsets(i, j)[0]:][:nbytes], j,
                      offsets(i, j)[1]))
-    out.ready()
-    for card, blocks in here.items():
-        _place(out, card, blocks, geometry, launch)
-    if out.staged is not None:
-        blocks = staged_round(mesh, out, xs_g, sends, pairs, offsets, nbytes)
-        cards = [out.views[j].device for _, j, _ in blocks]
-        if launch is not None:
-            blocks = [(d, j, off) for d, (_, j, off) in zip(
-                out.staged.land([b for b, _, _ in blocks], cards), blocks)]
-        for card in dict.fromkeys(cards):
-            _place(out, card, [b for b, c in zip(blocks, cards)
-                               if c == card], geometry, launch, staged=True)
-        out.staged.release()
-    out.done()
+    with _bracket(out.cards if out.cuda else [], True):
+        out.ready()
+        for card, blocks in here.items():
+            _place(out, card, blocks, geometry, launch)
+        if out.staged is not None:
+            blocks = staged_round(mesh, out, xs_g, sends, pairs, offsets,
+                                  nbytes)
+            cards = [out.views[j].device for _, j, _ in blocks]
+            if launch is not None:
+                blocks = [(d, j, off) for d, (_, j, off) in zip(
+                    out.staged.land([b for b, _, _ in blocks], cards),
+                    blocks)]
+            for card in dict.fromkeys(cards):
+                _place(out, card, [b for b, c in zip(blocks, cards)
+                                   if c == card], geometry, launch,
+                       staged=True)
+            out.staged.release()
+        out.done()
     return list(out.local)
 
 
@@ -531,10 +527,9 @@ def _place(out, card, blocks, geometry, launch, staged: bool = False) -> None:
             for src, j, off in blocks]
     with torch.cuda.device(card):
         stream = torch.cuda.current_stream(card)
-        with _bracket(card, stream):
-            for chunk, n_remote in _remote_first(ptrs, lambda p: p[2]):
-                launch([p[:2] for p in chunk], n_remote, stream.cuda_stream,
-                       staged)
+        with _bracket([card], False):
+            for chunk in _remote_first(ptrs, lambda p: p[2]):
+                launch([p[:2] for p in chunk], stream.cuda_stream, staged)
 
 
 def _exchange(xs, mesh, moves: dict, cut) -> dict:

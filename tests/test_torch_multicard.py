@@ -161,33 +161,48 @@ def test_mesh_time_local_keeps_the_halo_on_the_rank(rank):
 
 
 def test_ipc_maps_a_peer_buffer_on_the_writing_card(monkeypatch):
-    """A peer's handle is rebuilt in the context of this rank's card that
-    writes into it, not on the exporter's device index, and without a
-    wait on the producer's event (the exporter synchronised); the other
-    arguments pass through."""
-    import functools
-    import inspect
+    """A peer's handle is opened in the context of this rank's card that
+    uses it, not on the exporter's device index, once a handle and card
+    for the process (another buffer in the same allocation, or another
+    SharedBuffers, reuses it), and close_all closes each mapping once in
+    its card's context."""
+    import contextlib
+    import types
     import torch
-    from torch.multiprocessing import reductions
     from dc_sand_tpu_torch.parallel import ipc
-    real = reductions.rebuild_cuda_tensor
-    names = list(inspect.signature(real).parameters)
-    got = {}
+    current, opened, closed = [None], [], []
 
-    @functools.wraps(real)
-    def fake(*args):
-        got.update(zip(names, args))
-        return "view"
+    @contextlib.contextmanager
+    def device(card):
+        was, current[0] = current[0], card.index
+        yield
+        current[0] = was
 
-    monkeypatch.setattr(reductions, "rebuild_cuda_tensor", fake)
-    args = [f"arg{i}" for i in range(len(names))]
-    args[names.index("storage_device")] = 3
-    args[names.index("event_sync_required")] = True
-    assert ipc._open(tuple(args), 1, 2, torch.device("cuda", 1)) == "view"
-    assert got["storage_device"] == 1
-    assert got["event_sync_required"] is False
-    assert all(got[k] == a for k, a in zip(names, args)
-               if k not in ("storage_device", "event_sync_required"))
+    def dcs_ipc_open(handle, ptr):
+        opened.append((handle, current[0]))
+        ptr._obj.value = 4096 * len(opened)
+        return 0
+
+    def dcs_ipc_close(ptr):
+        closed.append((ptr, current[0]))
+        return 0
+
+    lib = types.SimpleNamespace(dcs_ipc_open=dcs_ipc_open,
+                                dcs_ipc_close=dcs_ipc_close)
+    monkeypatch.setattr(ipc, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(ipc, "_MAPS", {})
+    monkeypatch.setattr(ipc, "_OPEN", [])
+    h = b"h" * ipc.HANDLE_BYTES
+    c1, c3 = torch.device("cuda", 1), torch.device("cuda", 3)
+    assert ipc._ipc_open(h, c1, "x") == 4096
+    assert ipc._ipc_open(h, c1, "x") == 4096
+    assert ipc._ipc_open(h, c3, "x") == 8192
+    assert opened == [(h, 1), (h, 3)]
+    ipc._OPEN.append(types.SimpleNamespace(cuda=False, _own_flags={}))
+    monkeypatch.setattr(ipc.dist, "barrier", lambda: None)
+    ipc.close_all()
+    assert closed == [(4096, 1), (8192, 3)] and ipc._MAPS == {}
 
 
 # ---- the ranks --------------------------------------------------------------

@@ -289,8 +289,12 @@ phase 6's and 36's; run(), the device step, the barriers, the idle
 share over all cards), K7b in corner-turn mode and K7a across the cards
 bitwise their plain versions, beside ``copy_`` on the same route, K7b's
 block mode and, with one card a rank, NCCL's ``all_to_all_single`` on
-the same shards.  2 ranks of 2 cards also: SP fx64 with the time axis
-inside each rank (its halo card to card), beam64 on 2 chunks replicated
+the same shards (K7a: NCCL's ring step, ``batch_isend_irecv``); K7a's
+flag words a card waits on a call (its rounds are its ring's pairs: none
+where the ring stays inside each rank, which is checked) and its
+kernel's own ``sent`` signals landed.  2 ranks of 2 cards also: SP fx64
+with the time axis inside each rank (its halo card to card, with no
+flag round of the halo's, checked), beam64 on 2 chunks replicated
 and beam-parallel (>= 100 dB from one card's, bitwise the one-process
 mesh's), the cut of a chunk to a rank's cards, and a per-rank
 checkpoint resumed in a fresh runner to phase 6's sha256.  Phases 14-18
@@ -463,7 +467,8 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     import torch
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.parallel import (SharedBuffers, StagedRoute,
-                                            local_antenna_range)
+                                            local_antenna_range,
+                                            ring_permute_right)
     from dc_sand_tpu_torch.profile_step import production_runner
     n_t = mesh.shape["time"]
     cfg = get_config("fx64").replace(time_shards=n_t)
@@ -493,7 +498,7 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
         raise RuntimeError(f"{label}: the dump's sha256 is not "
                            + ("phase 6's" if coarse_on_host else "phase 36's"))
     b0, c0 = SharedBuffers.barrier_s, SharedBuffers.barriers
-    f0 = SharedBuffers.flag_rounds
+    f0, h0 = SharedBuffers.flag_rounds, ring_permute_right.flag_rounds
     s0 = (StagedRoute.sent_bytes + StagedRoute.received_bytes,
           StagedRoute.seconds)
     torch.cuda.synchronize()
@@ -504,12 +509,14 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     barrier_ms = (SharedBuffers.barrier_s - b0) / n * 1e3
     barriers = (SharedBuffers.barriers - c0) / n
     flag_rounds = (SharedBuffers.flag_rounds - f0) / n
+    halo_rounds = (ring_permute_right.flag_rounds - h0) / n
     staged_mb = (StagedRoute.sent_bytes + StagedRoute.received_bytes
                  - s0[0]) / n / 1e6
     staged_ms = (StagedRoute.seconds - s0[1]) / n * 1e3
     out = {"launches": launches, "step_ms": step_ms,
            "barrier_ms": barrier_ms, "barriers": barriers,
-           "flag_rounds": flag_rounds, "staged_mb": staged_mb,
+           "flag_rounds": flag_rounds, "halo_flag_rounds": halo_rounds,
+           "staged_mb": staged_mb,
            "staged_ms": staged_ms}
     if step:
         frames = chunks[0].reshape(-1, cfg.spectra_per_chunk, cfg.fft_size)
@@ -525,6 +532,8 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
           f"steady run() per chunk {step_ms:.3f} ms, of it {barriers:.1f} "
           f"gloo barriers {barrier_ms:.3f} ms host time, {flag_rounds:.1f} "
           "rounds of device flags"
+          + (f" ({halo_rounds:.1f} of them the halo's, K7a)" if n_t > 1
+             else "")
           + (f", staged route {staged_mb:.1f} MB sent and received "
              f"{staged_ms:.3f} ms host time" if staged else "")
           + (f"; device step {out['device_step_ms']:.3f} ms" if step
@@ -585,7 +594,8 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
     import torch
     from dc_sand_tpu_torch.bench.collectives import (cross_bytes,
                                                      kernel_alone_ms,
-                                                     nccl_all_to_all)
+                                                     nccl_all_to_all,
+                                                     nccl_ring_step)
     from dc_sand_tpu_torch.bench.harness import NVLINK_BYTES_S, bound_ms
     from dc_sand_tpu_torch.parallel import (SharedBuffers, all_to_all,
                                             all_to_all_torch,
@@ -650,6 +660,18 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
         out["nccl_ms"], out["nccl_note"], out["nccl_kernel_ms"] = \
             nccl_all_to_all(mesh, mine, got, 5)
         del got
+    if op is not all_to_all:
+        # the flag words a card waits on in one call, the kernel's own
+        # signals landed, and NCCL's ring step beside it
+        waited, rounds = dict(bufs.waited), bufs.flagged_rounds
+        got = op(mine, mesh, axis, out=bufs, impl="cuda")
+        bufs.check_signals()
+        out["flag_words"] = max((bufs.waited[c] - waited[c]
+                                 for c in bufs.waited), default=0)
+        out["flag_rounds"] = bufs.flagged_rounds - rounds
+        out["nccl_ms"], out["nccl_note"], out["nccl_kernel_ms"] = \
+            nccl_ring_step(mesh, axis, mine, got, 5)
+        del got
     if bufs.staged is not None:
         (out["place_ms"], out["place_in_place_ms"], out["place_copy_ms"],
          out["place_mb"]) = _staged_placement_ms(mesh, op, mine, bufs, axis,
@@ -674,6 +696,14 @@ def _rank_kernel_check(mesh, op, xs_of, out_shape, axis, rows, label,
                  if out["nccl_ms"] is not None else
                  f"not run: {out['nccl_note']}") if "block_ms" in out
               else "") + (
+              f"; {out['flag_words']} flag words a card a call in "
+              f"{out['flag_rounds']} flagged rounds, the kernel's signals "
+              "landed; NCCL ring step " + (
+                  f"{out['nccl_ms']:.4f} ms a call, "
+                  f"{out['nccl_kernel_ms']:.4f} ms on the device (bitwise "
+                  "K7a)" if out["nccl_ms"] is not None else
+                  f"not run: {out['nccl_note']}")
+              if "flag_words" in out else "") + (
               f"; the receiver's placement of {out['place_mb']:.1f} MB from "
               f"the pinned slots: landed and placed by the kernel "
               f"{out['place_ms']:.4f} ms, the kernel reading the slots in "
@@ -1198,11 +1228,22 @@ def _phase_40(cards, digest6, digest36, tmp) -> None:
     torch.cuda.empty_cache()
     k7a = _rank_kernel_check(sp, ring_permute_right, *_k7a_case(dev),
                              TIME_AXIS, 1, f"40 ring {layout}")
+    # K7a's rounds are its ring's pairs: a time ring inside each rank takes
+    # no flag, one across ranks a word of each neighbour's a round
+    inside = all(sp.process_of(i) == sp.process_of(j)
+                 for _, ps in sp.ring_sends(TIME_AXIS) for i, j in ps)
+    if (k7a["flag_rounds"] == 0) != inside or k7a["flag_words"] > 2:
+        raise RuntimeError(f"40 {layout}: K7a took {k7a['flag_rounds']} "
+                           f"flagged rounds and {k7a['flag_words']} words a "
+                           "card in one call")
     _rank_result(40, k7a=k7a)
     torch.cuda.empty_cache()
     if len(mesh.local_cards) == 1:
         return
     spx = _fx64_mesh_run(dev, sp, digest6, f"40 fx64 SP {layout}")
+    if spx["halo_flag_rounds"] != 0:
+        raise RuntimeError(f"40 {layout}: the SP halo took "
+                           f"{spx['halo_flag_rounds']} flag rounds a chunk")
     _rank_result(40, sp_run=spx)
     torch.cuda.empty_cache()
     _beam64_ranks(dev, mesh, f"40 beam64 {layout}", 40)
@@ -1353,6 +1394,14 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
                          else f"not run ({k['nccl_note']})" for k in x)
                      + " ms (a call / on the device)" if "block_ms" in x[0]
                      else "")
+                  + ("; NCCL ring step " + ", ".join(
+                      f"{k['nccl_ms']:.4f} / {k['nccl_kernel_ms']:.4f}"
+                      if k["nccl_ms"] is not None
+                      else f"not run ({k['nccl_note']})" for k in x)
+                     + " ms (a call / on the device); flag words a card "
+                     "waits on a call " + ", ".join(
+                         str(k["flag_words"]) for k in x)
+                     if "flag_words" in x[0] else "")
                   + f" ({card})", flush=True)
         if pick(0, "cards") == 1:
             continue
@@ -1360,7 +1409,11 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
         print(f"[40 fx64 SP, beam64, checkpoint {layout}] SP (time inside "
               f"each rank, its halo card to card) dumps phase 6's, run() per "
               "chunk " + ", ".join(f"{x['step_ms']:.3f}" for x in sp)
-              + " ms; beam64 " + ", ".join(
+              + " ms, the halo's flag rounds a chunk " + ", ".join(
+                  f"{x['halo_flag_rounds']:.1f}" for x in sp)
+              + " (all flag rounds a chunk " + ", ".join(
+                  f"{x['flag_rounds']:.1f}" for x in sp)
+              + "); beam64 " + ", ".join(
                   f"{'beam-parallel' if x['ep'] else 'replicated'} "
                   f"{x['snr_beams']:.2f} dB" for r in range(world)
                   for x in ranks[r] if "ep" in x)

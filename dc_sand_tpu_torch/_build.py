@@ -30,7 +30,8 @@ import types
 from pathlib import Path
 
 __all__ = ["library", "build_log", "check", "build_dir", "NVCC_FLAGS",
-           "Pairs", "MAX_PEERS", "ingest_library", "GXX_FLAGS"]
+           "Pairs", "RingFlags", "MAX_PEERS", "ingest_library",
+           "GXX_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +53,15 @@ class Pairs(ctypes.Structure):
                 ("dst", ctypes.c_void_p * MAX_PEERS)]
 
 
+class RingFlags(ctypes.Structure):
+    """``DcsRingFlags`` of ``csrc/remote_dma.cu``: K7a's signals of one
+    launch, passed by value: per pair the receiver's SENT word (None: no
+    flag), the sending card's counters and the round's number."""
+    _fields_ = [("flag", ctypes.c_void_p * MAX_PEERS),
+                ("count", ctypes.c_void_p),
+                ("value", ctypes.c_uint)]
+
+
 # source stem -> its C entry points -> argument types (pointers and the
 # stream as c_void_p, byte counts as c_longlong)
 _SIGNATURES = {
@@ -62,7 +72,7 @@ _SIGNATURES = {
                                   _P]},
     "pfb": {"dcs_pfb": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "remote_dma": {"dcs_all_to_all": [Pairs, _I, _L, _L, _L, _P],
-                   "dcs_ring": [Pairs, _I, _L, _P],
+                   "dcs_ring": [Pairs, _I, _L, RingFlags, _P],
                    "dcs_enable_peer": [_I],
                    "dcs_device_pointer": [_P, ctypes.POINTER(_P)],
                    "dcs_memops_probe": [_I, ctypes.POINTER(_I),

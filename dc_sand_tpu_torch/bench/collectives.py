@@ -46,9 +46,10 @@ NVLink's 450 GB/s each way).  Across ranks that each hold one card of
 their own and one shard, K7b's block-mode record also carries
 ``nccl_ms``: NCCL's ``all_to_all_single`` over a ``nccl`` group of the
 same ranks on the same shards (bitwise checked against K7b), the library
-yardstick, and ``nccl_kernel_ms``, CUDA events around each call alone on
-the device (NCCL's handshake with its peers in it: K7b's ``span_ms`` is
-the like measure); where ranks share a card or hold several shards they
+yardstick (K7a's: NCCL's ring step, ``batch_isend_irecv`` to the right
+neighbour and from the left, bitwise K7a), and ``nccl_kernel_ms``, CUDA
+events around each call alone on the device (NCCL's handshake with its
+peers in it: the kernel's ``span_ms`` is the like measure); where ranks share a card or hold several shards they
 stay None and ``nccl_note`` says why.
 """
 
@@ -69,7 +70,7 @@ from dc_sand_tpu_torch.parallel import (FX_AXIS, SharedBuffers, all_shards,
 from dc_sand_tpu_torch.parallel.remote_dma import events_ms, kernel_events
 
 __all__ = ["bench_collective", "cross_bytes", "nccl_all_to_all",
-           "kernel_alone_ms", "COLLECTIVES"]
+           "nccl_ring_step", "kernel_alone_ms", "COLLECTIVES"]
 
 COLLECTIVES = ("all_to_all", "ppermute", "psum", "psum_scatter",
                "all_gather", "all_to_all_pallas", "ppermute_pallas")
@@ -137,6 +138,52 @@ def kernel_alone_ms(fn, calls: int, warmup: int = 2,
     return events_ms(events, calls)
 
 
+def _nccl_note(mesh, xs):
+    """Why NCCL cannot stand beside K7b or K7a on ``mesh``, or None where
+    every rank holds one shard on a card of its own (collective: every
+    rank reaches the same verdict from the global mesh)."""
+    if not mesh.multiprocess or xs[0].device.type != "cuda":
+        return "one process or the CPU"
+    if len(mesh.local_shards) != 1:
+        return (f"{len(mesh.local_shards)} shards a rank; NCCL's collectives "
+                "move one block a rank")
+    cards = [(mesh.node_of(mesh.process_of(k)), str(dev))
+             for k, dev in enumerate(mesh.flat_devices)]
+    if len(set(cards)) != len(cards):
+        return "ranks share a card"
+    return None
+
+
+def _nccl_time(xs, call, out, want, iters: int, what: str) -> tuple:
+    """``(ms, None, kernel ms)`` of ``call`` on a ``nccl`` group it takes:
+    back-to-back calls, then CUDA events around each call alone (its
+    handshake with the peers in it); ``out`` bitwise ``want`` after."""
+    dev = xs[0].device
+    with torch.cuda.device(dev):
+        group = dist.new_group(backend="nccl")
+        try:
+            wall = time_cuda(lambda: call(group), warmup=2, iters=iters,
+                             device=dev)
+            pairs = []
+            for _ in range(iters):
+                pairs.append([torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)])
+                pairs[-1][0].record()
+                call(group)
+                pairs[-1][1].record()
+            torch.cuda.synchronize(dev)
+            alone = sum(a.elapsed_time(b) for a, b in pairs) / iters
+            out.zero_()
+            call(group)
+            torch.cuda.synchronize(dev)
+            if not torch.equal(out, want):
+                raise RuntimeError(f"NCCL's {what} != the kernel's output "
+                                   "on the same shards")
+        finally:
+            dist.destroy_process_group(group)
+    return wall * 1e3, None, alone
+
+
 def nccl_all_to_all(mesh, xs, got, iters: int) -> tuple:
     """``(ms, note, kernel ms)``: NCCL's ``all_to_all_single`` on this
     rank's shard over a ``nccl`` group of every rank, timed over
@@ -146,42 +193,38 @@ def nccl_all_to_all(mesh, xs, got, iters: int) -> tuple:
     output bitwise K7b's ``got``; else ``(None, why, None)``.
     Collective: every rank reaches the same verdict from the global
     mesh."""
-    if not mesh.multiprocess or xs[0].device.type != "cuda":
-        return None, "one process or the CPU", None
-    if len(mesh.local_shards) != 1:
-        return None, (f"{len(mesh.local_shards)} shards a rank; NCCL's "
-                      "all_to_all_single moves one block a rank"), None
-    cards = [(mesh.node_of(mesh.process_of(k)), str(dev))
-             for k, dev in enumerate(mesh.flat_devices)]
-    if len(set(cards)) != len(cards):
-        return None, "ranks share a card", None
-    dev = xs[0].device
-    with torch.cuda.device(dev):
-        group = dist.new_group(backend="nccl")
-        out = torch.empty_like(xs[0])
+    note = _nccl_note(mesh, xs)
+    if note:
+        return None, note, None
+    out = torch.empty_like(xs[0])
+    return _nccl_time(xs, lambda group: dist.all_to_all_single(
+        out, xs[0], group=group), out, got[0], iters, "all_to_all_single")
 
-        def call():
-            dist.all_to_all_single(out, xs[0], group=group)
 
-        try:
-            wall = time_cuda(call, warmup=2, iters=iters, device=dev)
-            pairs = []
-            for _ in range(iters):
-                pairs.append([torch.cuda.Event(enable_timing=True)
-                              for _ in range(2)])
-                pairs[-1][0].record()
-                call()
-                pairs[-1][1].record()
-            torch.cuda.synchronize(dev)
-            alone = sum(a.elapsed_time(b) for a, b in pairs) / iters
-            call()
-            torch.cuda.synchronize(dev)
-            if not torch.equal(out, got[0]):
-                raise RuntimeError("NCCL's all_to_all_single != K7b's block "
-                                   "mode on the same shards")
-        finally:
-            dist.destroy_process_group(group)
-    return wall * 1e3, None, alone
+def nccl_ring_step(mesh, axis: str, xs, got, iters: int) -> tuple:
+    """``(ms, note, kernel ms)``: NCCL's ring step over ``axis``, K7a's
+    second yardstick: ``batch_isend_irecv`` on a ``nccl`` group of every
+    rank, this rank's shard sent to its right neighbour's rank and its
+    left neighbour's received, timed as :func:`nccl_all_to_all` is, where
+    every rank holds one shard on a card of its own, its output bitwise
+    K7a's ``got``; else ``(None, why, None)``.  Collective."""
+    note = _nccl_note(mesh, xs)
+    if note:
+        return None, note, None
+    d = mesh.local_shards[0]
+    ring = next(g for g in mesh.groups(axis) if d in g)
+    k = len(ring)
+    right = mesh.process_of(ring[(ring.index(d) + 1) % k])
+    left = mesh.process_of(ring[(ring.index(d) - 1) % k])
+    out = torch.empty_like(xs[0])
+
+    def call(group):
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, xs[0], right, group=group),
+                dist.P2POp(dist.irecv, out, left, group=group)]):
+            work.wait()
+
+    return _nccl_time(xs, call, out, got[0], iters, "ring step")
 
 
 def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
@@ -277,10 +320,13 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
             extra["cross_mb"] = cross / 1e6
             extra["gb_s_per_card"] = cross / wall / 1e9
             extra["link_bound_ms"] = cross / NVLINK_BYTES_S * 1e3
-    if op == "all_to_all_pallas" and mesh.multiprocess:
+    if kernel and mesh.multiprocess:
         got = fn(xs)
         (extra["nccl_ms"], extra["nccl_note"],
-         extra["nccl_kernel_ms"]) = nccl_all_to_all(mesh, xs, got, iters)
+         extra["nccl_kernel_ms"]) = (
+            nccl_all_to_all(mesh, xs, got, iters)
+            if op == "all_to_all_pallas"
+            else nccl_ring_step(mesh, FX_AXIS, xs, got, iters))
         if extra["nccl_note"]:
             print(f"collectives: no NCCL yardstick: {extra['nccl_note']}",
                   file=sys.stderr, flush=True)

@@ -33,12 +33,12 @@
 // landing copy and the kernel together (PERF.md §6); but in place it holds
 // the SMs for the whole transfer, landed only for the HBM pass.
 //
-// One kernel serves both: it takes, by value, up to 16 (source, destination)
-// pointer pairs (the JAX package's contract mesh has 16 shards; 256 B of the
-// 4 KB a launch may carry), and every pair moves `rows` rows of `row_bytes`:
-// the source rows contiguous, the destination rows `dst_pitch` bytes apart.
+// Both kernels take, by value, up to 16 (source, destination) pointer pairs
+// (the JAX package's contract mesh has 16 shards; 256 B of the 4 KB a launch
+// may carry).  K7b's (copy_rows) moves `rows` rows of `row_bytes` a pair: the
+// source rows contiguous, the destination rows `dst_pitch` bytes apart.
 // One launch carries every pair whose sender sits on the launching card:
-// K7a's ring step (one row a pair) and K7b's blocks.  K7b in block mode is
+// K7a's ring step (one block a pair) and K7b's blocks.  K7b in block mode is
 // one row a pair (row-block s of sender my lands whole in row-block my of
 // receiver s); in corner-turn mode the sender's block for receiver r is its
 // channels [r k_l, (r + 1) k_l) of the F-engine's operand layout (K, 2, s_l,
@@ -87,11 +87,35 @@
 // device flags (dc_sand_tpu_torch/parallel/ipc.py): a small uint32 buffer a
 // card (dcs_flags_alloc), exported and mapped like the data buffers
 // (dcs_ipc_handle, dcs_ipc_open in the context of each card that writes into
-// it), written by the writer's stream after its kernel (dcs_signal,
-// cuStreamWriteValue32 with its default memory barrier, so the kernel's
-// NVLink stores are visible before the flag) and waited on by the reader's
-// stream (dcs_wait, cuStreamWaitValue32 ">= seq"): the host takes no part,
-// and no kernel spins (two ranks may time-slice one card).
+// it), waited on by the reader's stream (dcs_wait, cuStreamWaitValue32 ">=
+// seq"): the host takes no part, and no kernel spins (two ranks may
+// time-slice one card).  K7b's flags are written by the writer's stream
+// after its kernel (dcs_signal, cuStreamWriteValue32 with its default memory
+// barrier, so the kernel's NVLink stores are visible before the flag), to
+// every card of the node's other ranks.
+//
+// K7a has a kernel of its own (ring_rows) whose semaphores are pairwise, as
+// _ring_kernel's send_sem and recv_sem are: a card waits only on its ring
+// neighbours in other ranks, and the kernel signals its receiver itself, the
+// counterpart of the TPU's DMA engine signalling recv_sem when the copy
+// lands (put with signal).  A launch gets, per pair whose receiver is in
+// another rank of the node, the receiver card's SENT word mapped in the
+// sending card's context, the round's number and a counter on the sending
+// card.  Each CTA finishes its stores, __syncthreads(), and one thread runs
+// fence.acq_rel.sys and adds its tiles to the counter of the pair's word; the
+// CTA whose add completes the word's tiles resets the counter (the next
+// launch on the stream starts after this one) and writes the round's number
+// with st.release.sys.  Pairs that write one word (two shards of a card into
+// two of one peer card) share its counter, so the word is written once all
+// of them have landed.  Without flags ring_rows is a plain copy, launched the
+// same way for one process and for the staged route's receivers.  Its tile
+// schedule is one CTA a tile, as K7b's (DCS_K7A_CTAS_PER_SM > 0 builds a
+// grid of that many CTAs an SM walking the tiles, for
+// dc_sand_tpu_torch/bench/k7a_sizing.py): at the SP halo (8.4 MB a card,
+// 512 tiles of 16 KB, one wave) grids of 1, 2 and 4 CTAs an SM took the
+// same time alone within the spread between runs on four H100 80GB HBM3 at
+// 700 W (0.034-0.057 ms, PERF.md §6), a few microseconds above the plain
+// copy kernel's, whose stores no fence waits for.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -107,6 +131,16 @@
 struct DcsPairs {
   const char* src[DCS_MAX_PEERS];
   char* dst[DCS_MAX_PEERS];
+};
+
+// K7a's signals, one entry a pair of a launch, passed by value: flag[d] the
+// receiver card's SENT word for pair d, mapped in the sending card's context
+// (null: the pair takes no flag), `count` DCS_MAX_PEERS zeroed counters on
+// the sending card, `value` the round's number.
+struct DcsRingFlags {
+  unsigned* flag[DCS_MAX_PEERS];
+  unsigned* count;
+  unsigned value;
 };
 
 namespace {
@@ -181,6 +215,147 @@ int launch(const DcsPairs& pairs, int n_pairs, long long rows, long long row_byt
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifndef DCS_K7A_CTAS_PER_SM
+#define DCS_K7A_CTAS_PER_SM 0
+#endif
+constexpr int kRingCtasPerSm = DCS_K7A_CTAS_PER_SM;
+constexpr unsigned char kNoGroup = 0xFF;
+
+// ring_rows' view of the flags: the pairs that write one word form a group,
+// numbered in the order of their first pair; need[g] is the group's tiles.
+struct RingSignal {
+  unsigned* flag[DCS_MAX_PEERS];
+  unsigned* count;
+  unsigned need[DCS_MAX_PEERS];
+  unsigned char group[DCS_MAX_PEERS];
+  unsigned value;
+};
+
+__device__ __forceinline__ void fence_acq_rel_sys() {
+  asm volatile("fence.acq_rel.sys;" ::: "memory");
+}
+
+__device__ __forceinline__ void store_release_sys(unsigned* at, unsigned value) {
+  asm volatile("st.release.sys.u32 [%0], %1;" ::"l"(at), "r"(value) : "memory");
+}
+
+// This CTA's `tiles` tiles of group g are stored: one thread makes them
+// visible to the whole system, then counts them; the CTA that completes the
+// group resets its counter and writes the round's number into the receiver's
+// word.  Every thread of the CTA calls it with the same arguments.
+__device__ __forceinline__ void signal_tiles(const RingSignal& sig, unsigned g, unsigned tiles) {
+  if (g == kNoGroup || tiles == 0) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence_acq_rel_sys();
+    const unsigned before = atomicAdd(sig.count + g, tiles);
+    if (before + tiles == sig.need[g]) {
+      fence_acq_rel_sys();  // the other CTAs' counted stores come first
+      sig.count[g] = 0;
+      store_release_sys(sig.flag[g], sig.value);
+    }
+  }
+}
+
+// K7a: the whole block of `units` units (16 bytes when kVec, else 1) at
+// pairs.src[d] to pairs.dst[d], d < n_pairs, the tiles numbered pair after
+// pair, CTA b taking tiles b, b + gridDim.x, ... (one a CTA where the grid is
+// the tiles).  kSignal: the pairs of each group signal their receiver once
+// all of them are stored.
+template <bool kVec, bool kSignal>
+__global__ void __launch_bounds__(kThreads)
+    ring_rows(const __grid_constant__ DcsPairs pairs, const __grid_constant__ RingSignal sig,
+              unsigned n_tiles, unsigned tiles_per_pair, long long units) {
+  using Unit = typename std::conditional<kVec, uint4, char>::type;
+  constexpr int kTile = kUnroll * kThreads;
+  unsigned group = kNoGroup, mine = 0;
+  for (unsigned tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const unsigned d = tile / tiles_per_pair;
+    const long long c0 = static_cast<long long>(tile - d * tiles_per_pair) * kTile + threadIdx.x;
+    const Unit* src = reinterpret_cast<const Unit*>(pairs.src[d]);
+    Unit* dst = reinterpret_cast<Unit*>(pairs.dst[d]);
+    Unit v[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i)
+      if (c0 + i * kThreads < units) v[i] = src[c0 + i * kThreads];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i)
+      if (c0 + i * kThreads < units) dst[c0 + i * kThreads] = v[i];
+    if (kSignal) {
+      if (sig.group[d] != group) {
+        signal_tiles(sig, group, mine);
+        group = sig.group[d];
+        mine = 0;
+      }
+      ++mine;
+    }
+  }
+  if (kSignal) signal_tiles(sig, group, mine);
+}
+
+// The SMs of the current device (for the grid of a walking schedule).
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+int launch_ring(const DcsPairs& pairs, int n_pairs, long long nbytes, const DcsRingFlags& flags,
+                void* stream) {
+  if (n_pairs < 1 || n_pairs > DCS_MAX_PEERS || nbytes < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool vec = nbytes % 16 == 0;
+  RingSignal sig{};
+  sig.count = flags.count;
+  sig.value = flags.value;
+  unsigned groups = 0, members[DCS_MAX_PEERS] = {};
+  for (int d = 0; d < n_pairs; ++d) {
+    if (pairs.src[d] == nullptr || pairs.dst[d] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    vec = vec && reinterpret_cast<uintptr_t>(pairs.src[d]) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(pairs.dst[d]) % 16 == 0;
+    sig.group[d] = kNoGroup;
+    if (flags.flag[d] == nullptr) continue;
+    unsigned g = 0;
+    while (g < groups && sig.flag[g] != flags.flag[d]) ++g;
+    if (g == groups) sig.flag[groups++] = flags.flag[d];
+    sig.group[d] = static_cast<unsigned char>(g);
+    ++members[g];
+  }
+  // a flag that no tile would write leaves its receiver waiting: refuse it
+  if (groups > 0 && (flags.count == nullptr || nbytes == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nbytes == 0) return static_cast<int>(cudaGetLastError());
+  const long long units = vec ? nbytes / 16 : nbytes;
+  const long long per = kUnroll * kThreads;
+  const long long tiles_per_pair = (units + per - 1) / per;
+  const long long tiles = n_pairs * tiles_per_pair;
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  for (unsigned g = 0; g < groups; ++g)
+    sig.need[g] = members[g] * static_cast<unsigned>(tiles_per_pair);
+  long long grid = tiles;
+  if (kRingCtasPerSm > 0) {
+    const int sms = sm_count();
+    if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
+    grid = tiles < static_cast<long long>(kRingCtasPerSm) * sms ? tiles
+                                                                : kRingCtasPerSm * sms;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(grid), n = static_cast<unsigned>(tiles),
+                 tp = static_cast<unsigned>(tiles_per_pair);
+  if (vec && groups > 0)
+    ring_rows<true, true><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+  else if (vec)
+    ring_rows<true, false><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+  else if (groups > 0)
+    ring_rows<false, true><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+  else
+    ring_rows<false, false><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The driver's stream memory operations and address range, looked up at run
 // time in the libcuda.so.1 that the CUDA runtime has loaded (the library is
 // not linked against libcuda).  The _v2 entry points are the ones a CUDA 12
@@ -235,9 +410,13 @@ extern "C" int dcs_all_to_all(DcsPairs pairs, int n_pairs, long long rows, long 
 }
 
 // K7a, every sender of one card: the whole block of nbytes at pairs.src[d]
-// goes to pairs.dst[d] (its right neighbour's output), d < n_pairs.
-extern "C" int dcs_ring(DcsPairs pairs, int n_pairs, long long nbytes, void* stream) {
-  return launch(pairs, n_pairs, 1, nbytes, nbytes, stream);
+// goes to pairs.dst[d] (its right neighbour's output), d < n_pairs, and each
+// pair with a flag (flags.flag[d] not null) writes flags.value into it once
+// every pair of that flag is stored (ring_rows).  Launches on the current
+// device, which must own `stream`; returns cudaGetLastError().
+extern "C" int dcs_ring(DcsPairs pairs, int n_pairs, long long nbytes, DcsRingFlags flags,
+                        void* stream) {
+  return launch_ring(pairs, n_pairs, nbytes, flags, stream);
 }
 
 // What `device` offers the device flags: `memops` the driver's

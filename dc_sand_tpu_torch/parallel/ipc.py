@@ -36,6 +36,21 @@ still take turns.  A card without the driver's stream memory operations
 raises: nothing falls back to a host barrier.  Within a rank, cards
 order each other with stream waits.
 
+K7a's semaphores are pairwise, as the TPU kernel's one ``send_sem`` and
+``recv_sem`` pair a copy's two ends: its ``ready`` and ``done`` take the
+ring's (sender, receiver) pairs (:meth:`FlagPlan.paired`).  A card then
+writes a ``consumed`` word only into the cards that write into it, waits
+only on the cards it writes into, and before it reads waits only on its
+senders' ``sent`` words, which the kernel writes itself once its stores
+have landed (``ring_rows`` of ``csrc/remote_dma.cu``: put with signal,
+the counterpart of the DMA engine signalling ``recv_sem``; a failed
+launch raises, and nothing writes them in its place).  A pair inside a
+rank takes no word: stream waits order it, card to card, so a ring that
+stays inside each rank (``time_local``) takes no flag at all.  Every
+rank numbers each round all the same, so the sequence stays aligned.
+K7b, the sums, and every round of a mesh that spans nodes keep the
+node-wide rounds above.
+
 The mapping reaches the processes of one node only.  A rank of another
 node (:meth:`~dc_sand_tpu_torch.parallel.mesh.Mesh.routes`, from the node
 map of :func:`~dc_sand_tpu_torch.parallel.distributed.init_distributed`)
@@ -88,10 +103,11 @@ import time
 import torch
 import torch.distributed as dist
 
+from dc_sand_tpu_torch._build import MAX_PEERS
 from dc_sand_tpu_torch.parallel.staged import StagedRoute
 
 __all__ = ["SharedBuffers", "FlagPlan", "close_all", "uses_shared_buffers",
-           "stream_memops", "pointer_view"]
+           "stream_memops", "pointer_view", "shard_places"]
 
 _OPEN = []      # every SharedBuffers of this process, held until close_all
 _MEMOPS = {}    # card -> (stream memory operations, remote-write flush)
@@ -264,6 +280,15 @@ def _cards_of(mesh, rank: int) -> list:
     return list(dict.fromkeys(flat[d] for d in mesh.shards_of(rank)))
 
 
+def shard_places(mesh) -> dict:
+    """Each shard of ``mesh`` -> ``(its rank, the index of its card among
+    that rank's cards)``: how :class:`FlagPlan` names a card."""
+    cards = [_cards_of(mesh, r) for r in range(mesh.process_count)]
+    flat = mesh.flat_devices
+    return {d: (mesh.process_of(d), cards[mesh.process_of(d)].index(flat[d]))
+            for d in range(mesh.size)}
+
+
 class FlagPlan:
     """The slots of one role's device flags, for one rank: pure
     bookkeeping, no device.  Every card of every rank has a flag buffer
@@ -304,8 +329,39 @@ class FlagPlan:
     def next(self, which: int) -> int:
         """The number of the next round of kind ``which`` (1, 2, ...; the
         driver's ">=" is cyclic, so it may wrap)."""
-        self.seq[which] = (self.seq[which] + 1) & 0xFFFFFFFF
+        self.seq[which] = self.upcoming(which)
         return self.seq[which]
+
+    def upcoming(self, which: int) -> int:
+        """The number that :meth:`next` will give, without taking it (what
+        K7a's kernel writes before the round that waits on it)."""
+        return (self.seq[which] + 1) & 0xFFFFFFFF
+
+    def paired(self, which: int, pairs, where) -> tuple:
+        """K7a's round of kind ``which`` over its ``(sender, receiver)``
+        shard ``pairs``, as ``_ring_kernel``'s semaphores pair a copy's two
+        ends: ``(signals, waits)``, dicts from a card of this rank (its
+        index) to what it writes, ``(peer rank, its card, word)``, and to
+        the words of its own buffer that it waits on.  The word's writer is
+        the receiver in a :data:`CONSUMED` round (its sender waits before it
+        overwrites) and the sender in a :data:`SENT` round (its receiver
+        waits before it reads), at the writer's slot, so each word keeps one
+        writer.  Only a pair whose ends lie in this rank and in one of
+        ``peers`` takes a word; a pair inside a rank takes none.
+        ``where(d)``: ``(rank, card index)`` of shard ``d``."""
+        peers = set(self.peers)
+        signals, waits = {}, {}
+        for i, j in pairs:
+            ends = (where(j), where(i)) if which == CONSUMED else \
+                (where(i), where(j))
+            (rw, cw), (rr, cr) = ends
+            word = self.slot(which, rw, cw)
+            if rw == self.rank and rr in peers:
+                signals.setdefault(cw, set()).add((rr, cr, word))
+            elif rr == self.rank and rw in peers:
+                waits.setdefault(cr, set()).add(word)
+        return ({k: sorted(v) for k, v in signals.items()},
+                {k: sorted(v) for k, v in waits.items()})
 
 
 class SharedBuffers:
@@ -357,6 +413,14 @@ class SharedBuffers:
         self.plan = None        # FlagPlan where the node has other ranks
         self._own_flags = {}    # card -> its flag buffer's address
         self._maps = {}         # (shard, card) -> a peer shard's address
+        self._peer_flags = {}   # (card, rank, its card) -> mapped in card's
+        self._counts = {}       # card -> K7a's counters (ring_rows)
+        self._plans = {}        # K7a's pairs -> their rounds (_paired_round)
+        self._active = None     # the pairs of the K7a call in progress
+        self._last_sent = None  # (seq, {card: words}) of its last SENT wait
+        self.flagged_rounds = 0  # this instance's rounds that took a flag
+        self.waited = {}        # card -> flag words it waited on, here
+        self._events = {}       # (card, other card) -> an event reused
         mine = None
         if ipc:
             counts = [len(_cards_of(mesh, r))
@@ -406,6 +470,10 @@ class SharedBuffers:
                 for key, h in peer_flags.items():
                     mapped[key] = _ipc_open(h, dev, f"rank {key[0]}'s flags "
                                             f"of its card {key[1]}")
+                    self._peer_flags[(dev, *key)] = mapped[key]
+                self._counts[dev] = torch.zeros(MAX_PEERS,
+                                                dtype=torch.int32, device=dev)
+                self.waited[dev] = 0
                 for which in (CONSUMED, SENT):
                     sig = [mapped[(r, c)] + 4 * w
                            for r, c, w in self.plan.signals(which, k)]
@@ -417,6 +485,9 @@ class SharedBuffers:
                         (ctypes.c_ulonglong * len(wait))(*wait), len(wait))
         self._remote = frozenset(d for r in staged for d in mesh.shards_of(r))
         self.staged = StagedRoute(self.cards) if staged else None
+        self._where = shard_places(mesh)
+        # K7a's rounds are its ring's pairs where every peer shares the node
+        self._pairwise = self.plan is not None and self.staged is None
         _OPEN.append(self)
 
     def target(self, d: int, card: torch.device) -> int:
@@ -437,10 +508,14 @@ class SharedBuffers:
         """True when shard ``d`` lies on another node (the staged role)."""
         return d in self._remote
 
-    def _round(self, which: int) -> None:
+    def _round(self, which: int, pairs=None) -> None:
         """One round of kind ``which``: the flags within the node, a gloo
         barrier where the mesh has ranks on other nodes, then each card's
-        stream waits for the rank's other cards'."""
+        stream waits for the rank's other cards'.  With K7a's ``pairs``
+        (:meth:`_paired`) the round is :meth:`_paired_round`."""
+        if pairs is not None:
+            self._paired_round(which, pairs)
+            return
         streams = ([torch.cuda.current_stream(dev) for dev in self.cards]
                    if self.cuda else [])
         lib = _lib() if self.plan is not None else None
@@ -463,6 +538,8 @@ class SharedBuffers:
                 with _current(dev):
                     _check(lib.dcs_wait(stream.cuda_stream, addrs, n, seq),
                            "dcs_wait")
+                self.waited[dev] += n
+            self.flagged_rounds += 1
             SharedBuffers.flag_rounds += 1
         for stream in streams:
             # the rank's other cards: a card writes into, or reads, another's
@@ -470,18 +547,167 @@ class SharedBuffers:
                 if other is not stream:
                     stream.wait_stream(other)
 
-    def ready(self) -> None:
+    def _paired_plan(self, pairs: tuple) -> dict:
+        """K7a's rounds over ``pairs``, by kind, for each card of this rank:
+        ``(signal addresses, their count, wait addresses, the words waited
+        on, the rank's cards whose streams it waits for)``, kept per
+        pairs."""
+        if pairs not in self._plans:
+            rank, got = self.mesh.rank, {}
+            for which in (CONSUMED, SENT):
+                signals, waits = self.plan.paired(which, pairs,
+                                                  self._where.__getitem__)
+                per = {}
+                for k, dev in enumerate(self.cards):
+                    sig = [self._peer_flags[(dev, r, c)] + 4 * w
+                           for r, c, w in signals.get(k, ())]
+                    words = waits.get(k, [])
+                    wait = [self._own_flags[dev] + 4 * w for w in words]
+                    # inside the rank, card to card: the sender's stream
+                    # waits for its receiver's before it writes (consumed),
+                    # the receiver's for its sender's before it reads (sent)
+                    deps = set()
+                    for i, j in pairs:
+                        (ri, ci), (rj, cj) = self._where[i], self._where[j]
+                        if ri == rank == rj and ci != cj:
+                            me, other = (ci, cj) if which == CONSUMED \
+                                else (cj, ci)
+                            if me == k:
+                                deps.add(other)
+                    per[dev] = ((ctypes.c_ulonglong * len(sig))(*sig),
+                                len(sig),
+                                (ctypes.c_ulonglong * len(wait))(*wait),
+                                words, [self.cards[c] for c in sorted(deps)])
+                got[which] = per
+            self._plans[pairs] = got
+        return self._plans[pairs]
+
+    def _paired_round(self, which: int, pairs: tuple) -> None:
+        """K7a's round of kind ``which`` (:meth:`FlagPlan.paired`): each
+        card writes only the words of the cards of other ranks that it is
+        paired with, and waits only on theirs; a pair inside the rank is
+        ordered by a stream wait, card to card, or by the stream of its
+        one card.  A ``consumed`` round's words are stream writes; a
+        ``sent`` round's the kernel wrote (:meth:`ring_flags`), so here
+        only the waits are left.  Every rank numbers the round, flagged or
+        not, so that the sequence stays aligned."""
+        plan = self._paired_plan(pairs)[which]
+        seq = self.plan.next(which)
+        lib = _lib()
+        streams = {dev: torch.cuda.current_stream(dev) for dev in self.cards}
+        flagged = False
+        for dev in self.cards:
+            sig, n_sig = plan[dev][:2]
+            flagged = flagged or n_sig > 0
+            if which == CONSUMED and n_sig:
+                with _current(dev):
+                    _check(lib.dcs_signal(streams[dev].cuda_stream, sig,
+                                          n_sig, seq), "dcs_signal")
+        for dev in self.cards:
+            _, _, wait, words, deps = plan[dev]
+            if words:
+                flagged = True
+                with _current(dev):
+                    _check(lib.dcs_wait(streams[dev].cuda_stream, wait,
+                                        len(words), seq), "dcs_wait")
+                self.waited[dev] += len(words)
+            for other in deps:
+                # an event of its own a pair of cards, recorded anew each
+                # round (a wait takes the event as it stands when enqueued)
+                ev = self._events.get((dev, other))
+                if ev is None:
+                    ev = self._events[(dev, other)] = torch.cuda.Event()
+                ev.record(streams[other])
+                streams[dev].wait_event(ev)
+        if which == SENT:
+            self._last_sent = (seq, {dev: plan[dev][3] for dev in self.cards})
+        if flagged:
+            self.flagged_rounds += 1
+            SharedBuffers.flag_rounds += 1
+
+    def ring_flags(self, card: torch.device, receivers):
+        """Within K7a's paired round (between :meth:`ready` and :meth:`done`
+        with its pairs), K7a's signals for a launch on ``card`` of blocks
+        for shards ``receivers``: ``(flags, counters, value)``, for each
+        receiver in order the address in ``card``'s context of the word
+        the launch writes once its block has landed (``card``'s ``sent``
+        slot in the buffer of the receiver's card; None for this rank's
+        own), the card's counters and the number of the ``sent`` round the
+        launch completes.  None outside such a round."""
+        if self._active is None:
+            return None
+        rank = self.mesh.rank
+        word = 4 * self.plan.slot(SENT, rank, self.cards.index(card))
+        flags = []
+        for j in receivers:
+            rj, cj = self._where[j]
+            flags.append(None if rj == rank
+                         else self._peer_flags[(card, rj, cj)] + word)
+        return (flags, self._counts[card].data_ptr(),
+                self.plan.upcoming(SENT))
+
+    def signal_sent(self, card: torch.device, receivers) -> None:
+        """Write, on ``card``'s stream, the ``sent`` words that its launch
+        for ``receivers`` would write: the ``copy_`` yardstick, which has no
+        kernel to signal (K7a itself never takes this path)."""
+        got = self.ring_flags(card, receivers)
+        flags = sorted({f for f in got[0] if f is not None}) if got else []
+        if flags:
+            with _current(card):
+                _check(_lib().dcs_signal(
+                    torch.cuda.current_stream(card).cuda_stream,
+                    (ctypes.c_ulonglong * len(flags))(*flags), len(flags),
+                    got[2]), "dcs_signal")
+
+    def check_signals(self) -> None:
+        """After the cards are synchronised: raise unless K7a's kernel
+        signals landed, every counter back at 0 and every ``sent`` word
+        that this rank's cards last waited on at least that round's
+        number (the stream waits passed on them)."""
+        for dev in self.cards:
+            torch.cuda.synchronize(dev)
+        for dev, count in self._counts.items():
+            if int(count.count_nonzero()):
+                raise RuntimeError(f"rank {self.mesh.rank}: K7a's counters "
+                                   f"on {dev} read {count.tolist()}, not 0")
+        if self._last_sent is None:
+            return
+        seq, words = self._last_sent
+        for dev in self.cards:
+            flags = pointer_view(self._own_flags[dev], 8 * self.plan.width,
+                                 dev).view(torch.int32).cpu()
+            for w in words[dev]:
+                got = int(flags[w]) & 0xFFFFFFFF
+                if (got - seq) & 0xFFFFFFFF >= 1 << 31:
+                    raise RuntimeError(
+                        f"rank {self.mesh.rank}: {dev}'s sent word {w} reads "
+                        f"{got}, behind round {seq}")
+
+    def _paired(self, pairs):
+        """``pairs`` as a tuple where K7a's paired rounds apply (a mesh
+        within one node), else None (a node-wide round)."""
+        return tuple(pairs) if pairs is not None and self._pairwise else None
+
+    def ready(self, pairs=None) -> None:
         """Before writing into any rank's buffers: each of this rank's
         cards signals that its reads so far are done (``consumed``), and
         its stream waits for every peer card's signal of the same round
-        and for the rank's other cards'."""
-        self._round(CONSUMED)
+        and for the rank's other cards'.  K7a passes its ``(sender,
+        receiver)`` shard ``pairs`` (:meth:`_paired_round`): then a card
+        signals only the cards that write into it and waits only on those
+        it writes into, and its launch signals ``sent`` itself
+        (:meth:`ring_flags`).  Each of the buffers written in such a round
+        is read by its own rank only."""
+        self._active = self._paired(pairs)
+        self._round(CONSUMED, self._active)
 
-    def done(self) -> None:
+    def done(self, pairs=None) -> None:
         """After the writes: each card signals ``sent``, and its stream
         waits for every peer card's writes of the round and for the
-        rank's other cards' before it reads."""
-        self._round(SENT)
+        rank's other cards' before it reads; with K7a's ``pairs`` only for
+        its senders' (their kernels signalled)."""
+        self._round(SENT, self._paired(pairs))
+        self._active = None
 
     def fetch(self, need) -> None:
         """Fill the mirrors of the other nodes' shards that this rank
@@ -536,6 +762,8 @@ def close_all() -> None:
         own += list(bufs._own_flags.items())
         bufs.views = None
         bufs._maps, bufs._own_flags = {}, {}
+        bufs._peer_flags, bufs._counts, bufs._plans = {}, {}, {}
+        bufs._events = {}
         bufs.plan = None
         bufs.staged = None
     _OPEN.clear()

@@ -65,7 +65,13 @@ the route of each pair of ranks is the mesh's
 Every launch adds one to the op's ``launches`` (a receiver's launch across
 nodes to its ``staged_launches`` as well); ``out.ready()`` before and
 ``out.done()`` after order the writes against every rank's reads in place
-of the stream waits (device flags within a node, :mod:`.ipc`).  On CPU
+of the stream waits (device flags within a node, :mod:`.ipc`).  K7a's
+rounds within a node are its ring's pairs only, as ``_ring_kernel``'s
+semaphores are: a card waits only on its ring neighbours in other
+ranks, its launch (``ring_rows``) writes each such receiver's ``sent``
+flag itself once its stores have landed, and a pair inside a rank takes
+a stream wait and no flag (``ring_permute_right.flag_rounds`` counts the
+rounds that took one).  On CPU
 tensors with ``out`` (a mesh whose peers are all on other nodes) the same
 staged bookkeeping runs with the kernel's plain version
 (:func:`place_rows_torch`) placing the blocks.  The plain
@@ -255,18 +261,21 @@ def ring_permute_right(xs, mesh, axis: str, *, out=None,
     nbytes = xs[0].numel() * xs[0].element_size()
     lib = _build.library() if not plain else None
 
-    def launch(pairs, stream, staged=False):
-        _build.check(lib.dcs_ring(_pairs(pairs), len(pairs), nbytes, stream),
-                     "dcs_ring")
+    def launch(pairs, stream, staged=False, flags=None):
+        _build.check(lib.dcs_ring(_pairs(pairs), len(pairs), nbytes,
+                                  _ring_flags(flags), stream), "dcs_ring")
         ring_permute_right.launches += 1
         ring_permute_right.staged_launches += staged
 
     if out is not None:
-        ring = [(g[k], g[(k + 1) % len(g)]) for g in mesh.groups(axis)
-                for k in range(len(g))]
-        return _launch_shared(mesh, out, xs_g, mesh.ring_sends(axis), ring,
-                              lambda i, j: (0, 0), (1, nbytes, nbytes),
-                              _launcher(launch, plain, place))
+        ring = tuple((g[k], g[(k + 1) % len(g)]) for g in mesh.groups(axis)
+                     for k in range(len(g)))
+        before = out.flagged_rounds
+        got = _launch_shared(mesh, out, xs_g, mesh.ring_sends(axis), ring,
+                             lambda i, j: (0, 0), (1, nbytes, nbytes),
+                             _launcher(launch, plain, place), paired=True)
+        ring_permute_right.flag_rounds += out.flagged_rounds - before
+        return got
     outs = {d: torch.empty_like(xs_g[d]) for d in loc}
     _launch_by_card(mesh.ring_sends(axis), xs_g, outs,
                     lambda pairs, st: launch(
@@ -277,6 +286,19 @@ def ring_permute_right(xs, mesh, axis: str, *, out=None,
 
 ring_permute_right.launches = 0
 ring_permute_right.staged_launches = 0     # of them, receivers' across nodes
+ring_permute_right.flag_rounds = 0         # its rounds that took a flag word
+
+
+def _ring_flags(flags) -> _build.RingFlags:
+    """``(per-pair flag addresses, counters, value)`` or None -> the
+    kernel's by-value signals (no flag: a plain copy)."""
+    arg = _build.RingFlags()
+    if flags is not None:
+        addrs, count, value = flags
+        for k, addr in enumerate(addrs):
+            arg.flag[k] = addr
+        arg.count, arg.value = count, value
+    return arg
 
 
 def ring_permute_right_torch(xs, mesh, axis: str) -> list:
@@ -431,7 +453,7 @@ def staged_round(mesh, out, xs_g, sends, pairs, offsets, nbytes) -> list:
 
 
 def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
-                   launch) -> list:
+                   launch, paired: bool = False) -> list:
     """The kernel over a multi-process mesh: ``sends`` holds this rank's
     senders grouped by their card (:meth:`~dc_sand_tpu_torch.parallel.
     mesh.Mesh.ring_sends`), ``pairs`` every (sender, receiver) pair of the
@@ -447,7 +469,10 @@ def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
     the ``copy_`` yardstick) :func:`place_rows_torch` stands for each
     launch, from the slots, and counts none.  ``out.ready()`` before and
     ``out.done()`` after order the writes against every rank's, and every
-    card's, use of the buffers."""
+    card's, use of the buffers; ``paired`` (K7a) passes them ``pairs``,
+    so that within a node a card waits only on the cards it is paired
+    with and each launch signals its receivers itself
+    (:meth:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers.ready`)."""
     rows, row_bytes, _ = geometry
     nbytes = rows * row_bytes
     for card, ps in sends:
@@ -456,18 +481,21 @@ def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
                 raise ValueError(f"shard {i} lies on {xs_g[i].device}, its "
                                  f"mesh device is {card}")
     # each block launches on its sender's card, which writes every
-    # receiver of the node directly: the source is read in place
+    # receiver of the node directly: the source is read in place (a whole
+    # shard, K7a's block, as it is)
     here = {}
     for card, ps in sends:
         for i, j in ps:
             if not out.remote(j):
-                here.setdefault(card, []).append(
-                    (as_bytes(xs_g[i])[offsets(i, j)[0]:][:nbytes], j,
-                     offsets(i, j)[1]))
+                src, (at, dst_at) = xs_g[i], offsets(i, j)
+                if at or nbytes != src.numel() * src.element_size():
+                    src = as_bytes(src)[at:][:nbytes]
+                here.setdefault(card, []).append((src, j, dst_at))
+    round_pairs = pairs if paired else None
     with _bracket(out.cards if out.cuda else [], True):
-        out.ready()
+        out.ready(round_pairs)
         for card, blocks in here.items():
-            _place(out, card, blocks, geometry, launch)
+            _place(out, card, blocks, geometry, launch, signal=paired)
         if out.staged is not None:
             blocks = staged_round(mesh, out, xs_g, sends, pairs, offsets,
                                   nbytes)
@@ -481,7 +509,7 @@ def _launch_shared(mesh, out, xs_g, sends, pairs, offsets, geometry,
                                    if c == card], geometry, launch,
                        staged=True)
             out.staged.release()
-        out.done()
+        out.done(round_pairs)
     return list(out.local)
 
 
@@ -493,14 +521,19 @@ def _launcher(launch, plain: bool, place: str):
     return None if plain or place == "copy" else launch
 
 
-def _place(out, card, blocks, geometry, launch, staged: bool = False) -> None:
-    """``(source bytes, receiver, byte offset)`` blocks, each source on
-    ``card``, into ``out``'s buffers, launched on ``card``'s current
+def _place(out, card, blocks, geometry, launch, staged: bool = False,
+           signal: bool = False) -> None:
+    """``(source, receiver, byte offset)`` blocks (a source's bytes, each
+    on ``card``) into ``out``'s buffers, launched on ``card``'s current
     stream: the kernel's ``launch`` (up to
     :data:`~dc_sand_tpu_torch._build.MAX_PEERS` pairs a launch, those to
     other cards first, each destination at its address in ``card``'s
     context; ``staged`` counts them as the receiver's launches across
-    nodes), or with ``launch`` None its plain version."""
+    nodes), or with ``launch`` None its plain version.  ``signal`` (K7a):
+    the launch writes the ``sent`` flags of its receivers in other ranks
+    (:meth:`~dc_sand_tpu_torch.parallel.ipc.SharedBuffers.ring_flags`),
+    all of them in one launch; the plain version's stream writes them
+    after its copies."""
     if not blocks:
         return
     if launch is None:
@@ -511,7 +544,12 @@ def _place(out, card, blocks, geometry, launch, staged: bool = False) -> None:
             to = out.views[j].device
             if src.is_cuda and src.device != to:
                 src = src.to(to)
-            place_rows_torch(src, out.views[j], off, *geometry)
+            place_rows_torch(as_bytes(src), out.views[j], off, *geometry)
+        if signal and out.cuda:
+            stream = torch.cuda.current_stream(card)
+            for to in {out.views[j].device for _, j, _ in blocks} - {card}:
+                stream.wait_stream(torch.cuda.current_stream(to))
+            out.signal_sent(card, [j for _, j, _ in blocks])
         return
     mine = out.mesh.rank
     local = {}
@@ -523,13 +561,24 @@ def _place(out, card, blocks, geometry, launch, staged: bool = False) -> None:
         if own:
             _enable_peer(card, out.views[j].device)
         local[j] = own and out.views[j].device == card
-    ptrs = [(src.data_ptr(), out.target(j, card) + off, local[j])
+    if signal and len(blocks) > _build.MAX_PEERS:
+        raise ValueError(f"K7a signals its receivers from one launch a "
+                         f"card: {len(blocks)} blocks on {card}, at most "
+                         f"{_build.MAX_PEERS}")
+    ptrs = [(src.data_ptr(), out.target(j, card) + off, local[j], j)
             for src, j, off in blocks]
-    with torch.cuda.device(card):
+    # switching the device costs as much host time as the launch
+    with (torch.cuda.device(card) if card.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         stream = torch.cuda.current_stream(card)
         with _bracket([card], False):
             for chunk in _remote_first(ptrs, lambda p: p[2]):
-                launch([p[:2] for p in chunk], stream.cuda_stream, staged)
+                pairs = [p[:2] for p in chunk]
+                if signal:
+                    launch(pairs, stream.cuda_stream, staged,
+                           out.ring_flags(card, [p[3] for p in chunk]))
+                else:
+                    launch(pairs, stream.cuda_stream, staged)
 
 
 def _exchange(xs, mesh, moves: dict, cut) -> dict:

@@ -234,15 +234,18 @@ def rank_main(argv) -> int:
 
 # ---- the tests --------------------------------------------------------------
 
-def spawn(test_file, tmp, modes, world=2, timeout=240, nodes=None):
+def spawn(test_file, tmp, modes, world=2, timeout=240, nodes=None,
+          env=None):
     """Run ``world`` ranks of ``test_file``'s ``__main__`` over the modes
-    (on ``nodes`` nodes of this host, as ``run_ranks`` forms them);
-    returns each rank's output, after asserting that every rank passed."""
+    (on ``nodes`` nodes of this host, as ``run_ranks`` forms them; ``env``
+    added to each rank's environment); returns each rank's output, after
+    asserting that every rank passed."""
     from dc_sand_tpu_torch.parallel.launch import run_ranks
     store = os.path.join(tmp, "store")
     results = run_ranks([sys.executable, test_file, store, str(tmp),
                          *modes], world, timeout=timeout,
-                        env={"OMP_NUM_THREADS": "2"}, nodes=nodes)
+                        env={"OMP_NUM_THREADS": "2", **(env or {})},
+                        nodes=nodes)
     for rank, res in enumerate(results):
         assert res.returncode == 0, f"rank {rank}:\n{res.output}"
     return [res.output for res in results]

@@ -7,15 +7,20 @@ pair first and apart); the bookkeeping of the flag rounds
 (:class:`~dc_sand_tpu_torch.parallel.ipc.FlagPlan`): which words each
 card of each rank writes and waits for over many rounds of two roles,
 with several cards a rank, ranks running ahead of each other and the
-sequence wrapping; ``cli ... --distributed`` without ``--mesh`` building
+sequence wrapping; K7a's rounds paired with its ring (each card waits
+only on its ring neighbours in other ranks, a pair inside a rank takes
+no word, one writer a word, the ring the JAX mesh's ring step on the
+same layout), mixed with node-wide rounds across the wrap; ``cli ... --distributed`` without ``--mesh`` building
 one shard a device; the plain K7b and K7a across gloo ranks (one node,
 and two nodes through the staged route's bookkeeping) against the JAX
 package's kernels in interpret mode.
 
 On the card (``cuda``, ``python -m pytest --noconftest
-tests/test_torch_semaphores.py -m cuda``; ranks of one card, or of two
-cards each on four): a thousand flag rounds with no barrier, each
-receiver reading its own round's value and never a stale one; K7b and
+tests/test_torch_semaphores.py -m cuda``; 2 ranks sharing one card, of
+one card each on two, of two cards each on four): a thousand K7a rounds
+with the kernel's own signal and no barrier, each receiver reading its
+own round's value and never a stale one, and with two cards a rank a
+time ring inside each rank that writes and waits on no flag; K7b and
 K7a bitwise their plain versions, launched on the sender's card through
 its own mappings.
 
@@ -151,6 +156,32 @@ def test_k7b_sizing_builds_one_library_a_shape(capsys):
     assert capsys.readouterr().out == ""
 
 
+def test_k7a_sizing_builds_one_library_a_schedule(capsys):
+    """K7a's schedule bench keys a library by its schedule (the port's own
+    build untouched), and without two cards exits 1 with no JSON; the
+    kernel's by-value signals carry each pair's flag, the counters and
+    the round's number, and none without flags."""
+    import torch
+    from dc_sand_tpu_torch import _build
+    from dc_sand_tpu_torch.bench import k7a_sizing
+    from dc_sand_tpu_torch.parallel.remote_dma import _ring_flags
+    paths = {s: k7a_sizing.variant_path(s) for s in k7a_sizing.SCHEDULES}
+    assert len({p for p, _, _ in paths.values()}) == len(paths)
+    so, flags, src = paths["2"]
+    assert src.name == "remote_dma.cu" and so.parent == _build.build_dir()
+    assert flags[-1] == "-DDCS_K7A_CTAS_PER_SM=2"
+    assert paths["tile"][1][-1] == "-DDCS_K7A_CTAS_PER_SM=0"
+    arg = _ring_flags(([4096, None, 8192], 64, 0xFFFFFFFF))
+    assert list(arg.flag)[:4] == [4096, None, 8192, None]
+    assert (arg.count, arg.value) == (64, 0xFFFFFFFF)
+    empty = _ring_flags(None)
+    assert not any(empty.flag) and not empty.count and empty.value == 0
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        pytest.skip("two cards present")
+    assert k7a_sizing.main([]) == 1
+    assert capsys.readouterr().out == ""
+
+
 # ---- the flag rounds --------------------------------------------------------
 
 def _ahead(value: int, seq: int) -> bool:
@@ -238,6 +269,168 @@ def test_flag_rounds_bookkeeping(ranks, cards, start):
             assert len({plan.seq[which] for plan in role}) == 1
 
 
+# ---- K7a's rounds, paired with its ring --------------------------------------
+
+# (ranks, cards a rank, time shards, time_local): phase 40's (b) and (c),
+# 2 x 2 with the time axis across the ranks, and rings of 3 and 4 ranks
+K7A_LAYOUTS = {"b": (4, 1, 2, True), "c": (2, 2, 2, True),
+               "2x2": (2, 2, 2, False), "ring3": (3, 1, 3, False),
+               "ring4": (4, 1, 4, False)}
+
+
+def _k7a_ring(layout):
+    """``(mesh of rank 0, the time ring's (sender, receiver) shards, each
+    shard's (rank, card), the JAX mesh's ring step as (rank, card)
+    pairs)``: the JAX package's mesh over as many CPU devices, laid out
+    alike, its device i standing for card ``i mod cards`` of rank ``i //
+    cards`` (the global device order)."""
+    import jax
+    from dc_sand_tpu.parallel.mesh import build_mesh
+    from dc_sand_tpu_torch.parallel import TIME_AXIS
+    from dc_sand_tpu_torch.parallel.ipc import shard_places
+    ranks, cards, t, local = layout
+    mesh = _mesh(ranks, cards, 0, t, local)
+    ring = tuple(p for _, ps in _all_ring_sends(layout) for p in ps)
+    assert sorted(ring) == sorted(
+        (g[k], g[(k + 1) % len(g)]) for g in mesh.groups(TIME_AXIS)
+        for k in range(len(g)))
+    devs = jax.devices("cpu")[:ranks * cards]
+    jm = build_mesh(devices=devs, time_shards=t, time_local=local)
+    index = {d.id: i for i, d in enumerate(devs)}
+    grid = np.vectorize(lambda d: index[d.id])(jm.devices)
+    jax_pairs = {(divmod(int(grid[tt, f]), cards),
+                  divmod(int(grid[(tt + 1) % t, f]), cards))
+                 for tt in range(t) for f in range(grid.shape[1])}
+    return mesh, ring, shard_places(mesh), jax_pairs
+
+
+def _all_ring_sends(layout):
+    """Every rank's ``Mesh.ring_sends`` over the time axis."""
+    from dc_sand_tpu_torch.parallel import TIME_AXIS
+    ranks, cards, t, local = layout
+    return [s for r in range(ranks)
+            for s in _mesh(ranks, cards, r, t, local).ring_sends(TIME_AXIS)]
+
+
+@pytest.mark.parametrize("layout", sorted(K7A_LAYOUTS))
+def test_k7a_rounds_pair_with_the_ring(layout):
+    """K7a's flag rounds (``FlagPlan.paired``) on each rank of the
+    layout: its ring is the JAX mesh's ring step on the same layout,
+    mapped through the devices; each card waits, in a ``consumed`` round,
+    on exactly the words of its receivers in other ranks and, in a
+    ``sent`` round, on those of its senders in other ranks; a pair inside
+    a rank takes no word (a ring inside each rank, none at all); every
+    word has one writer, and every word written is one its card waits
+    on."""
+    from dc_sand_tpu_torch.parallel.ipc import CONSUMED, SENT, FlagPlan
+    ranks, cards, _, _ = K7A_LAYOUTS[layout]
+    mesh, ring, places, jax_pairs = _k7a_ring(K7A_LAYOUTS[layout])
+    assert {(places[i], places[j]) for i, j in ring} == jax_pairs
+    plans = [FlagPlan([cards] * ranks, r, [p for p in range(ranks)
+                                           if p != r]) for r in range(ranks)]
+    for which in (CONSUMED, SENT):
+        writers, waited = {}, set()
+        for r, plan in enumerate(plans):
+            signals, waits = plan.paired(which, ring, places.__getitem__)
+            want = {}
+            for (ri, ci), (rj, cj) in jax_pairs:
+                if ri == rj:
+                    continue
+                if which == CONSUMED and ri == r:      # a sender waits
+                    want.setdefault(ci, set()).add(plan.slot(which, rj, cj))
+                if which == SENT and rj == r:          # a receiver waits
+                    want.setdefault(cj, set()).add(plan.slot(which, ri, ci))
+            assert {k: set(v) for k, v in waits.items()} == want
+            waited |= {(r, k, w) for k, ws in waits.items() for w in ws}
+            for k, sig in signals.items():
+                for peer, c, word in sig:
+                    assert peer != r and word == plan.slot(which, r, k)
+                    writers.setdefault((peer, c, word), set()).add((r, k))
+        assert all(len(w) == 1 for w in writers.values())
+        assert set(writers) == waited
+        if all(ri == rj for (ri, _), (rj, _) in jax_pairs):
+            assert not writers and not waited
+
+
+def _run_rounds(plans, places, ops, needs, start, seed) -> None:
+    """Step the ranks' rounds ``ops`` (``(paired pairs or None, kind)``,
+    ``places`` each shard's rank and card)
+    in a random interleaving, writing each round's words into a model of
+    every card's flag buffer, and check each wait: it passes exactly when
+    every writer in ``needs(r, pairs, kind)`` has signalled this round or
+    a later one, and never on an earlier round's value."""
+    ranks, width = len(plans), plans[0].width
+    cards = plans[0].counts[0]
+    for plan in plans:
+        plan.seq = [start, start]
+    memory = np.full((ranks, cards, 2 * width), start, dtype=np.uint64)
+    signalled = np.zeros((2, ranks), dtype=np.int64)
+    rng = random.Random(seed)
+    at, pending = [0] * ranks, [None] * ranks
+    while min(at) < len(ops):
+        live = [r for r in range(ranks) if at[r] < len(ops)]
+        r = rng.choice(live)
+        pairs, which = ops[at[r]]
+        plan = plans[r]
+        if pairs is None:
+            signals = {k: plan.signals(which, k) for k in range(cards)}
+            waits = {k: plan.waits(which) for k in range(cards)}
+        else:
+            signals, waits = plan.paired(which, pairs, places.__getitem__)
+        if pending[r] is None:
+            seq = plan.next(which)
+            for sig in signals.values():
+                for peer, c, word in sig:
+                    memory[peer, c, word] = seq
+            signalled[which, r] += 1
+            pending[r] = seq
+            continue
+        seq = pending[r]
+        passes = all(_ahead(int(memory[r, k, w]), seq)
+                     for k, ws in waits.items() for w in ws)
+        rounds = signalled[which, r]
+        done = all(signalled[which, p] >= rounds
+                   for p in needs(r, pairs, which))
+        assert passes == done, (r, which, seq)
+        if passes:
+            pending[r] = None
+            at[r] += 1
+        elif all(pending[p] is not None and at[p] == at[r] for p in live):
+            raise AssertionError("every rank waits: a deadlock")
+    for which in (0, 1):
+        assert len({plan.seq[which] for plan in plans}) == 1
+
+
+@pytest.mark.parametrize("layout,start", [
+    ("b", 0xFFFFFFF0), ("ring3", 0xFFFFFFF0), ("2x2", 0), ("c", 7)])
+def test_k7a_paired_rounds_across_the_wrap(layout, start):
+    """K7a's paired rounds mixed with node-wide rounds (K7b's, the sums')
+    of one role, 120 rounds in one order on every rank, the ranks
+    stepping in a random interleaving across the sequence's wrap: a
+    paired wait passes exactly when the ring neighbours it needs have
+    signalled that round (a node-wide one when every peer has), so the
+    numbering stays aligned though a paired round skips the other
+    ranks."""
+    from dc_sand_tpu_torch.parallel.ipc import CONSUMED, SENT, FlagPlan
+    ranks, cards, _, _ = K7A_LAYOUTS[layout]
+    _, ring, places, jax_pairs = _k7a_ring(K7A_LAYOUTS[layout])
+    plans = [FlagPlan([cards] * ranks, r, [p for p in range(ranks)
+                                           if p != r]) for r in range(ranks)]
+    rng = random.Random(ranks * 7 + cards)
+    ops = [(ring if rng.random() < 0.6 else None, which)
+           for _ in range(60) for which in (CONSUMED, SENT)]
+
+    def needs(r, pairs, which):
+        if pairs is None:
+            return [p for p in range(ranks) if p != r]
+        # consumed: my receivers write; sent: my senders write
+        return sorted({(ri if which == SENT else rj)
+                       for (ri, _), (rj, _) in jax_pairs if ri != rj
+                       and (rj if which == SENT else ri) == r})
+
+    _run_rounds(plans, places, ops, needs, start, ranks + cards)
+
+
 # ---- the ranks --------------------------------------------------------------
 
 def _rank_cli(check, info, outdir, rank):
@@ -305,14 +498,21 @@ def _rank_plain(check, info, outdir, rank):
 
 def _rank_stress(check, info, outdir, rank):
     """:data:`STRESS_ROUNDS` rounds of K7a over the fx ring of every
-    rank's cards with no host barrier: each round's blocks hold the
-    round's number, and each receiver counts, on its stream, the words
-    of its buffer that differ from it (a stale round's value would);
-    one rank sleeps on the card now and then, so that the ranks drift."""
+    rank's cards with no host barrier, each receiver's ``sent`` flag
+    written by the sender's kernel: each round's blocks hold the round's
+    number, and each receiver counts, on its stream, the words of its
+    buffer that differ from it (a stale round's value would); one rank
+    sleeps on the card now and then, so that the ranks drift.  With
+    several cards a rank, then a time ring inside each rank (phase 40's
+    layout (c)): bitwise its plain version, no flag written or waited
+    on.  Before that, two shards of the first card into two of a peer's
+    card, whose one ``sent`` word both launches' pairs share."""
     import torch
-    from dc_sand_tpu_torch.parallel import (FX_AXIS, SharedBuffers,
+    from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS,
+                                            SharedBuffers,
                                             build_global_mesh,
-                                            ring_permute_right)
+                                            ring_permute_right,
+                                            ring_permute_right_torch)
     from dc_sand_tpu_torch.parallel.distributed import local_cards
     mesh = build_global_mesh(local_cards())
     shape = (1 << 16,)
@@ -334,8 +534,46 @@ def _rank_stress(check, info, outdir, rank):
     for d in mesh.local_cards:
         torch.cuda.synchronize(d)
     check("stress_no_stale_value", all(int(b) == 0 for b in bad))
+    bufs.check_signals()
+    check("stress_signals_landed", True)
     check("stress_no_barrier", SharedBuffers.barriers == b0
           and SharedBuffers.flag_rounds - f0 == 2 * STRESS_ROUNDS)
+    # two shards of a card into two of one peer card (phase 33's SP mesh):
+    # both pairs write one word, which the kernel writes once both landed
+    two = build_global_mesh([mesh.local_cards[0]] * 2, time_shards=2)
+    grouped = SharedBuffers(two, shape, torch.int32)
+    ys = [torch.empty(shape, dtype=torch.int32, device=d)
+          for d in two.local_devices]
+    bad = torch.zeros((), dtype=torch.int64, device=two.local_devices[0])
+    for r in range(1, STRESS_ROUNDS // 10 + 1):
+        for d, y in zip(two.local_shards, ys):
+            y.fill_(10 * r + d)
+        got = ring_permute_right(ys, two, TIME_AXIS, out=grouped,
+                                 impl="cuda")
+        want = ring_permute_right_torch(ys, two, TIME_AXIS)
+        for g, w in zip(got, want):
+            bad += (g != w).sum()
+    grouped.check_signals()
+    check("stress_grouped_word", int(bad) == 0
+          and max(grouped.waited.values()) == 2 * STRESS_ROUNDS // 10)
+    if len(mesh.local_cards) == 1:
+        return
+    sp = build_global_mesh(local_cards(), time_shards=2, time_local=True)
+    halo = SharedBuffers(sp, shape, torch.int32)
+    f0, h0 = SharedBuffers.flag_rounds, ring_permute_right.flag_rounds
+    same = True
+    for r in range(1, 11):
+        ys = [torch.full(shape, 1000 * r + d, dtype=torch.int32, device=dev)
+              for d, dev in zip(sp.local_shards, sp.local_devices)]
+        got = ring_permute_right(ys, sp, TIME_AXIS, out=halo, impl="cuda")
+        want = ring_permute_right_torch(ys, sp, TIME_AXIS)
+        for dev in sp.local_cards:
+            torch.cuda.synchronize(dev)
+        same = same and all(torch.equal(g, w) for g, w in zip(got, want))
+    check("inside_ranks_no_flag", same and halo.flagged_rounds == 0
+          and SharedBuffers.flag_rounds == f0
+          and ring_permute_right.flag_rounds == h0
+          and not any(halo.waited.values()))
 
 
 def _rank_schedules(check, info, outdir, rank):
@@ -486,12 +724,25 @@ def card():
 
 
 @pytest.mark.cuda
-def test_flags_thousand_rounds_without_a_barrier(card, tmp_path):
-    """2 ranks (one card each, or sharing one card, or 2 cards each on
-    four): a thousand K7a rounds ordered by the device flags alone, each
-    receiver reading its own round's value and never a stale one."""
-    for out in td.spawn(__file__, tmp_path, ["stress"], timeout=600):
-        for name in ("stress_no_stale_value", "stress_no_barrier"):
+@pytest.mark.parametrize("visible,need", [("0", 1), ("0,1", 2),
+                                          ("0,1,2,3", 4)])
+def test_flags_thousand_rounds_without_a_barrier(card, tmp_path, visible,
+                                                  need):
+    """2 ranks sharing one card, of one card each (two cards shown), and
+    of two cards each (four): a thousand K7a rounds ordered by the device
+    flags alone, each ``sent`` flag written by the kernel, each receiver
+    reading its own round's value and never a stale one; with two cards a
+    rank also a time ring inside each rank that writes and waits on no
+    flag; and two shards of a card into two of one peer card, whose one
+    word the kernel writes once both blocks landed."""
+    if card < need:
+        pytest.skip(f"needs {need} cards, {card} present")
+    for out in td.spawn(__file__, tmp_path, ["stress"], timeout=600,
+                        env={"CUDA_VISIBLE_DEVICES": visible}):
+        names = ["stress_no_stale_value", "stress_signals_landed",
+                 "stress_no_barrier", "stress_grouped_word"]
+        names += ["inside_ranks_no_flag"] if need == 4 else []
+        for name in names:
             assert f"PASS {name}\n" in out, out
 
 

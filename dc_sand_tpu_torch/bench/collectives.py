@@ -50,12 +50,15 @@ yardstick (K7a's: NCCL's ring step, ``batch_isend_irecv`` to the right
 neighbour and from the left, bitwise K7a), and ``nccl_kernel_ms``, CUDA
 events around each call alone on the device (NCCL's handshake with its
 peers in it: the kernel's ``span_ms`` is the like measure); where ranks share a card or hold several shards they
-stay None and ``nccl_note`` says why.
+stay None and ``nccl_note`` says why.  ``host_us`` is the host's part
+of a kernel's call (:func:`host_us`), what bounds the call where the
+device's part is shorter.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 import torch
 import torch.distributed as dist
@@ -70,7 +73,7 @@ from dc_sand_tpu_torch.parallel import (FX_AXIS, SharedBuffers, all_shards,
 from dc_sand_tpu_torch.parallel.remote_dma import events_ms, kernel_events
 
 __all__ = ["bench_collective", "cross_bytes", "nccl_all_to_all",
-           "nccl_ring_step", "kernel_alone_ms", "COLLECTIVES"]
+           "nccl_ring_step", "kernel_alone_ms", "host_us", "COLLECTIVES"]
 
 COLLECTIVES = ("all_to_all", "ppermute", "psum", "psum_scatter",
                "all_gather", "all_to_all_pallas", "ppermute_pallas")
@@ -136,6 +139,24 @@ def kernel_alone_ms(fn, calls: int, warmup: int = 2,
         for _ in range(calls):
             fn()
     return events_ms(events, calls)
+
+
+def host_us(fn, calls: int, devices) -> float:
+    """The host's microseconds a call of ``fn`` over ``calls`` calls
+    enqueued back to back after one warm-up call, ``devices`` synchronised
+    before and after, outside the time: the wrapper's own part of a call,
+    which bounds it where the device's part is shorter."""
+    cards = {dev for dev in devices if dev.type == "cuda"}
+    fn()
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+    return us
 
 
 def _nccl_note(mesh, xs):
@@ -308,6 +329,8 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
             _, copy_fn = _copy_blocks(op, mesh, xs)
             extra["copy_ms"] = time_cuda(spanned(copy_fn), warmup=2,
                                          iters=iters, device=first) * 1e3
+    if kernel:
+        extra["host_us"] = host_us(lambda: fn(xs), iters, devices)
     if kernel and first.type == "cuda":
         extra["kernel_ms"] = kernel_alone_ms(lambda: fn(xs), iters)
         if shared is not None:

@@ -101,21 +101,18 @@
 // lands (put with signal).  A launch gets, per pair whose receiver is in
 // another rank of the node, the receiver card's SENT word mapped in the
 // sending card's context, the round's number and a counter on the sending
-// card.  Each CTA finishes its stores, __syncthreads(), and one thread runs
-// fence.acq_rel.sys and adds its tiles to the counter of the pair's word; the
+// card.  Each CTA stores its tile, __syncthreads(), and one thread runs
+// fence.acq_rel.sys and counts the tile on the counter of the pair's word; the
 // CTA whose add completes the word's tiles resets the counter (the next
 // launch on the stream starts after this one) and writes the round's number
 // with st.release.sys.  Pairs that write one word (two shards of a card into
 // two of one peer card) share its counter, so the word is written once all
 // of them have landed.  Without flags ring_rows is a plain copy, launched the
 // same way for one process and for the staged route's receivers.  Its tile
-// schedule is one CTA a tile, as K7b's (DCS_K7A_CTAS_PER_SM > 0 builds a
-// grid of that many CTAs an SM walking the tiles, for
-// dc_sand_tpu_torch/bench/k7a_sizing.py): at the SP halo (8.4 MB a card,
-// 512 tiles of 16 KB, one wave) grids of 1, 2 and 4 CTAs an SM took the
-// same time alone within the spread between runs on four H100 80GB HBM3 at
-// 700 W (0.034-0.057 ms, PERF.md §6), a few microseconds above the plain
-// copy kernel's, whose stores no fence waits for.
+// schedule is one CTA a tile, as K7b's: at the SP halo (8.4 MB a card, 512
+// tiles of 16 KB, one wave) grids of 1, 2 and 4 CTAs an SM walking the
+// tiles took the same time alone within the spread between runs on four
+// H100 80GB HBM3 at 700 W (0.034-0.057 ms, PERF.md §6).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -215,10 +212,6 @@ int launch(const DcsPairs& pairs, int n_pairs, long long rows, long long row_byt
   return static_cast<int>(cudaGetLastError());
 }
 
-#ifndef DCS_K7A_CTAS_PER_SM
-#define DCS_K7A_CTAS_PER_SM 0
-#endif
-constexpr int kRingCtasPerSm = DCS_K7A_CTAS_PER_SM;
 constexpr unsigned char kNoGroup = 0xFF;
 
 // ring_rows' view of the flags: the pairs that write one word form a group,
@@ -239,17 +232,16 @@ __device__ __forceinline__ void store_release_sys(unsigned* at, unsigned value) 
   asm volatile("st.release.sys.u32 [%0], %1;" ::"l"(at), "r"(value) : "memory");
 }
 
-// This CTA's `tiles` tiles of group g are stored: one thread makes them
-// visible to the whole system, then counts them; the CTA that completes the
-// group resets its counter and writes the round's number into the receiver's
-// word.  Every thread of the CTA calls it with the same arguments.
-__device__ __forceinline__ void signal_tiles(const RingSignal& sig, unsigned g, unsigned tiles) {
-  if (g == kNoGroup || tiles == 0) return;
+// This CTA's tile of group g is stored: one thread makes it visible to the
+// whole system, then counts it; the CTA that completes the group resets its
+// counter and writes the round's number into the receiver's word.  Every
+// thread of the CTA calls it with the same g.
+__device__ __forceinline__ void signal_tile(const RingSignal& sig, unsigned g) {
+  if (g == kNoGroup) return;
   __syncthreads();
   if (threadIdx.x == 0) {
     fence_acq_rel_sys();
-    const unsigned before = atomicAdd(sig.count + g, tiles);
-    if (before + tiles == sig.need[g]) {
+    if (atomicAdd(sig.count + g, 1u) + 1 == sig.need[g]) {
       fence_acq_rel_sys();  // the other CTAs' counted stores come first
       sig.count[g] = 0;
       store_release_sys(sig.flag[g], sig.value);
@@ -258,48 +250,28 @@ __device__ __forceinline__ void signal_tiles(const RingSignal& sig, unsigned g, 
 }
 
 // K7a: the whole block of `units` units (16 bytes when kVec, else 1) at
-// pairs.src[d] to pairs.dst[d], d < n_pairs, the tiles numbered pair after
-// pair, CTA b taking tiles b, b + gridDim.x, ... (one a CTA where the grid is
-// the tiles).  kSignal: the pairs of each group signal their receiver once
+// pairs.src[d] to pairs.dst[d], one tile a CTA, the tiles numbered pair
+// after pair.  kSignal: the pairs of each group signal their receiver once
 // all of them are stored.
 template <bool kVec, bool kSignal>
 __global__ void __launch_bounds__(kThreads)
     ring_rows(const __grid_constant__ DcsPairs pairs, const __grid_constant__ RingSignal sig,
-              unsigned n_tiles, unsigned tiles_per_pair, long long units) {
+              unsigned tiles_per_pair, long long units) {
   using Unit = typename std::conditional<kVec, uint4, char>::type;
   constexpr int kTile = kUnroll * kThreads;
-  unsigned group = kNoGroup, mine = 0;
-  for (unsigned tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const unsigned d = tile / tiles_per_pair;
-    const long long c0 = static_cast<long long>(tile - d * tiles_per_pair) * kTile + threadIdx.x;
-    const Unit* src = reinterpret_cast<const Unit*>(pairs.src[d]);
-    Unit* dst = reinterpret_cast<Unit*>(pairs.dst[d]);
-    Unit v[kUnroll];
+  const unsigned d = blockIdx.x / tiles_per_pair;
+  const long long c0 =
+      static_cast<long long>(blockIdx.x - d * tiles_per_pair) * kTile + threadIdx.x;
+  const Unit* src = reinterpret_cast<const Unit*>(pairs.src[d]);
+  Unit* dst = reinterpret_cast<Unit*>(pairs.dst[d]);
+  Unit v[kUnroll];
 #pragma unroll
-    for (int i = 0; i < kUnroll; ++i)
-      if (c0 + i * kThreads < units) v[i] = src[c0 + i * kThreads];
+  for (int i = 0; i < kUnroll; ++i)
+    if (c0 + i * kThreads < units) v[i] = src[c0 + i * kThreads];
 #pragma unroll
-    for (int i = 0; i < kUnroll; ++i)
-      if (c0 + i * kThreads < units) dst[c0 + i * kThreads] = v[i];
-    if (kSignal) {
-      if (sig.group[d] != group) {
-        signal_tiles(sig, group, mine);
-        group = sig.group[d];
-        mine = 0;
-      }
-      ++mine;
-    }
-  }
-  if (kSignal) signal_tiles(sig, group, mine);
-}
-
-// The SMs of the current device (for the grid of a walking schedule).
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms;
+  for (int i = 0; i < kUnroll; ++i)
+    if (c0 + i * kThreads < units) dst[c0 + i * kThreads] = v[i];
+  if (kSignal) signal_tile(sig, sig.group[d]);
 }
 
 int launch_ring(const DcsPairs& pairs, int n_pairs, long long nbytes, const DcsRingFlags& flags,
@@ -335,24 +307,17 @@ int launch_ring(const DcsPairs& pairs, int n_pairs, long long nbytes, const DcsR
   if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   for (unsigned g = 0; g < groups; ++g)
     sig.need[g] = members[g] * static_cast<unsigned>(tiles_per_pair);
-  long long grid = tiles;
-  if (kRingCtasPerSm > 0) {
-    const int sms = sm_count();
-    if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
-    grid = tiles < static_cast<long long>(kRingCtasPerSm) * sms ? tiles
-                                                                : kRingCtasPerSm * sms;
-  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(grid), n = static_cast<unsigned>(tiles),
+  const unsigned grid = static_cast<unsigned>(tiles),
                  tp = static_cast<unsigned>(tiles_per_pair);
   if (vec && groups > 0)
-    ring_rows<true, true><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+    ring_rows<true, true><<<grid, kThreads, 0, st>>>(pairs, sig, tp, units);
   else if (vec)
-    ring_rows<true, false><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+    ring_rows<true, false><<<grid, kThreads, 0, st>>>(pairs, sig, tp, units);
   else if (groups > 0)
-    ring_rows<false, true><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+    ring_rows<false, true><<<grid, kThreads, 0, st>>>(pairs, sig, tp, units);
   else
-    ring_rows<false, false><<<g, kThreads, 0, st>>>(pairs, sig, n, tp, units);
+    ring_rows<false, false><<<grid, kThreads, 0, st>>>(pairs, sig, tp, units);
   return static_cast<int>(cudaGetLastError());
 }
 

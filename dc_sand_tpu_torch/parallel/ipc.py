@@ -44,7 +44,12 @@ only on the cards it writes into, and before it reads waits only on its
 senders' ``sent`` words, which the kernel writes itself once its stores
 have landed (``ring_rows`` of ``csrc/remote_dma.cu``: put with signal,
 the counterpart of the DMA engine signalling ``recv_sem``; a failed
-launch raises, and nothing writes them in its place).  A pair inside a
+launch raises, and nothing writes them in its place).  A word that a
+launched kernel never writes is not caught on the main path: the
+receiver's stream waits on it for good, so the call hangs rather than
+raises.  :meth:`SharedBuffers.check_signals`, after the cards are
+synchronised, is the check that raises (``chip_smoke.py`` and the card
+tests call it).  A pair inside a
 rank takes no word: stream waits order it, card to card, so a ring that
 stays inside each rank (``time_local``) takes no flag at all.  Every
 rank numbers each round all the same, so the sequence stays aligned.

@@ -307,6 +307,7 @@ def test_bench_collective_on_a_cpu_mesh(op):
     assert r.bytes_moved == want and r.value > 0
     assert r.extra["devices"] == 4 and r.extra["cards"] == 1
     assert r.extra["link"] == "host memory"
+    assert (r.extra.get("host_us", 0) > 0) == op.endswith("_pallas")
     with pytest.raises(ValueError, match="unknown collective"):
         collectives.bench_collective("nope", mesh)
 

@@ -41,6 +41,11 @@ the dump metadata records how many spectra actually integrated.
 time, on one CUDA device as one CUDA graph a window; the state saves and
 loads with :mod:`dc_sand_tpu_torch.runtime.checkpoint`.
 
+Under ``torch.profiler`` the runner's host phases (the call, each chunk,
+its feed, upload, launch and output handoff, each dump and its wait)
+are ranges of the trace (:mod:`dc_sand_tpu_torch.utils.spans`); without
+a profiler each costs one check.
+
 On a mesh over several processes (:func:`~dc_sand_tpu_torch.parallel.
 build_global_mesh`; the JAX runner's multi-process SPMD) every rank runs
 one runner, holds its own shards' carries, and ``source(i)`` gives it its
@@ -84,6 +89,7 @@ from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
                                         build_mesh, local_antenna_range,
                                         uses_shared_buffers)
 from dc_sand_tpu_torch.runtime.delays import DelayModel
+from dc_sand_tpu_torch.utils.spans import span
 
 logger = logging.getLogger("dc_sand_tpu_torch.runner")
 
@@ -282,32 +288,36 @@ class FXRunner:
         b = cfg.spectra_per_chunk
         drop = frozenset(drop_chunks)
         dumps = []
-        for _ in range(n_chunks):
-            i = self.chunk_idx
-            chunk, coarse, frac, phase, dropped = self._feed_chunk(
-                i, drop, source)
-            reset = self._acc_spectra == 0
-            if reset:
-                self._acc_first_chunk = i
-            outputs = self._step(
-                self.history, self.vis_acc,
-                *self._step_args(chunk, torch.from_numpy(frac),
-                                 torch.from_numpy(phase),
-                                 torch.from_numpy(coarse)), reset)
-            if on_output is not None and outputs:
-                on_output(i, gather_outputs(outputs, cfg, self.mesh,
-                                            self.device))
-            if self.mode != "fx":
-                continue
-            self._acc_spectra += b
-            if not dropped:
-                self._acc_integrated += b
-            if self._acc_spectra >= cfg.n_spectra_per_acc:
-                dumps.append(self._dump(self._acc_integrated,
-                                        self._acc_spectra,
-                                        self._acc_first_chunk, on_dump))
-                self._acc_spectra = 0
-                self._acc_integrated = 0
+        with span("runner.run"):
+            for _ in range(n_chunks):
+                with span("runner.chunk"):
+                    i = self.chunk_idx
+                    chunk, coarse, frac, phase, dropped = self._feed_chunk(
+                        i, drop, source)
+                    reset = self._acc_spectra == 0
+                    if reset:
+                        self._acc_first_chunk = i
+                    args = self._step_args(chunk, torch.from_numpy(frac),
+                                           torch.from_numpy(phase),
+                                           torch.from_numpy(coarse))
+                    with span("runner.launch"):
+                        outputs = self._step(self.history, self.vis_acc,
+                                             *args, reset)
+                    if on_output is not None and outputs:
+                        with span("runner.output"):
+                            on_output(i, gather_outputs(
+                                outputs, cfg, self.mesh, self.device))
+                if self.mode != "fx":
+                    continue
+                self._acc_spectra += b
+                if not dropped:
+                    self._acc_integrated += b
+                if self._acc_spectra >= cfg.n_spectra_per_acc:
+                    dumps.append(self._dump(self._acc_integrated,
+                                            self._acc_spectra,
+                                            self._acc_first_chunk, on_dump))
+                    self._acc_spectra = 0
+                    self._acc_integrated = 0
         return dumps, self.counters
 
     def run_batched(self, source: Callable[[int], np.ndarray],
@@ -397,24 +407,28 @@ class FXRunner:
               on_dump) -> Dump:
         """The window's dump from the accumulator, counted and handed to
         ``on_dump``."""
-        cfg = self.cfg
-        vis = extract_vis(self._acc_total(), cfg.n_ants, cfg.n_pols)
-        vis = vis.contiguous()
-        if vis.is_cuda:
-            # through a fresh pinned buffer (the caching host allocator
-            # recycles it once the dump is dropped): a DMA at the link's
-            # rate, where a pageable copy is staged by the host.  Never
-            # one buffer across dumps, or a kept dump would change.
-            host = torch.empty(vis.shape, dtype=vis.dtype, pin_memory=True)
-            host.copy_(vis, non_blocking=True)
-            torch.cuda.current_stream(vis.device).synchronize()
-            vis = host
-        d = Dump(vis=vis.cpu().numpy(), n_spectra=n_spectra,
-                 n_spectra_nominal=nominal, first_chunk=first_chunk)
-        self.counters.dumps += 1
-        if on_dump is not None:
-            on_dump(d)
-        return d
+        with span("runner.dump"):
+            cfg = self.cfg
+            vis = extract_vis(self._acc_total(), cfg.n_ants, cfg.n_pols)
+            vis = vis.contiguous()
+            if vis.is_cuda:
+                # through a fresh pinned buffer (the caching host allocator
+                # recycles it once the dump is dropped): a DMA at the
+                # link's rate, where a pageable copy is staged by the host.
+                # Never one buffer across dumps, or a kept dump would
+                # change.
+                host = torch.empty(vis.shape, dtype=vis.dtype,
+                                   pin_memory=True)
+                host.copy_(vis, non_blocking=True)
+                with span("runner.dump.wait"):
+                    torch.cuda.current_stream(vis.device).synchronize()
+                vis = host
+            d = Dump(vis=vis.cpu().numpy(), n_spectra=n_spectra,
+                     n_spectra_nominal=nominal, first_chunk=first_chunk)
+            self.counters.dumps += 1
+            if on_dump is not None:
+                on_dump(d)
+            return d
 
     # ------------------------------------------------------------------
     def _feed_chunk(self, i: int, drop: frozenset, source, out=None):
@@ -426,41 +440,44 @@ class FXRunner:
         given; in the device coarse mode unshifted), the coarse delays
         ``(A*P,)`` int32 and the per-spectrum delays ``(A*P, B)`` float32,
         numpy."""
-        cfg = self.cfg
-        b = cfg.spectra_per_chunk
-        rows = self._rows
-        a, p = rows.stop - rows.start, cfg.n_pols
-        shape = (a * p, b, cfg.fft_size)
-        dropped = i in drop
-        if dropped:
-            chunk = torch.zeros((a, p, cfg.chunk_samples), dtype=torch.int8,
-                                device=self.device)
-            self.counters.chunks_dropped += 1
-            logger.warning("chunk %d dropped (fault-injected)", i)
-        else:
-            chunk = source(i)
-        if not isinstance(chunk, torch.Tensor):
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk))
-        if chunk.dtype != torch.int8:
-            raise ValueError(f"source chunks must be int8, got {chunk.dtype}")
-        coarse, frac, phase = (v[rows] for v in self.delay_model.
-                               evaluate_chunk(self.t0, b, cfg.fft_size))
-        if self._tail is not None:
-            chunk = self._coarse_shift(chunk.to(self.device), coarse, out)
-        elif out is not None:
-            chunk = out.copy_(chunk.reshape(shape))
-        # (A, P, T) -> (A*P, B, M): a free row-major view, the layout the
-        # F-engine kernel reads
-        chunk = chunk.to(self.device).reshape(shape)
-        self.counters.chunks_in += 1
-        self.counters.samples_in += chunk.numel()
-        self.counters.spectra_out += b
-        self.t0 += cfg.chunk_samples
-        self.chunk_idx += 1
-        return (chunk.contiguous(),
-                np.ascontiguousarray(coarse, np.int32).reshape(a * p),
-                np.ascontiguousarray(frac).reshape(a * p, b),
-                np.ascontiguousarray(phase).reshape(a * p, b), dropped)
+        with span("runner.feed"):
+            cfg = self.cfg
+            b = cfg.spectra_per_chunk
+            rows = self._rows
+            a, p = rows.stop - rows.start, cfg.n_pols
+            shape = (a * p, b, cfg.fft_size)
+            dropped = i in drop
+            if dropped:
+                chunk = torch.zeros((a, p, cfg.chunk_samples),
+                                    dtype=torch.int8, device=self.device)
+                self.counters.chunks_dropped += 1
+                logger.warning("chunk %d dropped (fault-injected)", i)
+            else:
+                chunk = source(i)
+            if not isinstance(chunk, torch.Tensor):
+                chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+            if chunk.dtype != torch.int8:
+                raise ValueError(
+                    f"source chunks must be int8, got {chunk.dtype}")
+            coarse, frac, phase = (v[rows] for v in self.delay_model.
+                                   evaluate_chunk(self.t0, b, cfg.fft_size))
+            if self._tail is not None:
+                chunk = self._coarse_shift(chunk.to(self.device), coarse,
+                                           out)
+            elif out is not None:
+                chunk = out.copy_(chunk.reshape(shape))
+            # (A, P, T) -> (A*P, B, M): a free row-major view, the layout
+            # the F-engine kernel reads
+            chunk = chunk.to(self.device).reshape(shape)
+            self.counters.chunks_in += 1
+            self.counters.samples_in += chunk.numel()
+            self.counters.spectra_out += b
+            self.t0 += cfg.chunk_samples
+            self.chunk_idx += 1
+            return (chunk.contiguous(),
+                    np.ascontiguousarray(coarse, np.int32).reshape(a * p),
+                    np.ascontiguousarray(frac).reshape(a * p, b),
+                    np.ascontiguousarray(phase).reshape(a * p, b), dropped)
 
     def _step_args(self, chunk, frac, phase, coarse=None) -> tuple:
         """The step's arguments after the carries: ``(chunk, frac, phase,
@@ -468,13 +485,15 @@ class FXRunner:
         per-spectrum ``(A*P, B)`` delays, as lists cut to the shards; in
         the device coarse mode ``(chunk, coarse, frac, ...)``, with the
         ``(A*P,)`` coarse delays as int32."""
-        chunks, fracs, phases = shard_inputs(self.mesh, chunk, frac, phase)
-        lead = ()
-        if self._lead:
-            lead = shard_inputs(self.mesh, torch.as_tensor(
-                coarse, dtype=torch.int32).reshape(-1))
-        return (chunks, *lead, fracs, phases, self._gains_sh,
-                self._weights_sh)
+        with span("runner.upload"):
+            chunks, fracs, phases = shard_inputs(self.mesh, chunk, frac,
+                                                 phase)
+            lead = ()
+            if self._lead:
+                lead = shard_inputs(self.mesh, torch.as_tensor(
+                    coarse, dtype=torch.int32).reshape(-1))
+            return (chunks, *lead, fracs, phases, self._gains_sh,
+                    self._weights_sh)
 
     def _acc_total(self) -> torch.Tensor:
         """The packed ``(K, ap, ap)`` accumulator on the device (the whole

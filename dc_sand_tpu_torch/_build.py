@@ -66,7 +66,9 @@ class RingFlags(ctypes.Structure):
 # stream as c_void_p, byte counts as c_longlong)
 _SIGNATURES = {
     "fengine": {"dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _P]},
+                                _I, _I, _I, _I, _I, _I, _I, _P],
+                "dcs_fengine_grid": [_I, _I, _I, _I, _I, _I,
+                                     ctypes.POINTER(_I)]},
     "cmac": {"dcs_cmac": [_P, _P, _I, _I, _I, _I, _P]},
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},

@@ -2,18 +2,24 @@
 
 ``python -m dc_sand_tpu_torch.bench.k1_phases [--streams S --spectra B
 --chans K --taps T]`` (default: the fx64 chunk, 128 x 2048 x 4096, 16
-taps) prints one JSON line: K1's time in both layouts (CUDA events over
-back-to-back launches of :func:`~dc_sand_tpu_torch.ops.fengine_fused.fengine_fused`)
-beside ``wire_to_operand`` of the wire output, the bound, and the split
-of the kernel's time between its FIR, its FFT and its epilogue (in the
+taps; beam64's is ``--spectra 256``) prints one JSON line: K1's time in
+both layouts (CUDA events over back-to-back launches of
+:func:`~dc_sand_tpu_torch.ops.fengine_fused.fengine_fused`) beside
+``wire_to_operand`` of the wire output, the bound, the grid of persistent
+CTAs each layout launches (``grid_ctas``: its SMs in use, one CTA an SM)
+and the card's SMs, the bytes the FIR reads from L2 as the design counts
+them (:func:`~dc_sand_tpu_torch.ops.fengine_fused.k1_l2_bytes`), and the
+split of the kernel's time between the FIR's wait for each column slice's
+loads, the FIR's arithmetic and stores, the FFT and the epilogue (in the
 operand layout: its compute, the exchange of results through shared
-memory and their gather and store), and how many of the operand layout's
-8-CTA clusters fit on the card at once.  The split
-comes from a second build of ``csrc/fengine.cu`` with ``-DDCS_K1_PHASES``
-(into ``build/torch_kernels/``, beside the port's own), in which thread 0
-of every CTA adds the ``clock64`` ticks of each phase to a device
-counter; the shares are of the summed ticks.  Without a card it exits 1
-and prints no JSON.
+memory and their gather and store, the cluster's deferred barrier
+included).  The split comes from a second build of ``csrc/fengine.cu``
+with ``-DDCS_K1_PHASES`` (into ``build/torch_kernels/``, beside the port's
+own), in which thread 0 of every CTA adds the ``clock64`` ticks of each
+phase to a device counter and waits for a slice's loads before its first
+multiply; the shares are of the summed ticks, and ``ticks_per_tile`` is
+their sum over the tiles the CTAs ran.  Without a card it exits 1 and
+prints no JSON.
 """
 
 from __future__ import annotations
@@ -30,14 +36,15 @@ import torch
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.bench.harness import (bound_ms, card, fengine_flops,
                                              time_cuda)
-from dc_sand_tpu_torch.ops.fengine_fused import _tables, fengine_fused
+from dc_sand_tpu_torch.ops.fengine_fused import (K1_CLUSTER, K1_TILE, _tables,
+                                                 fengine_fused, k1_l2_bytes)
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.xcorr import wire_to_operand
 from dc_sand_tpu_torch.windows import pfb_window
 
 __all__ = ["main"]
 
-PHASES = ("fir", "fft", "epilogue", "exchange", "gather_store")
+PHASES = ("fir_wait", "fir", "fft", "epilogue", "exchange", "gather_store")
 
 
 def _phases_library() -> ctypes.CDLL:
@@ -57,10 +64,17 @@ def _phases_library() -> ctypes.CDLL:
     lib.dcs_fengine.restype = ctypes.c_int
     lib.dcs_fengine_phases.argtypes = [ctypes.c_void_p]
     lib.dcs_fengine_phases.restype = ctypes.c_int
-    lib.dcs_fengine_clusters.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                         ctypes.c_void_p]
-    lib.dcs_fengine_clusters.restype = ctypes.c_int
     return lib
+
+
+def grid(s: int, b: int, m: int, layout: str) -> int:
+    """The CTAs K1 launches for an int8 call with the phasor (0 below M =
+    2048, where its CTAs are one-shot)."""
+    out = ctypes.c_int()
+    _build.check(_build.library().dcs_fengine_grid(
+        s, b, m, int(layout == "operand"), 1, 0, ctypes.byref(out)),
+        "dcs_fengine_grid")
+    return out.value
 
 
 def main(argv=None) -> int:
@@ -99,7 +113,8 @@ def main(argv=None) -> int:
     split_tw, pass_tw = _tables(m, dev)
     lib = _phases_library()
     clocks = (ctypes.c_ulonglong * len(PHASES))()
-    share, outs = {}, {}
+    tiles = -(-b // K1_TILE)
+    share, ticks, grids, outs = {}, {}, {}, {}
     for layout, shape in (("wire", (s, b, k, 2)), ("operand", (k, 2, s, b))):
         outs[layout] = out = torch.empty(shape, dtype=torch.int8, device=dev)
         lib.dcs_fengine_phases(clocks)             # zero the counters
@@ -114,10 +129,12 @@ def main(argv=None) -> int:
         _build.check(lib.dcs_fengine_phases(clocks), "dcs_fengine_phases")
         share[layout] = {p: c / sum(clocks) for p, c in zip(PHASES, clocks)
                          if c}
-    clusters, sms = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib.dcs_fengine_clusters(m, ctypes.byref(clusters),
-                                          ctypes.byref(sms)),
-                 "dcs_fengine_clusters")
+        grids[layout] = grid(s, b, m, layout)
+        # the operand layout's clusters also run the tiles that pad a
+        # stream's last group of 8
+        n_tiles = s * (-(-tiles // K1_CLUSTER) * K1_CLUSTER
+                       if layout == "operand" and grids[layout] else tiles)
+        ticks[layout] = sum(clocks) / n_tiles
     nbytes = sum(t.numel() * t.element_size()
                  for t in (hist, chunk, w, fd, ph, gains, wire))
     bound = bound_ms(nbytes, fengine_flops(s * b, m, taps, rotate=True,
@@ -125,11 +142,12 @@ def main(argv=None) -> int:
     print(json.dumps({
         "kernel": "fengine", "streams": s, "spectra": b, "chans": k,
         "taps": taps, "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
-        "phase_share": share,
+        "phase_share": share, "ticks_per_tile": ticks,
         "equal_layouts": bool(torch.equal(outs["operand"],
                                           wire_to_operand(outs["wire"]))),
-        "operand_clusters": clusters.value, "cluster_size": 8,
-        "sms": sms.value,
+        "grid_ctas": grids, "cluster_size": K1_CLUSTER,
+        "sms": torch.cuda.get_device_properties(dev).multi_processor_count,
+        "l2_bytes": k1_l2_bytes(s, b, m, taps),
         "card": card()}), flush=True)
     return 0
 

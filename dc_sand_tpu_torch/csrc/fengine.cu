@@ -31,25 +31,39 @@
 //
 // What bounds it on the H100: at fx64 (M = 8192, 16 taps, 128 streams x 2048
 // spectra) the useful work is 0.17 TFLOP of fp32 (2.5 ms at 67 TFLOP/s) and
-// 4.3 GB of device memory (1.3 ms); the FIR alone needs 512 KB of window for
-// every output spectrum.  The first design (one CTA per spectrum, radix-2 FFT
-// in shared memory, every operation an _rn intrinsic) pulled 640 KB a spectrum
-// through L2, converted each frame byte 16 times with I2F, and made 12 passes
-// of shared memory with a 32-way bank conflict on the bit-reversed scatter: 46
-// ms a chunk on an H100 80GB HBM3 at 700 W; this design takes about 14 ms
-// (wire layout) and 17 ms (operand layout) there:
+// 4.3 GB of device memory (1.3 ms).  A tile of kJ = 6 spectra of one stream
+// is the unit of work: its FIR reads the whole window, 16 x 8192 float32 =
+// 512 KB, and its 21 frames, 172 KB, from L2 (30.5 GB a chunk), and its six
+// float32 spectra (6 x 4352 padded values, 208,896 bytes, and 6,144 bytes of
+// phasor tables) fill shared memory, so one CTA of 512 threads runs on an
+// SM.  Six spectra a window read is the most that fits; three would double
+// the window's L2 traffic.  The first design (one CTA per spectrum, radix-2
+// FFT, every operation an _rn intrinsic) took 46 ms a chunk on an H100 80GB
+// HBM3 at 700 W; one-shot CTAs of one tile 14.1 ms (wire layout) and 17.1 ms
+// (operand layout); this design 11.4 and 14.9 ms.  Its phases build
+// (bench/k1_phases.py) splits a wire tile at fx64 into about 21,500 clocks
+// of waiting for the FIR's loads, 16,800 of FIR arithmetic, 25,700 of FFT
+// and 21,000 of epilogue.  The FIR's 684 KB a tile come through L1 at about
+// 30 B a clock an SM.  A ring of frames in shared memory fed by asynchronous
+// copies, overlapping a tile's loads with the previous tile's FFT, measured
+// slower: beside the spectra shared memory holds less than a slice's frames,
+// and every register a prefetch took spilled (PERF.md section 6).
 //
-//   * One CTA of 512 threads per (stream, tile of kJ consecutive spectra); for
-//     M < 2048 a tile holds P = 2048 / M sub-tiles of kJ spectra each, so every
-//     thread has work.  Neighbouring tiles of one stream run in neighbouring
-//     CTAs, so shared frames hit in L2.
+//   * From M = 2048 (one tile a CTA) CTAs are persistent, as many as the
+//     card holds at once (the occupancy or cluster query, made once per card,
+//     kernel and shared-memory size, so a CUDA graph's capture sees none of
+//     it), and walk the tiles: CTA b takes tiles b, b + G, b + 2G, ... of the
+//     grid's G, so the tiles in flight at once are neighbours that share
+//     frames in L2 (ops/fengine_fused.py:k1_tiles models the walk).  The
+//     kernel is built for each M, so every size and offset of the tile is a
+//     constant.  Loop-invariant loads and addresses would be hoisted out of
+//     the walk and spilled: the pointers they come from are made anew for
+//     each tile or slice (fresh).
 //   * FIR as K6 does it (csrc/pfb.cu): a thread holds the weights of 4
 //     consecutive columns in registers for a column slice, walks the tile's
 //     kJ + taps - 1 frames once (each byte converted once, by the exponent
 //     trick, not I2F), FMA into kJ x 4 accumulators and stores them into the
-//     tile's spectra in shared memory.  The window is read once a tile: L2
-//     traffic per spectrum falls from 640 KB to 113 KB at kJ = 6, the most
-//     float32 spectra of M = 8192 that fit in 227 KB of shared memory.
+//     tile's spectra in shared memory.
 //   * FFT as Stockham radix-16 passes (radix 8, 4 or 2 for the last): each
 //     thread holds one butterfly's 16 points in registers, twiddles from
 //     float64-made tables (one table row a pass, read once a tile), output in
@@ -66,21 +80,32 @@
 //     them over DSMEM into kCluster * kJ = 48-byte runs, stored as 16-byte
 //     words: on the same card 6-byte runs stored by each CTA cost 10 ms more
 //     than the wire layout, the 48-byte runs 3 ms.  A cluster's CTAs must
-//     share a GPC, so 15 clusters (120 of the 132 SMs) run at once; M < 2048
-//     (several sub-tiles a CTA) stores each CTA's runs itself.
+//     share a GPC, so 15 clusters (120 of the 132 SMs) run at once; each
+//     walks units of kCluster consecutive tiles.  The cluster's second
+//     barrier (no CTA overwrites its stage while another reads it) is
+//     arrived at after the gather and waited for in the next tile's FIR,
+//     before its first store to the spectra.
+//   * Below M = 2048 a tile holds P = 2048 / M sub-tiles of kJ spectra, so
+//     every thread has work; one-shot CTAs (fengine_kernel_subtiles) run
+//     it, each storing its operand runs itself.  No configuration runs it at
+//     full width.
 //   * FMA and any summation order are allowed: the kernel is held to its
 //     plain version within 1-LSB boundary flips (int8) and >= 100 dB (float),
-//     not bitwise.
+//     not bitwise.  Both kernels sum each output's taps in the same order.
 //
 // Built with -DDCS_K1_PHASES (dc_sand_tpu_torch/bench/k1_phases.py) thread 0
-// of every CTA adds the clocks of its FIR, FFT and epilogue (in the
+// of every CTA adds the clocks of its phases to device counters that
+// dcs_fengine_phases reads: the FIR's wait for each slice's loads (in that
+// build the thread waits for all of them before its first multiply) apart
+// from its arithmetic and stores, the FFT and the epilogue (in the
 // cluster-gathered operand layout: its compute, the exchange through shared
-// memory and the gather and store) to device counters that
-// dcs_fengine_phases reads.
+// memory and the gather and store, the deferred cluster wait included).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -94,9 +119,11 @@ constexpr int kFrames = kJ + kMaxTaps - 1;
 constexpr int kMaxHalf = 4096; // N = M / 2 <= 4096
 constexpr int kMaxPasses = 4;
 constexpr int kCluster = 8;    // CTAs that gather the operand layout's runs
+constexpr int kPersistentM = kThreads * kCols;  // 2048: one sub-tile a CTA
 
 #ifdef DCS_K1_PHASES
-constexpr int kPhases = 5;  // fir, fft, epilogue, exchange, gather + store
+// fir_wait, fir, fft, epilogue, exchange, gather + store
+constexpr int kPhases = 6;
 __device__ unsigned long long g_phase_clocks[kPhases];
 #define DCS_CLOCK(name) const long long name = clock64()
 #else
@@ -117,12 +144,21 @@ struct Params {
   int pitch;               // operand layout: bytes between a row's streams
   int groups;              // FIR column groups G = min(kThreads, M / 4)
   int subs;                // sub-tiles P = kThreads / G
+  int tiles;               // tiles of a stream, ceil(n_out / (subs kJ))
   int n_pass;
   int radix[kMaxPasses];
   int tw_off[kMaxPasses];
 };
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+// The tables the FFT and the epilogue read (Params' own, or the persistent
+// kernel's copies of the pointers made anew for each tile).
+struct Twiddles {
+  const float2* split;  // W_M^k, k < N
+  const float2* pass;   // Stockham pass twiddles
+  const float2* gains;  // (K,) or null
+};
 
 // Four signed bytes -> four exact floats: byte b becomes the low mantissa
 // byte of 2^23 + (b + 128), and subtracting 2^23 + 128 leaves b.
@@ -133,12 +169,47 @@ __device__ __forceinline__ void unpack4(uint32_t packed, float x[kCols]) {
     x[c] = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7440 | c)) - 8388736.0f;
 }
 
+// The FIR sums of a column slice: spectra jj < kJ of this thread's kCols
+// columns from its frame words and taps (zeros past taps), each output's
+// taps summed in order.
+__device__ __forceinline__ void fir_sums(const uint32_t (&raw)[kFrames],
+                                         const float (&w)[kMaxTaps][kCols],
+                                         float (&acc)[kJ][kCols]) {
+#pragma unroll
+  for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[jj][c] = 0.0f;
+#pragma unroll
+  for (int f = 0; f < kFrames; ++f) {
+    float x[kCols];
+    unpack4(raw[f], x);
+#pragma unroll
+    for (int t = 0; t < kMaxTaps; ++t) {
+      const int jj = f - t;
+      if (jj >= 0 && jj < kJ) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[jj][c] = fmaf(w[t][c], x[c], acc[jj][c]);
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
 }
 
 __device__ __forceinline__ int8_t quant(float v) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
+}
+
+// The pointer, as a value the compiler cannot see through: addresses and
+// loads made from it inside a loop are not hoisted out of the loop, where
+// they would hold registers through it (the FIR's 21 row addresses, a
+// tile's twiddles and gains) and spill.
+template <typename T>
+__device__ __forceinline__ T* fresh(T* ptr) {
+  asm volatile("" : "+l"(ptr));
+  return ptr;
 }
 
 // cos and sin of 2 pi e / 16, e < 8
@@ -273,6 +344,21 @@ __device__ __forceinline__ void fft_pass(float2* __restrict__ z, int stride, int
   }
 }
 
+// The FFT of the CTA's n_spec spectra, Stockham passes in place.
+__device__ __forceinline__ void fft(const Params& p, const Twiddles& tw, float2* z, int stride,
+                                    int n_half, int n_spec) {
+  int ns = 1;
+  for (int q = 0; q < p.n_pass; ++q) {
+    const int r = p.radix[q];
+    const float2* t = tw.pass + p.tw_off[q];
+    if (r == 16) fft_pass<16>(z, stride, n_half, ns, t, n_spec);
+    else if (r == 8) fft_pass<8>(z, stride, n_half, ns, t, n_spec);
+    else if (r == 4) fft_pass<4>(z, stride, n_half, ns, t, n_spec);
+    else fft_pass<2>(z, stride, n_half, ns, t, n_spec);
+    ns *= r;
+  }
+}
+
 // n (<= kJ) bytes of `v` (byte i at bits 8i) to dst, as the widest aligned
 // words.
 __device__ __forceinline__ void store_run(int8_t* dst, unsigned long long v, int n) {
@@ -297,6 +383,9 @@ __device__ __forceinline__ void store_run(int8_t* dst, unsigned long long v, int
 // exp(i ((-(2 pi / M) L kh) d - p)) (H = N / L of them) and
 // exp(i (-(2 pi / M) kl) d) (L of them), in place of a sincosf a value.
 __host__ __device__ constexpr int phasor_lo(int n_half) { return n_half < 64 ? n_half : 64; }
+__host__ __device__ constexpr int phasor_per(int n_half) {
+  return n_half / phasor_lo(n_half) + phasor_lo(n_half);
+}
 
 // The phasor tables of the CTA's n_spec spectra, (H + L) values each.  Out
 // of line: float64 sincos would raise the register count of the whole kernel.
@@ -315,18 +404,19 @@ __device__ __noinline__ void phasor_tables(const Params& p, float2* tab, int n_h
 }
 
 // The split, phasor, gain and rounding of bin k of the n_valid spectra of a
-// sub-tile (zsub; rows row0 ...; phasor tables tab, or null): layout 2 stores
-// the float values, the int8 layouts get them back packed, spectrum jj's at
-// bits 8 jj.
+// sub-tile (zsub; rows row0 ...; phasor tables tab, or null): layout 2
+// stores the float values, the int8 layouts get them back packed, spectrum
+// jj's at bits 8 jj.
 template <int kLayout>
-__device__ __forceinline__ void epilogue_bin(const Params& p, const float2* zsub,
+__device__ __forceinline__ void epilogue_bin(const Params& p, const Twiddles& tw,
+                                             const float2* zsub,
                                              int stride, int n_half, int k,
                                              int n_valid, size_t row0,
                                              const float2* tab,
                                              unsigned long long& re,
                                              unsigned long long& im) {
-  const float2 wk = __ldg(p.split_tw + k);
-  const float2 gk = kLayout == 2 ? make_float2(0.0f, 0.0f) : __ldg(p.gains + k);
+  const float2 wk = __ldg(tw.split + k);
+  const float2 gk = kLayout == 2 ? make_float2(0.0f, 0.0f) : __ldg(tw.gains + k);
   const int lo = phasor_lo(n_half), per = n_half / lo + lo;
   const int th = k / lo, tl = n_half / lo + (k & (lo - 1));
   const int ka = pad(k), kb = pad((n_half - k) & (n_half - 1));
@@ -355,19 +445,55 @@ __device__ __forceinline__ void epilogue_bin(const Params& p, const float2* zsub
   }
 }
 
-// kLayout: 0 wire int8, 1 operand int8 stored by each CTA, 2 wire float32,
-// 3 operand int8 gathered by a cluster of kCluster CTAs (one sub-tile a CTA).
+// The epilogue of a CTA's subs sub-tiles (n_spec spectra from spectrum j_cta
+// of stream s) for the layouts that store per CTA: 0 wire int8, 1 operand
+// int8, 2 wire float32; the phasor tables tab (or null) of their spectra.
+template <int kLayout>
+__device__ __forceinline__ void epilogue_store(const Params& p, const Twiddles& tw,
+                                               const float2* z, int stride,
+                                               int n_half, int s, int j_cta, int n_spec,
+                                               const float2* tab) {
+  const int per = phasor_per(n_half);
+  for (int it = threadIdx.x; it < p.subs * n_half; it += kThreads) {
+    const int sub = it / n_half;
+    const int k = it & (n_half - 1);
+    const int n_valid = min(kJ, n_spec - sub * kJ);
+    if (n_valid <= 0) continue;
+    const size_t row0 = static_cast<size_t>(s) * p.n_out + j_cta + sub * kJ;
+    unsigned long long re, im;
+    epilogue_bin<kLayout>(p, tw, z + static_cast<size_t>(sub * kJ) * stride, stride, n_half, k,
+                          n_valid, row0, tab == nullptr ? nullptr : tab + sub * kJ * per, re,
+                          im);
+    if constexpr (kLayout == 0) {
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj)
+        if (jj < n_valid)
+          reinterpret_cast<char2*>(p.out)[(row0 + jj) * n_half + k] =
+              make_char2(static_cast<char>(re >> (8 * jj)), static_cast<char>(im >> (8 * jj)));
+    } else if constexpr (kLayout == 1) {
+      const size_t plane = static_cast<size_t>(p.n_streams) * p.pitch;
+      int8_t* dst = static_cast<int8_t*>(p.out) + 2 * static_cast<size_t>(k) * plane +
+                    static_cast<size_t>(s) * p.pitch + j_cta + sub * kJ;
+      store_run(dst, re, n_valid);
+      store_run(dst + plane, im, n_valid);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// M < 2048: one-shot CTAs, each a tile of subs sub-tiles read from L2.
+// kLayout: 0 wire int8, 1 operand int8 stored by each CTA, 2 wire float32.
 template <int kLayout>
 __global__ void __launch_bounds__(kThreads, 1)
-fengine_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float2 z[];  // subs * kJ spectra of N (+ N/16 pad) values
+fengine_kernel_subtiles(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) float2 z[];  // subs * kJ spectra of N (+ N/16 pad) values
   DCS_CLOCK(c0);
   const int m = p.m;
   const int n_half = m >> 1;
   const int stride = n_half + (n_half >> 4);
   const int s = blockIdx.y;
   const int j_cta = blockIdx.x * p.subs * kJ;
-  const int n_spec = min(p.subs * kJ, p.n_out - j_cta);  // <= 0: cluster padding
+  const int n_spec = min(p.subs * kJ, p.n_out - j_cta);
   const int tid = threadIdx.x;
 
   // 1. FIR of this thread's sub-tile, column slice by column slice.
@@ -405,23 +531,7 @@ fengine_kernel(const __grid_constant__ Params p) {
         }
       }
       float acc[kJ][kCols];
-#pragma unroll
-      for (int jj = 0; jj < kJ; ++jj)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[jj][c] = 0.0f;
-#pragma unroll
-      for (int f = 0; f < kFrames; ++f) {
-        float x[kCols];
-        unpack4(raw[f], x);
-#pragma unroll
-        for (int t = 0; t < kMaxTaps; ++t) {
-          const int jj = f - t;
-          if (jj >= 0 && jj < kJ) {
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) acc[jj][c] = fmaf(w[t][c], x[c], acc[jj][c]);
-          }
-        }
-      }
+      fir_sums(raw, w, acc);
       const int i0 = n0 >> 1;
 #pragma unroll
       for (int jj = 0; jj < kJ; ++jj) {
@@ -435,158 +545,386 @@ fengine_kernel(const __grid_constant__ Params p) {
   }
   __syncthreads();
   DCS_CLOCK(c1);
-
-  // 2. FFT, Stockham passes in place.
-  {
-    int ns = 1;
-    for (int q = 0; q < p.n_pass; ++q) {
-      const int r = p.radix[q];
-      const float2* tw = p.pass_tw + p.tw_off[q];
-      if (r == 16) fft_pass<16>(z, stride, n_half, ns, tw, n_spec);
-      else if (r == 8) fft_pass<8>(z, stride, n_half, ns, tw, n_spec);
-      else if (r == 4) fft_pass<4>(z, stride, n_half, ns, tw, n_spec);
-      else fft_pass<2>(z, stride, n_half, ns, tw, n_spec);
-      ns *= r;
-    }
-  }
+  const Twiddles tw = {p.split_tw, p.pass_tw, p.gains};
+  fft(p, tw, z, stride, n_half, n_spec);
   DCS_CLOCK(c2);
-
-  // 3-5. Split, phasor, gain, rounding and the store, per (sub-tile, bin).
   float2* tab = nullptr;  // the phasor tables, after the spectra
   if (p.frac != nullptr) {
     tab = z + static_cast<size_t>(p.subs) * kJ * stride;
     phasor_tables(p, tab, n_half, static_cast<size_t>(s) * p.n_out + j_cta, n_spec);
     __syncthreads();
   }
-  if constexpr (kLayout == 3) {
-    // one sub-tile; the cluster's kCluster CTAs hold consecutive tiles
-    const int n_valid = min(kJ, n_spec);
-    const size_t row0 = static_cast<size_t>(s) * p.n_out + j_cta;
-    constexpr int kItems = kMaxHalf / kThreads;
-    unsigned long long kr[kItems], ki[kItems];
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int k = tid + i * kThreads;
-      kr[i] = ki[i] = 0;
-      if (k < n_half && n_valid > 0)
-        epilogue_bin<kLayout>(p, z, stride, n_half, k, n_valid, row0, tab, kr[i], ki[i]);
-    }
-    __syncthreads();  // the spectra are read: their space takes the stage
-    DCS_CLOCK(c3);
-    unsigned long long* stage = reinterpret_cast<unsigned long long*>(z);
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int k = tid + i * kThreads;
-      if (k < n_half) {
-        stage[2 * k] = kr[i];
-        stage[2 * k + 1] = ki[i];
-      }
-    }
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    DCS_CLOCK(c4);
-    // rank r stores rows (k, c) [r, r + 1) * 2N / kCluster of the cluster's
-    // kCluster * kJ spectra, gathered from every CTA's stage
-    const int rank = static_cast<int>(cluster.block_rank());
-    const int j_clu = (blockIdx.x / kCluster) * kCluster * kJ;
-    // the run of a row this cluster stores: its spectra, and past n_out the
-    // pad's zeros up to the pitch (the stages hold zeros past n_out)
-    const int n_clu = min(kCluster * kJ, p.pitch - j_clu);
-    const int per_rank = 2 * n_half / kCluster;
-    const size_t plane = static_cast<size_t>(p.n_streams) * p.pitch;
-    for (int row = rank * per_rank + tid; row < (rank + 1) * per_rank; row += kThreads) {
-      unsigned long long w[kCluster * kJ / 8] = {};
-#pragma unroll
-      for (int q = 0; q < kCluster; ++q) {
-        const unsigned long long piece = cluster.map_shared_rank(stage, q)[row];
-        constexpr int kWords = kCluster * kJ / 8;
-        const int off = q * kJ;
-        w[off / 8] |= piece << (8 * (off % 8));
-        if (off % 8 + kJ > 8 && off / 8 + 1 < kWords)
-          w[off / 8 + 1] |= piece >> (8 * (8 - off % 8));
-      }
-      int8_t* dst = static_cast<int8_t*>(p.out) + static_cast<size_t>(row) * plane +
-                    static_cast<size_t>(s) * p.pitch + j_clu;
-      if (n_clu == kCluster * kJ && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-#pragma unroll
-        for (int q = 0; q < kCluster * kJ / 16; ++q)
-          reinterpret_cast<ulonglong2*>(dst)[q] = make_ulonglong2(w[2 * q], w[2 * q + 1]);
-      } else {
-#pragma unroll
-        for (int q = 0; q < kCluster * kJ / 8; ++q)
-          if (8 * q < n_clu) store_run(dst + 8 * q, w[q], min(8, n_clu - 8 * q));
-      }
-    }
-    cluster.sync();  // no CTA leaves while another reads its stage
-#ifdef DCS_K1_PHASES
-    if (tid == 0) {
-      const long long c5 = clock64();
-      atomicAdd(&g_phase_clocks[2], static_cast<unsigned long long>(c3 - c2));
-      atomicAdd(&g_phase_clocks[3], static_cast<unsigned long long>(c4 - c3));
-      atomicAdd(&g_phase_clocks[4], static_cast<unsigned long long>(c5 - c4));
-    }
-#endif
-  } else {
-    const int per = n_half / phasor_lo(n_half) + phasor_lo(n_half);
-    for (int it = tid; it < p.subs * n_half; it += kThreads) {
-      const int sub = it / n_half;
-      const int k = it & (n_half - 1);
-      const int n_valid = min(kJ, n_spec - sub * kJ);
-      if (n_valid <= 0) continue;
-      const size_t row0 = static_cast<size_t>(s) * p.n_out + j_cta + sub * kJ;
-      unsigned long long re, im;
-      epilogue_bin<kLayout>(p, z + static_cast<size_t>(sub * kJ) * stride, stride, n_half,
-                            k, n_valid, row0,
-                            tab == nullptr ? nullptr : tab + sub * kJ * per, re, im);
-      if constexpr (kLayout == 0) {
-#pragma unroll
-        for (int jj = 0; jj < kJ; ++jj)
-          if (jj < n_valid)
-            reinterpret_cast<char2*>(p.out)[(row0 + jj) * n_half + k] =
-                make_char2(static_cast<char>(re >> (8 * jj)), static_cast<char>(im >> (8 * jj)));
-      } else if constexpr (kLayout == 1) {
-        const size_t plane = static_cast<size_t>(p.n_streams) * p.pitch;
-        int8_t* dst = static_cast<int8_t*>(p.out) + 2 * static_cast<size_t>(k) * plane +
-                      static_cast<size_t>(s) * p.pitch + j_cta + sub * kJ;
-        store_run(dst, re, n_valid);
-        store_run(dst + plane, im, n_valid);
-      }
-    }
-  }
+  epilogue_store<kLayout>(p, tw, z, stride, n_half, s, j_cta, n_spec, tab);
 #ifdef DCS_K1_PHASES
   if (tid == 0) {
-    atomicAdd(&g_phase_clocks[0], static_cast<unsigned long long>(c1 - c0));
-    atomicAdd(&g_phase_clocks[1], static_cast<unsigned long long>(c2 - c1));
-    if (kLayout != 3)
-      atomicAdd(&g_phase_clocks[2], static_cast<unsigned long long>(clock64() - c2));
+    atomicAdd(&g_phase_clocks[1], static_cast<unsigned long long>(c1 - c0));
+    atomicAdd(&g_phase_clocks[2], static_cast<unsigned long long>(c2 - c1));
+    atomicAdd(&g_phase_clocks[3], static_cast<unsigned long long>(clock64() - c2));
   }
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// M >= 2048: persistent CTAs, one tile of kJ spectra at a time.
+
+// The tile (stream s, first spectrum j) of a CTA's step i; false past the
+// end of the walk.  Layout 3: cluster c of C takes units v = c, c + C, ... of
+// (stream, group of kCluster consecutive tiles), its CTA of rank r the
+// group's tile r (past the stream's tiles: a tile of no spectra, whose runs
+// are zeros).  Else CTA b of G takes tiles u = b, b + G, ... of the (stream,
+// tile) order.  ops/fengine_fused.py:k1_tiles is the same walk.
 template <int kLayout>
-int launch(const Params& p, dim3 grid, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fengine_kernel<kLayout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+__device__ __forceinline__ bool walk_tile(const Params& p, int i, int& s, int& j) {
   if constexpr (kLayout == 3) {
+    const int groups = (p.tiles + kCluster - 1) / kCluster;
+    const int v = static_cast<int>(blockIdx.x) / kCluster + i * (gridDim.x / kCluster);
+    if (v >= p.n_streams * groups) return false;
+    s = v / groups;
+    j = ((v - s * groups) * kCluster + static_cast<int>(blockIdx.x) % kCluster) * kJ;
+  } else {
+    const int u = static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x);
+    if (u >= p.n_streams * p.tiles) return false;
+    s = u / p.tiles;
+    j = (u - s * p.tiles) * kJ;
+  }
+  return true;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// kLayout: 0 wire int8, 2 wire float32, 3 operand int8 gathered by a cluster
+// of kCluster CTAs; kM the FFT size M (2048, 4096 or 8192), so that every
+// size and offset of the tile is a constant.
+template <int kLayout, int kM>
+__global__ void __launch_bounds__(kThreads, 1)
+fengine_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) float2 z[];  // kJ spectra of N (+ N/16 pad) values, the tables
+  constexpr int kN = kM / 2;
+  constexpr int kStride = kN + kN / 16;
+  constexpr int kSlice = kCols * kThreads;  // FIR columns a slice
+  const int tid = threadIdx.x;
+#ifdef DCS_K1_PHASES
+  unsigned long long ticks[kPhases] = {};
+#endif
+  bool deferred = false;  // layout 3: the last tile's second cluster barrier, not yet waited
+  int s, j;
+#pragma unroll 1
+  for (int i = 0; walk_tile<kLayout>(p, i, s, j); ++i) {
+    const int n_spec = min(kJ, p.n_out - j);  // <= 0: a cluster's padding tile
+    const int f0 = j + p.pad0;
+    const int nf = n_spec + p.taps - 1;
+    const int8_t* hist = fresh(p.hist) + (static_cast<long long>(s) * p.n_hist + f0) * kM;
+    const int8_t* chunk =
+        fresh(p.chunk) + (static_cast<long long>(s) * p.n_chunk + f0 - p.n_hist) * kM;
+    const int split = p.n_hist - f0;  // the tile's rows [0, split) lie in hist
+
+    // 1. FIR, column slice by column slice: this thread's kCols columns of
+    // the window and of the tile's frames, then its kJ x kCols sums.
+    DCS_CLOCK(c_fir);
+#ifdef DCS_K1_PHASES
+    unsigned long long fir_waits = 0;  // this tile's waits, counted apart from its FIR
+#endif
+#pragma unroll 1
+    for (int n0 = kCols * tid; n_spec > 0 && n0 < kM; n0 += kSlice) {
+      DCS_CLOCK(c0);
+      float w[kMaxTaps][kCols];
+      const float* window = fresh(p.window) + n0;
+#pragma unroll
+      for (int t = 0; t < kMaxTaps; ++t) {
+        const float4 v = t < p.taps ? __ldg(reinterpret_cast<const float4*>(window + t * kM))
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        w[t][0] = v.x; w[t][1] = v.y; w[t][2] = v.z; w[t][3] = v.w;
+      }
+      // (the rows' addresses made anew for each slice: hoisted out of the
+      // slice loop, the compiler would keep 21 of them through it)
+      const int8_t* hist_n = fresh(hist) + n0;
+      const int8_t* chunk_n = fresh(chunk) + n0;
+      uint32_t raw[kFrames];
+#pragma unroll
+      for (int f = 0; f < kFrames; ++f)
+        raw[f] = f < nf ? __ldg(reinterpret_cast<const unsigned int*>(
+                              (f < split ? hist_n : chunk_n) + f * kM))
+                        : 0u;
+#ifdef DCS_K1_PHASES
+      {  // wait here for the slice's loads, to tell the wait from the arithmetic
+        uint32_t sink = 0;
+#pragma unroll
+        for (int f = 0; f < kFrames; ++f) sink ^= raw[f];
+#pragma unroll
+        for (int t = 0; t < kMaxTaps; ++t)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) sink ^= __float_as_uint(w[t][c]);
+        asm volatile("" ::"r"(sink));
+        const unsigned long long waited = clock64() - c0;
+        ticks[0] += waited;
+        fir_waits += waited;
+      }
+#endif
+      float acc[kJ][kCols];
+      fir_sums(raw, w, acc);
+      if constexpr (kLayout == 3) {
+        if (deferred) {
+          // no CTA of the cluster still reads this CTA's stage
+          DCS_CLOCK(c1);
+          cluster_wait();
+          deferred = false;
+#ifdef DCS_K1_PHASES
+          ticks[5] += clock64() - c1;
+          fir_waits += clock64() - c1;
+#endif
+        }
+      }
+      const int i0 = n0 >> 1;
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        if (jj < n_spec) {
+          z[jj * kStride + pad(i0)] = make_float2(acc[jj][0], acc[jj][1]);
+          z[jj * kStride + pad(i0 + 1)] = make_float2(acc[jj][2], acc[jj][3]);
+        }
+      }
+    }
+    if constexpr (kLayout == 3) {
+      if (deferred) {  // a tile of no spectra ran no FIR
+        cluster_wait();
+        deferred = false;
+      }
+    }
+    __syncthreads();
+    DCS_CLOCK(c2);
+
+    // 2. FFT.
+    const Twiddles tw = {fresh(p.split_tw), fresh(p.pass_tw), fresh(p.gains)};
+    fft(p, tw, z, kStride, kN, n_spec);
+    DCS_CLOCK(c3);
+
+    // 3-5. Split, phasor, gain, rounding and the store.
+    float2* tab = nullptr;  // the phasor tables, after the spectra
+    if (p.frac != nullptr) {
+      tab = z + kJ * kStride;
+      phasor_tables(p, tab, kN, static_cast<size_t>(s) * p.n_out + j, n_spec);
+      __syncthreads();
+    }
+    if constexpr (kLayout == 3) {
+      const int n_valid = min(kJ, n_spec);
+      const size_t row0 = static_cast<size_t>(s) * p.n_out + j;
+      constexpr int kItems = kN / kThreads;
+      unsigned long long kr[kItems], ki[kItems];
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int k = tid + it * kThreads;
+        kr[it] = ki[it] = 0;
+        if (n_valid > 0)
+          epilogue_bin<kLayout>(p, tw, z, kStride, kN, k, n_valid, row0, tab, kr[it], ki[it]);
+      }
+      __syncthreads();  // the spectra are read: their space takes the stage
+      DCS_CLOCK(c4);
+      unsigned long long* stage = reinterpret_cast<unsigned long long*>(z);
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int k = tid + it * kThreads;
+        stage[2 * k] = kr[it];
+        stage[2 * k + 1] = ki[it];
+      }
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      DCS_CLOCK(c5);
+      // rank r stores rows (k, c) [r, r + 1) * 2N / kCluster of the cluster's
+      // kCluster * kJ spectra, gathered from every CTA's stage
+      constexpr int kWords = kCluster * kJ / 8;
+      const int rank = static_cast<int>(cluster.block_rank());
+      const int j_clu = j - rank * kJ;
+      // the run of a row this cluster stores: its spectra, and past n_out the
+      // pad's zeros up to the pitch (the stages hold zeros past n_out)
+      const int n_clu = min(kCluster * kJ, p.pitch - j_clu);
+      constexpr int kPerRank = 2 * kN / kCluster;
+      const size_t plane = static_cast<size_t>(p.n_streams) * p.pitch;
+      for (int row = rank * kPerRank + tid; row < (rank + 1) * kPerRank; row += kThreads) {
+        unsigned long long run[kWords] = {};
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) {
+          const unsigned long long piece = cluster.map_shared_rank(stage, q)[row];
+          const int off = q * kJ;
+          run[off / 8] |= piece << (8 * (off % 8));
+          if (off % 8 + kJ > 8 && off / 8 + 1 < kWords)
+            run[off / 8 + 1] |= piece >> (8 * (8 - off % 8));
+        }
+        int8_t* dst = static_cast<int8_t*>(p.out) + static_cast<size_t>(row) * plane +
+                      static_cast<size_t>(s) * p.pitch + j_clu;
+        if (n_clu == kCluster * kJ && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+#pragma unroll
+          for (int q = 0; q < kCluster * kJ / 16; ++q)
+            reinterpret_cast<ulonglong2*>(dst)[q] = make_ulonglong2(run[2 * q], run[2 * q + 1]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < kWords; ++q)
+            if (8 * q < n_clu) store_run(dst + 8 * q, run[q], min(8, n_clu - 8 * q));
+        }
+      }
+      // this CTA has read every stage it needs; the next tile's FIR waits for
+      // the cluster before its first store to the spectra
+      cluster_arrive();
+      deferred = true;
+#ifdef DCS_K1_PHASES
+      ticks[3] += c4 - c3;
+      ticks[4] += c5 - c4;
+      ticks[5] += clock64() - c5;
+#endif
+    } else {
+      epilogue_store<kLayout>(p, tw, z, kStride, kN, s, j, n_spec, tab);
+      __syncthreads();  // the spectra are read before the next tile's FIR stores
+#ifdef DCS_K1_PHASES
+      ticks[3] += clock64() - c3;
+#endif
+    }
+#ifdef DCS_K1_PHASES
+    ticks[1] += c2 - c_fir - fir_waits;
+    ticks[2] += c3 - c2;
+#endif
+  }
+  if constexpr (kLayout == 3) {
+    if (deferred) cluster_wait();  // no CTA leaves while another reads its stage
+  }
+#ifdef DCS_K1_PHASES
+  if (tid == 0)
+    for (int q = 0; q < kPhases; ++q) atomicAdd(&g_phase_clocks[q], ticks[q]);
+#endif
+}
+
+// The CTAs of a kernel that the card holds at once at a shared-memory size
+// (clusters times kCluster for layout 3), found once per card, kernel and
+// size; the first call on a card also lets the kernel use the card's whole
+// opt-in shared memory.  The occupancy and cluster queries and the attribute
+// are not per launch: a CUDA graph's capture sees none of them once a call
+// has run.
+template <typename Kernel>
+cudaError_t resident_ctas(Kernel kernel, int cluster, size_t smem, int* ctas) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    size_t smem;
+    int ctas;
+  };
+  static std::mutex mu;
+  static Entry cache[32];
+  static int n_cache = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  bool attr_set = false;
+  for (int i = 0; i < n_cache; ++i) {
+    if (cache[i].fn != fn || cache[i].dev != dev) continue;
+    attr_set = true;
+    if (cache[i].smem == smem) {
+      *ctas = cache[i].ctas;
+      return cudaSuccess;
+    }
+  }
+  if (!attr_set) {
+    cudaFuncAttributes attr;
+    int optin = 0;
+    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - static_cast<int>(attr.sharedSizeBytes));
+    if (err != cudaSuccess) return err;
+  }
+  int n = 0;
+  if (cluster > 1) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
+    cfg.gridDim = dim3(cluster * 64);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
+    cudaLaunchAttribute a[1];
+    a[0].id = cudaLaunchAttributeClusterDimension;
+    a[0].val.clusterDim.x = cluster;
+    a[0].val.clusterDim.y = 1;
+    a[0].val.clusterDim.z = 1;
+    cfg.attrs = a;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, fengine_kernel<kLayout>, p);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if ((err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess) return err;
+    n *= cluster;
   } else {
-    fengine_kernel<kLayout><<<grid, kThreads, smem, st>>>(p);
+    int per_sm = 0, sms = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+        cudaSuccess)
+      return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    n = per_sm * sms;
   }
+  if (n < cluster) return cudaErrorInvalidConfiguration;  // the kernel fits nowhere
+  if (n_cache < 32) cache[n_cache++] = {fn, dev, smem, n};
+  *ctas = n;
+  return cudaSuccess;
+}
+
+// The persistent kernel's shared memory: the spectra and the phasor tables.
+size_t persistent_smem(int m, bool rotate) {
+  const int n_half = m / 2;
+  return static_cast<size_t>(kJ) * (n_half + n_half / 16 + (rotate ? phasor_per(n_half) : 0)) *
+         sizeof(float2);
+}
+
+// The persistent kernel of layout L for M = 2048, 4096 or 8192.
+template <int kLayout>
+void (*persistent_kernel(int m))(Params) {
+  if (m == 2048) return fengine_kernel<kLayout, 2048>;
+  if (m == 4096) return fengine_kernel<kLayout, 4096>;
+  return fengine_kernel<kLayout, 8192>;
+}
+
+// The grid of the persistent kernel of layout L (0, 2, 3) for a call: as
+// many CTAs as the card holds (whole clusters in layout 3), no more than the
+// call has units.
+template <int kLayout>
+cudaError_t persistent_grid(const Params& p, size_t smem, int* grid) {
+  const int cluster = kLayout == 3 ? kCluster : 1;
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(persistent_kernel<kLayout>(p.m), cluster, smem, &ctas);
+  if (err != cudaSuccess) return err;
+  const long long units =
+      static_cast<long long>(p.n_streams) * ((p.tiles + cluster - 1) / cluster);
+  *grid = static_cast<int>(units < ctas / cluster ? units : ctas / cluster) * cluster;
+  return cudaSuccess;
+}
+
+template <int kLayout>
+int launch_persistent(const Params& p, size_t smem, cudaStream_t st) {
+  int grid = 0;
+  cudaError_t err = persistent_grid<kLayout>(p, smem, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kLayout == 3 ? kCluster : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kLayout == 3 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, persistent_kernel<kLayout>(p.m), p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kLayout>
+int launch_subtiles(const Params& p, size_t smem, cudaStream_t st) {
+  int unused = 0;  // (called for the kernel's shared-memory attribute)
+  const cudaError_t err = resident_ctas(fengine_kernel_subtiles<kLayout>, 1, smem, &unused);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fengine_kernel_subtiles<kLayout><<<dim3(p.tiles, p.n_streams), kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,6 +972,7 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
   p.pitch = layout == 1 ? pitch : n_out;
   p.groups = m / kCols < kThreads ? m / kCols : kThreads;
   p.subs = kThreads / p.groups;
+  p.tiles = (n_out + p.subs * kJ - 1) / (p.subs * kJ);
   // the plan of fft_plan: radix-16 passes, then one of 2^(log2 N mod 4);
   // pass q's table holds (R - 1) Ns values when Ns > 1
   const int n_half = m / 2;
@@ -648,19 +987,23 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
     ns *= r;
     ++p.n_pass;
   }
-  const int stride = n_half + n_half / 16;
-  const int lo = phasor_lo(n_half);
-  const size_t smem = static_cast<size_t>(p.subs) * kJ *
-                      (stride + (frac != nullptr ? n_half / lo + lo : 0)) * sizeof(float2);
-  const int tiles = (n_out + p.subs * kJ - 1) / (p.subs * kJ);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gains == nullptr) return launch<2>(p, dim3(tiles, n_streams), smem, st);
-  if (layout == 0) return launch<0>(p, dim3(tiles, n_streams), smem, st);
+  const bool persistent = m >= kPersistentM;  // one sub-tile a CTA
+  const size_t smem = persistent ? persistent_smem(m, frac != nullptr)
+                                 : static_cast<size_t>(p.subs) * kJ *
+                                       (n_half + n_half / 16 +
+                                        (frac != nullptr ? phasor_per(n_half) : 0)) *
+                                       sizeof(float2);
+  if (gains == nullptr)
+    return persistent ? launch_persistent<2>(p, smem, st) : launch_subtiles<2>(p, smem, st);
+  if (layout == 0)
+    return persistent ? launch_persistent<0>(p, smem, st) : launch_subtiles<0>(p, smem, st);
   // the operand layout: kCluster CTAs gather their tiles' kJ-byte runs into
   // runs of kCluster * kJ bytes (M >= 2048, one sub-tile a CTA), which
-  // reach the pitch when it lies within the grid's last cluster
-  const int clustered = (tiles + kCluster - 1) / kCluster * kCluster;
-  if (pitch != n_out && (p.subs > 1 || pitch > clustered * kJ)) {
+  // reach the pitch when it lies within the stream's last group of kCluster
+  // tiles
+  const int clustered = (p.tiles + kCluster - 1) / kCluster * kCluster;
+  if (pitch != n_out && (!persistent || pitch > clustered * kJ)) {
     // the pad spectra of every (k, c, stream) row, which the CMAC reads as
     // zeros
     const cudaError_t err = cudaMemset2DAsync(static_cast<int8_t*>(out) + n_out, pitch, 0,
@@ -668,43 +1011,39 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
                                               static_cast<size_t>(m) * n_streams, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (p.subs > 1) return launch<1>(p, dim3(tiles, n_streams), smem, st);
-  return launch<3>(p, dim3(clustered, n_streams), smem, st);
+  return persistent ? launch_persistent<3>(p, smem, st) : launch_subtiles<1>(p, smem, st);
+}
+
+// The grid the persistent kernel launches for a call of `dcs_fengine` (0
+// below M = 2048, where one-shot CTAs run): CTAs, a multiple of the
+// cluster's 8 in the operand layout.
+extern "C" int dcs_fengine_grid(int n_streams, int n_out, int m, int layout, int rotate,
+                                int float_out, int* grid) {
+  *grid = 0;
+  if (m < kPersistentM) return 0;
+  if (m & (m - 1) || m / 2 > kMaxHalf || n_streams < 1 || n_out < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.n_streams = n_streams;
+  p.n_out = n_out;
+  p.m = m;
+  p.tiles = (n_out + kJ - 1) / kJ;
+  const size_t smem = persistent_smem(m, rotate != 0);
+  cudaError_t err;
+  if (float_out) err = persistent_grid<2>(p, smem, grid);
+  else if (layout == 0) err = persistent_grid<0>(p, smem, grid);
+  else err = persistent_grid<3>(p, smem, grid);
+  return static_cast<int>(err);
 }
 
 #ifdef DCS_K1_PHASES
-// The summed phase clocks of thread 0 of every CTA since the last call
-// (which zeroes them), into clocks[kPhases].
+// The summed phase clocks of thread 0 of every CTA since the last call (which
+// zeroes them), into clocks[6]: fir_wait, fir, fft, epilogue, exchange,
+// gather + store.
 extern "C" int dcs_fengine_phases(unsigned long long* clocks) {
   cudaError_t err = cudaMemcpyFromSymbol(clocks, g_phase_clocks, sizeof(g_phase_clocks));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned long long zero[kPhases] = {};
   return static_cast<int>(cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero)));
-}
-
-// How many clusters of the cluster-gathered operand kernel the card runs at
-// once at M, and its SMs (the product over the SMs is the share in use).
-extern "C" int dcs_fengine_clusters(int m, int* clusters, int* sms) {
-  const size_t smem = static_cast<size_t>(kJ) * (m / 2 + m / 32 + m / 128 + 64) *
-                      sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fengine_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1024, 1);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaOccupancyMaxActiveClusters(clusters, fengine_kernel<3>, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0;
-  cudaGetDevice(&dev);
-  return static_cast<int>(cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev));
 }
 #endif

@@ -33,7 +33,10 @@ Output layouts, channels in natural order in each:
 The kernel's FFT is a plan of Stockham passes (:func:`fft_plan`) whose
 twiddle tables are made here in float64; :func:`fft_plan_torch` runs the
 same plan (radix order, twiddle indices, Stockham addressing, the
-in-register DFT's stages) in PyTorch, for the tests only.
+in-register DFT's stages) in PyTorch, for the tests only.  From M = 2048
+the kernel's CTAs are persistent and walk tiles of 6 spectra;
+:func:`k1_tiles` is that walk, :func:`k1_grid` the grid it is launched
+with and :func:`k1_l2_bytes` the bytes its FIR reads from L2.
 """
 
 from __future__ import annotations
@@ -53,10 +56,16 @@ from dc_sand_tpu_torch.ops.xcorr import wire_to_operand
 from dc_sand_tpu_torch.utils.cplx import c2ri, ri2c
 
 __all__ = ["fengine_fused", "fengine_fused_torch", "fengine_tail",
-           "fft_plan", "fft_plan_torch", "MAX_FFT_SIZE", "LAYOUTS"]
+           "fft_plan", "fft_plan_torch", "k1_tiles", "k1_grid",
+           "k1_l2_bytes", "MAX_FFT_SIZE", "LAYOUTS"]
 
 MAX_FFT_SIZE = 8192   # the kernel holds its spectra's M/2 <= 4096 values
 LAYOUTS = ("wire", "wire_flat", "operand")
+# csrc/fengine.cu: spectra a tile (kJ), the operand layout's cluster
+# (kCluster), the least M whose tile fills a CTA (kPersistentM)
+K1_TILE = 6
+K1_CLUSTER = 8
+K1_PERSISTENT_M = 2048
 
 
 def _per_spectrum(v, lead, b_out, device):
@@ -177,6 +186,64 @@ def _wire(res: torch.Tensor, lead, layout: str) -> torch.Tensor:
     b, k = res.shape[-3], res.shape[-2]
     tail = (b, 2 * k) if layout == "wire_flat" else (b, k, 2)
     return res.reshape(tuple(lead) + tail)
+
+
+def _units(n_streams: int, n_out: int, operand: bool) -> tuple:
+    """``(units, per)``: the walk's units and the CTAs a unit takes, a
+    (stream, tile) each or, in the operand layout, a (stream, group of
+    :data:`K1_CLUSTER` consecutive tiles) a cluster."""
+    tiles = -(-n_out // K1_TILE)
+    if operand:
+        return n_streams * -(-tiles // K1_CLUSTER), K1_CLUSTER
+    return n_streams * tiles, 1
+
+
+def k1_grid(n_streams: int, n_out: int, resident: int,
+            operand: bool) -> int:
+    """The persistent kernel's grid: the CTAs the card holds at once
+    (``resident``, whole clusters in the operand layout), no more than the
+    call has units."""
+    units, per = _units(n_streams, n_out, operand)
+    return min(units, resident // per) * per
+
+
+def k1_tiles(n_streams: int, n_out: int, grid: int,
+             operand: bool) -> list:
+    """The persistent kernel's walk (``csrc/fengine.cu:walk_tile``): for
+    each of the ``grid`` CTAs, the ``(stream, first spectrum)`` of its
+    tiles in order.  CTA b takes units b, b + G, ... of the grid's G;
+    in the operand layout cluster c = b // 8 takes units c, c + G/8, ...
+    and its CTA of rank b % 8 the group's tile of that rank, whose first
+    spectrum lies past ``n_out`` where the stream's tiles end (a tile of no
+    spectra: its runs are zeros)."""
+    units, per = _units(n_streams, n_out, operand)
+    if grid < per or grid % per:
+        raise ValueError(f"the grid takes whole clusters of {per} CTAs, "
+                         f"got {grid}")
+    tiles = -(-n_out // K1_TILE)
+    groups = -(-tiles // K1_CLUSTER)
+    walk = []
+    for b in range(grid):
+        steps = []
+        for v in range(b // per, units, grid // per):
+            if operand:
+                s, g = divmod(v, groups)
+                steps.append((s, (g * K1_CLUSTER + b % K1_CLUSTER) * K1_TILE))
+            else:
+                s, t = divmod(v, tiles)
+                steps.append((s, t * K1_TILE))
+        walk.append(steps)
+    return walk
+
+
+def k1_l2_bytes(n_streams: int, n_out: int, m: int, taps: int) -> int:
+    """The bytes the kernel's FIR reads from L2 for a call, as its design
+    counts them: each tile of ``n`` spectra the whole ``(taps, M)`` float32
+    window and its ``n + taps - 1`` frames of M bytes."""
+    full, last = divmod(n_out, K1_TILE)
+    frames = full * (K1_TILE + taps - 1) + (last + taps - 1 if last else 0)
+    tiles = full + bool(last)
+    return n_streams * (tiles * taps * m * 4 + frames * m)
 
 
 def fft_plan(n: int) -> tuple:

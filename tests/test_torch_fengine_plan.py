@@ -2,14 +2,17 @@
 PyTorch (``ops/fengine_fused.py:fft_plan_torch``: the radix order, the
 twiddle table indices, the Stockham addressing and the in-register DFT's
 stages) and held to ``torch.fft.rfft`` in float64, so that an index error
-shows on the CPU before it reaches the card."""
+shows on the CPU before it reaches the card; and the persistent CTAs'
+walk over the tiles (``k1_tiles``), held to cover every tile once."""
 
 import numpy as np
 import pytest
 import torch
 
-from dc_sand_tpu_torch.ops.fengine_fused import (fft_plan, fft_plan_torch,
-                                                 _tables_np)
+from dc_sand_tpu_torch.ops.fengine_fused import (K1_CLUSTER, K1_TILE,
+                                                 fft_plan, fft_plan_torch,
+                                                 k1_grid, k1_l2_bytes,
+                                                 k1_tiles, _tables_np)
 
 THREADS = 512   # csrc/fengine.cu: kThreads
 
@@ -46,3 +49,59 @@ def test_plan_fits_the_kernel(m):
     need = sum((r - 1) * ns for r, ns, _ in plan if ns > 1)
     split, passes = _tables_np(m)
     assert split.shape == (n,) and passes.shape == (max(need, 1),)
+
+
+@pytest.mark.parametrize("operand", [False, True])
+@pytest.mark.parametrize("resident", [1, 15 * 8, 132, 264])
+@pytest.mark.parametrize("streams,b", [(1, 1), (1, 19), (6, 19), (4, 256),
+                                       (3, 2040), (128, 2048)])
+def test_persistent_walk_covers_every_tile_once(operand, resident, streams,
+                                                b):
+    """The persistent kernel's walk at the grid it launches with when the
+    card holds ``resident`` CTAs: every (stream, tile) exactly once, no CTA
+    idle, steps balanced to one; in the operand layout the grid is whole
+    clusters (none when the card holds fewer than 8 CTAs), a cluster's CTAs
+    take consecutive tiles of one stream in the same number of steps, and
+    the only tiles past B are the padding of a stream's last group."""
+    grid = k1_grid(streams, b, resident, operand)
+    tiles = -(-b // K1_TILE)
+    if operand and resident < K1_CLUSTER:
+        assert grid == 0
+        with pytest.raises(ValueError, match="whole clusters"):
+            k1_tiles(streams, b, grid, operand)
+        return
+    walk = k1_tiles(streams, b, grid, operand)
+    assert len(walk) == grid and all(walk)
+    seen = [(s, j // K1_TILE) for steps in walk for s, j in steps if j < b]
+    assert sorted(seen) == [(s, t) for s in range(streams)
+                            for t in range(tiles)]
+    if not operand:
+        assert max(map(len, walk)) - min(map(len, walk)) <= 1
+        return
+    clusters = [walk[c:c + K1_CLUSTER] for c in range(0, grid, K1_CLUSTER)]
+    assert max(len(c[0]) for c in clusters) - min(
+        len(c[0]) for c in clusters) <= 1
+    groups = -(-tiles // K1_CLUSTER)
+    for cl in clusters:
+        assert len({len(steps) for steps in cl}) == 1
+        for i in range(len(cl[0])):
+            s0, j0 = cl[0][i]
+            assert j0 % (K1_CLUSTER * K1_TILE) == 0
+            assert [cl[r][i] for r in range(K1_CLUSTER)] == [
+                (s0, j0 + r * K1_TILE) for r in range(K1_CLUSTER)]
+            if j0 + K1_CLUSTER * K1_TILE > b:   # the padding lies here only
+                assert j0 // (K1_CLUSTER * K1_TILE) == groups - 1
+
+
+@pytest.mark.parametrize("b,taps", [(2048, 16), (256, 16), (19, 4), (6, 1)])
+def test_l2_bytes_counts_each_tile(b, taps):
+    """The FIR's L2 bytes: each tile the whole window and its frames,
+    counted tile by tile; fx64's chunk reads about 30.5 GB."""
+    m, streams = 8192, 3
+    want = 0
+    for j in range(0, b, K1_TILE):
+        n = min(K1_TILE, b - j)
+        want += taps * m * 4 + (n + taps - 1) * m
+    assert k1_l2_bytes(streams, b, m, taps) == streams * want
+    if b == 2048:
+        assert abs(k1_l2_bytes(128, b, m, taps) / 1e9 - 30.48) < 0.01

@@ -135,18 +135,22 @@ def _noise(gen, shape, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("taps,nch,b", [(4, 16, 5), (4, 64, 16),
-                                        (16, 1024, 24), (16, 4096, 19)])
-def test_fengine_kernel_matches_plain(cuda, taps, nch, b):
+@pytest.mark.parametrize("taps,nch,b,s", [
+    (4, 16, 5, 6), (4, 64, 16, 6), (16, 1024, 24, 6), (16, 4096, 19, 6),
+    (4, 1024, 19, 6), (16, 1024, 256, 1), (16, 4096, 256, 6),
+    (4, 4096, 2040, 6), (16, 4096, 19, 1), (16, 4096, 2040, 3)])
+def test_fengine_kernel_matches_plain(cuda, taps, nch, b, s):
     """Kernel vs plain version: only single-LSB boundary flips, at most
     1e-3 of the values (the two FFTs sum in different orders), in both
     layouts; the operand layout is bitwise ``wire_to_operand`` of the wire
     output (M = 32 puts 64 sub-tiles in a CTA, B = 5 and 19 leave a
-    ragged last tile)."""
+    ragged last tile; from M = 2048 the persistent CTAs walk several
+    tiles each at B = 2040 and 256 and leave remainders, and one stream
+    walks alone; the history's frames run into the chunk's)."""
     from dc_sand_tpu_torch.ops.xcorr import wire_to_operand
     gen = torch.Generator(device=cuda)
     gen.manual_seed(taps)
-    s, m = 6, 2 * nch
+    m = 2 * nch
     hist = _noise(gen, (s, taps_pad_for(taps), m), cuda)
     chunk = _noise(gen, (s, b, m), cuda)
     fd = torch.rand((s, b), generator=gen, device=cuda) - 0.5
@@ -167,7 +171,9 @@ def test_fengine_kernel_matches_plain(cuda, taps, nch, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("taps,nch,b", [(4, 64, 16), (16, 1024, 24)])
+@pytest.mark.parametrize("taps,nch,b", [(4, 64, 16), (16, 1024, 24),
+                                        (4, 1024, 19), (16, 4096, 19),
+                                        (16, 4096, 256)])
 def test_fengine_float_kernel_matches_plain(cuda, taps, nch, b):
     """K1's float-output variant (no gains) vs the plain version, with and
     without the phasor, split I/O and one stream: >= 100 dB apart (both

@@ -262,7 +262,8 @@ def test_cmac_kernel_at_ragged_b(cuda, b, keep):
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra", [0, 64])
 @pytest.mark.parametrize("nch,b", [(32, 8), (512, 24), (1024, 40),
-                                   (4096, 24), (4096, 40), (4096, 2040)])
+                                   (4096, 24), (4096, 40), (4096, 2040),
+                                   (1024, 19), (4096, 19), (4096, 256)])
 def test_k1_pitched_operand_kernel(cuda, nch, b, extra):
     """K1 in the operand layout at the CMAC's pitch (and 64 spectra past
     it, beyond the grid's last cluster), through both of its store paths

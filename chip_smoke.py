@@ -205,7 +205,22 @@ single-process surface:
     bitwise the plain-gather run's, ``run()`` ms a chunk and the idle
     share of a traced window beside the host shift's; ``verify fx64`` in
     the device mode > 50 dB.  Phases 35 and 36 run before 32-34, whose
-    ranks read phase 36's sha256.
+    ranks read phase 36's sha256;
+41. K1 at M = 65536, the 32k mode (``fengine_wide_kernel``, a spectrum
+    across a cluster of 8 CTAs, and for the operand layout its transpose
+    ``fengine_wide_operand``), vs its plain version at the 32k chunk
+    (128 streams x 256 spectra x 32768 channels), the plain version in
+    16-stream blocks: every difference a single LSB, at most 1e-3 of the
+    values, each flip of the stream with the most within 1e-3 of a .5
+    boundary of the float64 golden chain; the operand layout at a pitch
+    past B bitwise ``wire_to_operand`` of the wire layout, pad zeros
+    included; both layouts timed in turns beside their bound; then fx at
+    32768 channels through ``FXRunner`` (full width, device coarse mode,
+    2 chunks of 256 spectra, one dump): launch counters, zeroed just
+    before, the cluster kernel 2, its transpose 2, CMAC 2, gather 2, and 0
+    for the others (the one-CTA K1 and K6 among them); autocorrelations
+    real and >= 0.  ``python3 chip_smoke.py --phase 41`` runs it alone
+    after the build.  Phase 41 runs before 32-34.
 
 Every phase whose runner has a coarse delay on the host path counts one
 gather launch a chunk (the feed's shift).
@@ -316,13 +331,15 @@ The second-to-last line is ``{"kernels": [...]}``: launches from the
 main-path phases (6 for K1 in the operand layout and the CMAC, 9 for K1
 in the wire layout and the beam kernel, 12's fused pfb1k for K1-float, 13
 for K6, 16 and 17 together for the ring and the all-to-all in
-corner-turn mode, 20's probes target for P1 and P2, and for
+corner-turn mode, 41's 32k runner for ``fengine_wide`` (the cluster
+kernel; its time the wire layout's) and ``fengine_wide_operand`` (its
+time the operand layout's call, both kernels), 20's probes target for P1 and P2, and for
 ``all_to_all_ipc`` and ``ring_ipc``, the same kernels across processes,
 both ranks' launches in phases 32 and 33, for ``all_to_all_staged`` the
 receivers' launches across nodes in phases 37 and 38, for
 ``ring_staged`` those of phase 39's bench run, and 36's device-mode fx64
 and beam64 runs for the coarse gather), times from phases 2, 3, 7, 10,
-11, 14, 15, 19, 32, 33, 35 and 39 (the probes with the L2 flushed; the
+11, 14, 15, 19, 32, 33, 35, 39 and 41 (the probes with the L2 flushed; the
 IPC and staged rows rank 0's; the gather's at fx64 with the lead-in);
 the last is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when no
 CUDA device is present.
@@ -349,6 +366,9 @@ FX64_SEED = 6              # the chunks of phases 6 and 13
 PLAIN_BLOCK_STREAMS = 16   # bounds the plain F-engine's float32 copies
 MAX_FLIP_FRACTION = 1e-4   # measured on the H100: about 1e-5
 FLIP_BOUNDARY_TOL = 1e-3   # a flip's float64 pre-round value to a .5
+WIDE_SPECTRA, WIDE_M = 256, 65536   # phase 41: the 32k cell's chunk
+WIDE_SEED = 41
+WIDE_MAX_FLIP_FRACTION = 1e-3      # the card test's limit at M = 65536
 BEAMS, BEAM_SPECTRA = 16, 256
 BEAM_SEED = 9              # the chunks of phases 9 and 18
 SHARDS = 4                 # the mesh of phases 14-18
@@ -411,6 +431,8 @@ def _wrappers() -> dict:
     from dc_sand_tpu_torch.parallel import all_to_all, ring_permute_right
     return {"fengine": (fengine_fused, "launches"),
             "fengine_float": (fengine_fused, "float_launches"),
+            "fengine_wide": (fengine_fused, "wide_launches"),
+            "fengine_wide_operand": (fengine_fused, "wide_operand_launches"),
             "pfb": (pfb_fir, "launches"),
             "cmac": (xcorr_accumulate_a2, "launches"),
             "beamform": (beamform, "launches"),
@@ -1425,6 +1447,185 @@ def _phase_40_main(digest6, digest36, n_cards, mesh_step_ms, card) -> None:
     print(f"[40 several cards] {took:.1f} s ({card})", flush=True)
 
 
+def _k1_against_plain(got, chunk, window, nch, history, frac_delay, phase,
+                      gains) -> tuple:
+    """K1's int8 wire spectra ``got`` ``(S, B, K, 2)`` against its plain
+    version, :data:`PLAIN_BLOCK_STREAMS` streams at a time: ``(max |diff|,
+    flips a stream, plain)``, ``plain()`` running the plain version alone
+    (for the caller to time)."""
+    import torch
+    from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+    blocks = [slice(i, i + PLAIN_BLOCK_STREAMS)
+              for i in range(0, chunk.shape[0], PLAIN_BLOCK_STREAMS)]
+
+    def plain_of(sl):
+        return fengine_fused(chunk[sl], window, TAPS, nch,
+                             history=history[sl], frac_delay=frac_delay[sl],
+                             phase=phase[sl], gains=gains, impl="torch")
+
+    worst, flips = 0, torch.zeros(chunk.shape[0], dtype=torch.int64)
+    for sl in blocks:
+        d = (got[sl].to(torch.int16) - plain_of(sl).to(torch.int16)).abs()
+        worst = max(worst, int(d.max()))
+        flips[sl] = (d > 0).sum(dim=(1, 2, 3)).cpu()
+    return worst, flips, lambda: [plain_of(sl) for sl in blocks]
+
+
+def _certify_flips(got, chunk, window, nch, history, frac_delay, phase,
+                   gains, w, label) -> None:
+    """Each flip of stream ``w`` of ``got`` from its plain version must
+    round a float64 golden pre-round value within
+    :data:`FLIP_BOUNDARY_TOL` of a .5 boundary, where float32 FFTs summing
+    in other orders may round either way (a wrong rounding mode or phase
+    flips away from them)."""
+    import numpy as np
+    import torch
+    from dc_sand_tpu_torch import golden
+    from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+    from dc_sand_tpu_torch.ops.pfb import taps_pad_for
+    hist, fd, ph, one = history, frac_delay, phase, slice(w, w + 1)
+    want = fengine_fused(chunk[one], window, TAPS, nch, history=hist[one],
+                         frac_delay=fd[one], phase=ph[one], gains=gains,
+                         impl="torch")
+    diff = (got[one].to(torch.int16) - want.to(torch.int16)).cpu().numpy()
+    pad0 = taps_pad_for(TAPS) - TAPS + 1
+    x = torch.cat([hist[w, pad0:], chunk[w]]).reshape(1, -1).cpu().numpy()
+    g = gains.double().cpu().numpy()
+    pre = golden.f_engine(x, window.double().cpu().numpy(), TAPS, nch,
+                          frac_delay=fd[one].double().cpu().numpy(),
+                          phase=ph[one].double().cpu().numpy()) * (
+                              g[:, 0] + 1j * g[:, 1])
+    v = np.stack([pre.real, pre.imag], -1)[diff != 0]
+    dist = np.abs(v - np.floor(v) - 0.5)
+    print(f"[{label}] stream {w}: {v.size} flips, largest distance of a "
+          f"flip's golden pre-round value from a .5 boundary "
+          f"{dist.max(initial=0):.2e} (limit {FLIP_BOUNDARY_TOL})", flush=True)
+    if (dist >= FLIP_BOUNDARY_TOL).any():
+        raise RuntimeError(f"{label}: the F-engine kernel flips a value away "
+                           "from a .5 rounding boundary")
+
+
+def _phase_41(dev, card) -> dict:
+    """Phase 41 (see the module docstring): K1 at M = 65536 against its
+    plain version at the 32k cell's chunk, then a 32k ``FXRunner``.
+    Returns the numbers of its kernels' entries."""
+    import numpy as np
+    import torch
+    from dc_sand_tpu_torch.bench.harness import bound_ms, fengine_flops
+    from dc_sand_tpu_torch.config import get_config
+    from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
+    from dc_sand_tpu_torch.ops.pfb import taps_pad_for
+    from dc_sand_tpu_torch.ops.xcorr import cmac_pitch, wire_to_operand
+    from dc_sand_tpu_torch.profile_step import noise_int8, production_runner
+    from dc_sand_tpu_torch.windows import pfb_window
+
+    s, b, m, nch = FX64_STREAMS, WIDE_SPECTRA, WIDE_M, WIDE_M // 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(WIDE_SEED)
+    hist = noise_int8(gen, (s, taps_pad_for(TAPS), m), dev)
+    chunk = noise_int8(gen, (s, b, m), dev)
+    fd = torch.rand((s, b), generator=gen, device=dev) - 0.5
+    ph = (torch.rand((s, b), generator=gen, device=dev) - 0.5) * 2 * np.pi
+    ang = torch.rand((nch,), generator=gen, device=dev) * 2 * np.pi
+    gains = torch.stack([0.05 * torch.cos(ang), 0.05 * torch.sin(ang)], -1)
+    window = torch.as_tensor(pfb_window(TAPS, m), dtype=torch.float32,
+                             device=dev)
+    kw = dict(history=hist, frac_delay=fd, phase=ph, gains=gains)
+
+    def k1(layout, pitch=None):
+        return fengine_fused(chunk, window, TAPS, nch, impl="cuda",
+                             layout=layout, pitch=pitch, **kw)
+
+    _zero_counts()
+    got = k1("wire")
+    _counts(fengine_wide=1)
+    err, flips, plain = _k1_against_plain(got, chunk, window, nch, **kw)
+    plain_ms = _events_ms(plain, 1)
+    flip_frac = int(flips.sum()) / got.numel()
+    print(f"[41 fengine 32k] kernel vs plain at {s} x {b} x {nch}: max "
+          f"|diff| {err} LSB, flip fraction {flip_frac:.3e} (limit "
+          f"{WIDE_MAX_FLIP_FRACTION}), plain {plain_ms:.3f} ms "
+          f"({PLAIN_BLOCK_STREAMS}-stream blocks) ({card})", flush=True)
+    if err > 1 or flip_frac > WIDE_MAX_FLIP_FRACTION:
+        raise RuntimeError("41: the M = 65536 kernel disagrees with its "
+                           "plain version")
+    _certify_flips(got, chunk, window, nch, w=int(torch.argmax(flips)),
+                   label="41 fengine 32k", **kw)
+    pitch = cmac_pitch(b) + 16
+    op = k1("operand", pitch)
+    if op.shape != (nch, 2, s, pitch) or not torch.equal(
+            op, wire_to_operand(got, pitch)):
+        raise RuntimeError("41: the operand layout != wire_to_operand of "
+                           "the wire layout")
+    if op[..., b:].any():
+        raise RuntimeError("41: the operand layout's pad is not zeros")
+    del op
+    torch.cuda.empty_cache()
+    wire_ms, operand_ms = _turns_ms(
+        [lambda: k1("wire"), lambda: k1("operand", cmac_pitch(b))], 3, 3)
+    bound = bound_ms(_nbytes(chunk, hist, window, fd, ph, gains, got),
+                     fengine_flops(s * b, m, TAPS, rotate=True, quant=True))
+    print(f"[41 fengine 32k layouts] operand layout at pitch {pitch} "
+          f"bitwise wire_to_operand of the wire layout, pad zeros; in turns "
+          f"wire {wire_ms:.3f} ms (the cluster kernel), operand "
+          f"{operand_ms:.3f} ms at pitch {cmac_pitch(b)} (its transpose "
+          f"{operand_ms - wire_ms:.3f}), bound {bound[0]:.3f} ms "
+          f"({bound[1]}, {100 * bound[0] / operand_ms:.2f}% of it in the "
+          f"operand layout) ({card})", flush=True)
+    del got, chunk, hist, fd, ph, kw
+    torch.cuda.empty_cache()
+
+    cfg = get_config("fx64").replace(n_chans=nch, spectra_per_chunk=b,
+                                     n_spectra_per_acc=2 * b)
+    gen.manual_seed(WIDE_SEED)
+    runner, chunks = production_runner(cfg, gen, dev, coarse_on_host=False)
+    n = len(chunks)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    dumps, _ = runner.run(lambda i: chunks[i % n], n)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = _counts(fengine_wide=n, fengine_wide_operand=n, cmac=n,
+                       coarse=n)
+    a, p = cfg.n_ants, cfg.n_pols
+    if len(dumps) != 1 or dumps[0].vis.shape != (
+            a * (a + 1) // 2, p, p, nch, 2):
+        raise RuntimeError(f"41: expected one dump of {nch} channels, got "
+                           f"{[d.vis.shape for d in dumps]}")
+    vis = dumps[0].vis
+    iu = np.triu_indices(a)
+    autos = np.flatnonzero(iu[0] == iu[1])
+    for q in range(p):
+        au = vis[autos, q, q]
+        if au[..., 1].any() or (au[..., 0] < 0).any() or not au.any():
+            raise RuntimeError("41: an autocorrelation is not real, >= 0 "
+                               "and nonzero")
+    print(f"[41 fx 32k] {n} chunks of {b} spectra at {nch} channels -> 1 "
+          f"dump; launches {launches}; first run {first_s:.2f} s; sha256 "
+          f"{_digest(vis)} ({card})", flush=True)
+    del runner, chunks, dumps, vis
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "wire_ms": wire_ms,
+            "operand_ms": operand_ms, "plain_ms": plain_ms, "bound": bound}
+
+
+def _phase_41_alone() -> int:
+    """``--phase 41``: the build, then phase 41 alone."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
+        return 1
+    from dc_sand_tpu_torch import _build
+    from dc_sand_tpu_torch.bench.harness import card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    _phase_41(torch.device("cuda", 0), card())
+    return 0
+
+
 def _phase_40_alone() -> int:
     """``--phase 40``: phase 40 alone, after the build and the fx64 runs
     of phases 6 and 36 on the first card that give the sha256s its ranks
@@ -1589,60 +1790,22 @@ def main() -> int:
     k1_wire_ms = _events_ms(lambda: k1("wire"), 5)
     k1_ms = _events_ms(lambda: k1("operand"), 5)
 
-    def plain_blocks(compare):
-        for i in range(0, s, PLAIN_BLOCK_STREAMS):
-            sl = slice(i, i + PLAIN_BLOCK_STREAMS)
-            want = fengine_fused(chunk[sl], window, TAPS, nch, history=hist[sl],
-                                 frac_delay=fd[sl], phase=ph[sl], gains=gains,
-                                 impl="torch")
-            if compare is not None:
-                compare(sl, want)
-
-    stats = {"max": 0, "flips": torch.zeros(s, dtype=torch.int64)}
-
-    def compare(sl, want):
-        d = (got[sl].to(torch.int16) - want.to(torch.int16)).abs()
-        stats["max"] = max(stats["max"], int(d.max()))
-        stats["flips"][sl] = (d > 0).sum(dim=(1, 2, 3)).cpu()
-
-    plain_blocks(compare)
-    k1_plain_ms = _events_ms(lambda: plain_blocks(None), 1)
-    flip_frac = int(stats["flips"].sum()) / got.numel()
+    k1_err, flips, plain = _k1_against_plain(got, chunk, window, nch, **kw)
+    k1_plain_ms = _events_ms(plain, 1)
+    flip_frac = int(flips.sum()) / got.numel()
     k1_bound = bound_ms(
         _nbytes(chunk, hist, window, fd, ph, gains, got),
         fengine_flops(s * b, m, TAPS, rotate=True, quant=True))
     print(f"[2 fengine] kernel {k1_wire_ms:.3f} ms (wire layout), plain "
           f"{k1_plain_ms:.3f} ms "
           f"({PLAIN_BLOCK_STREAMS}-stream blocks), bound {k1_bound[0]:.3f} "
-          f"ms ({k1_bound[1]}), max |diff| {stats['max']} LSB, flip "
+          f"ms ({k1_bound[1]}), max |diff| {k1_err} LSB, flip "
           f"fraction {flip_frac:.3e} ({card})", flush=True)
-    if stats["max"] > 1 or flip_frac > MAX_FLIP_FRACTION:
+    if k1_err > 1 or flip_frac > MAX_FLIP_FRACTION:
         raise RuntimeError("F-engine kernel disagrees with its plain version")
-    # certify the flips of the stream with the most: each must round a
-    # float64 golden pre-round value within FLIP_BOUNDARY_TOL of a .5
-    # boundary, where float32 FFTs summing in different orders may
-    # round either way (a wrong rounding mode or phase flips elsewhere)
-    w = int(torch.argmax(stats["flips"]))
-    pad0 = taps_pad_for(TAPS) - TAPS + 1
-    one = slice(w, w + 1)
-    want = fengine_fused(chunk[one], window, TAPS, nch, history=hist[one],
-                         frac_delay=fd[one], phase=ph[one], gains=gains,
-                         impl="torch")
-    diff = (got[one].to(torch.int16) - want.to(torch.int16)).cpu().numpy()
-    x = torch.cat([hist[w, pad0:], chunk[w]]).reshape(1, -1).cpu().numpy()
-    g = gains.double().cpu().numpy()
-    pre = golden.f_engine(x, window.double().cpu().numpy(), TAPS, nch,
-                          frac_delay=fd[one].double().cpu().numpy(),
-                          phase=ph[one].double().cpu().numpy()) * (
-                              g[:, 0] + 1j * g[:, 1])
-    v = np.stack([pre.real, pre.imag], -1)[diff != 0]
-    dist = np.abs(v - np.floor(v) - 0.5)
-    print(f"[2 fengine] stream {w}: {v.size} flips, largest distance of a "
-          f"flip's golden pre-round value from a .5 boundary "
-          f"{dist.max(initial=0):.2e} (limit {FLIP_BOUNDARY_TOL})", flush=True)
-    if (dist >= FLIP_BOUNDARY_TOL).any():
-        raise RuntimeError("F-engine kernel flips a value away from a .5 "
-                           "rounding boundary")
+    # certify the flips of the stream with the most
+    _certify_flips(got, chunk, window, nch, w=int(torch.argmax(flips)),
+                   label="2 fengine", **kw)
     op = k1("operand")
     if not torch.equal(op.reshape(nch, 2 * s, b), wire_to_a2(got)):
         raise RuntimeError("F-engine operand layout != wire_to_a2 of its "
@@ -3047,6 +3210,11 @@ def main() -> int:
         raise RuntimeError(f"36 verify fx64 device coarse: {snr:.2f} dB")
     gather_launches = dev_launches["coarse"] + dev_beam_launches["coarse"]
 
+    # ---- 41. K1 at M = 65536 vs plain; fx at 32768 channels -------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    wide = _phase_41(dev, card)
+
     # ---- 32.-34. two processes on the card -------------------------------
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3205,11 +3373,11 @@ def main() -> int:
 
     kernels = [
         entry("fengine", "fengine.cu", "dc_sand_tpu/ops/fengine_fused.py:335",
-              launches["fengine"], stats["max"], k1_ms, k1_plain_ms,
+              launches["fengine"], k1_err, k1_ms, k1_plain_ms,
               k1_bound, None),
         entry("fengine_wire", "fengine.cu",
               "dc_sand_tpu/ops/fengine_fused.py:335",
-              beam_launches["fengine"], stats["max"], k1_wire_ms, k1_plain_ms,
+              beam_launches["fengine"], k1_err, k1_wire_ms, k1_plain_ms,
               k1_bound, None),
         entry("cmac", "cmac.cu", "dc_sand_tpu/ops/xcorr.py:371",
               launches["cmac"], cmac_err, cmac_ms, cmac_plain_ms, cmac_bound,
@@ -3264,8 +3432,18 @@ def main() -> int:
         entry("coarse_gather", "coarse.cu",
               "dc_sand_tpu/models/fengine.py:21", gather_launches, 0,
               *gather_times[("fx64", True)]),
+        # K1 at M = 65536: the cluster kernel alone (the wire layout) and
+        # the operand layout's call, the kernel and its transpose
+        entry("fengine_wide", "fengine.cu",
+              "dc_sand_tpu/ops/fengine_fused.py:335",
+              wide["launches"]["fengine_wide"], wide["err"], wide["wire_ms"],
+              wide["plain_ms"], wide["bound"], None),
+        entry("fengine_wide_operand", "fengine.cu",
+              "dc_sand_tpu/ops/fengine_fused.py:335",
+              wide["launches"]["fengine_wide_operand"], 0,
+              wide["operand_ms"], wide["plain_ms"], wide["bound"], None),
     ]
-    print(f"[total] phases 1-40 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[total] phases 1-41 in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3279,4 +3457,6 @@ if __name__ == "__main__":
         sys.exit(_rank_main(sys.argv[2:]))
     if sys.argv[1:] == ["--phase", "40"]:
         sys.exit(_phase_40_alone())
+    if sys.argv[1:] == ["--phase", "41"]:
+        sys.exit(_phase_41_alone())
     sys.exit(main())

@@ -68,7 +68,8 @@ _SIGNATURES = {
     "fengine": {"dcs_fengine": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
                 "dcs_fengine_grid": [_I, _I, _I, _I, _I, _I,
-                                     ctypes.POINTER(_I)]},
+                                     ctypes.POINTER(_I)],
+                "dcs_fengine_operand": [_P, _P, _I, _I, _I, _I, _P]},
     "cmac": {"dcs_cmac": [_P, _P, _I, _I, _I, _I, _P]},
     "beamform": {"dcs_beamform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P]},

@@ -18,8 +18,15 @@ with ``-DDCS_K1_PHASES`` (into ``build/torch_kernels/``, beside the port's
 own), in which thread 0 of every CTA adds the ``clock64`` ticks of each
 phase to a device counter and waits for a slice's loads before its first
 multiply; the shares are of the summed ticks, and ``ticks_per_tile`` is
-their sum over the tiles the CTAs ran.  Without a card it exits 1 and
-prints no JSON.
+their sum over the tiles the CTAs ran.  At ``--chans 32768`` (M = 65536,
+the cluster kernel ``fengine_wide_kernel``, whose operand layout is its
+wire output transposed by ``fengine_wide_operand``, timed alone as
+``operand_transpose``) the split is of the wire kernel: the FIR's wait,
+the FIR, the two 2048-point FFTs, the epilogue with the phasor tables and
+the store, the exchanges across the cluster over DSMEM (the radix-16 pass
+and the int8 bins), and the waits at the cluster's barriers; a tile there
+is one CTA's eighth of a cluster's tile.
+Without a card it exits 1 and prints no JSON.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.bench.harness import (bound_ms, card, fengine_flops,
                                              time_cuda)
-from dc_sand_tpu_torch.ops.fengine_fused import (K1_CLUSTER, K1_TILE, _tables,
+from dc_sand_tpu_torch.ops.fengine_fused import (K1_CLUSTER, K1_TILE,
+                                                 WIDE_FFT_SIZE, _tables,
                                                  fengine_fused, k1_l2_bytes)
 from dc_sand_tpu_torch.ops.pfb import taps_pad_for
 from dc_sand_tpu_torch.ops.xcorr import wire_to_operand
@@ -45,6 +53,8 @@ from dc_sand_tpu_torch.windows import pfb_window
 __all__ = ["main"]
 
 PHASES = ("fir_wait", "fir", "fft", "epilogue", "exchange", "gather_store")
+WIDE_PHASES = ("fir_wait", "fir", "fft", "epilogue", "exchange",
+               "cluster_wait")
 
 
 def _phases_library() -> ctypes.CDLL:
@@ -110,12 +120,25 @@ def main(argv=None) -> int:
     wire = fengine_fused(chunk, w, taps, k, impl="cuda", **kw)
     ms["wire_to_operand"] = time_cuda(lambda: wire_to_operand(wire),
                                       warmup=1, iters=5) * 1e3
+    wide = m == WIDE_FFT_SIZE
+    if wide:
+        op = torch.empty((k, 2, s, b), dtype=torch.int8, device=dev)
+        ms["operand_transpose"] = time_cuda(
+            lambda: _build.check(_build.library().dcs_fengine_operand(
+                wire.data_ptr(), op.data_ptr(), s, b, k, b,
+                torch.cuda.current_stream().cuda_stream),
+                "dcs_fengine_operand"), warmup=1, iters=5) * 1e3
+    names = WIDE_PHASES if wide else PHASES
     split_tw, pass_tw = _tables(m, dev)
     lib = _phases_library()
     clocks = (ctypes.c_ulonglong * len(PHASES))()
     tiles = -(-b // K1_TILE)
     share, ticks, grids, outs = {}, {}, {}, {}
-    for layout, shape in (("wire", (s, b, k, 2)), ("operand", (k, 2, s, b))):
+    # at M = 65536 the operand layout runs the wire kernel (then its
+    # transpose): its split is the wire layout's
+    layouts = (("wire", (s, b, k, 2)),) if wide else (
+        ("wire", (s, b, k, 2)), ("operand", (k, 2, s, b)))
+    for layout, shape in layouts:
         outs[layout] = out = torch.empty(shape, dtype=torch.int8, device=dev)
         lib.dcs_fengine_phases(clocks)             # zero the counters
         _build.check(lib.dcs_fengine(
@@ -127,13 +150,15 @@ def main(argv=None) -> int:
             "dcs_fengine (phases build)")
         torch.cuda.synchronize()
         _build.check(lib.dcs_fengine_phases(clocks), "dcs_fengine_phases")
-        share[layout] = {p: c / sum(clocks) for p, c in zip(PHASES, clocks)
+        share[layout] = {p: c / sum(clocks) for p, c in zip(names, clocks)
                          if c}
         grids[layout] = grid(s, b, m, layout)
         # the operand layout's clusters also run the tiles that pad a
-        # stream's last group of 8
+        # stream's last group of 8; at M = 65536 each of a cluster's 8
+        # CTAs runs an eighth of every tile
         n_tiles = s * (-(-tiles // K1_CLUSTER) * K1_CLUSTER
-                       if layout == "operand" and grids[layout] else tiles)
+                       if layout == "operand" and grids[layout] else
+                       tiles * K1_CLUSTER if wide else tiles)
         ticks[layout] = sum(clocks) / n_tiles
     nbytes = sum(t.numel() * t.element_size()
                  for t in (hist, chunk, w, fd, ph, gains, wire))
@@ -143,8 +168,10 @@ def main(argv=None) -> int:
         "kernel": "fengine", "streams": s, "spectra": b, "chans": k,
         "taps": taps, "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
         "phase_share": share, "ticks_per_tile": ticks,
-        "equal_layouts": bool(torch.equal(outs["operand"],
-                                          wire_to_operand(outs["wire"]))),
+        "equal_layouts": bool(torch.equal(
+            fengine_fused(chunk, w, taps, k, layout="operand", impl="cuda",
+                          **kw) if wide else outs["operand"],
+            wire_to_operand(outs["wire"]))),
         "grid_ctas": grids, "cluster_size": K1_CLUSTER,
         "sms": torch.cuda.get_device_properties(dev).multi_processor_count,
         "l2_bytes": k1_l2_bytes(s, b, m, taps),

@@ -89,6 +89,23 @@
 //     every thread has work; one-shot CTAs (fengine_kernel_subtiles) run
 //     it, each storing its operand runs itself.  No configuration runs it at
 //     full width.
+//   * M = 65536 (the MeerKAT 32k mode, fengine_wide_kernel): a spectrum's
+//     32768 complex float32 values, 256 KB (272 KB padded), do not fit the
+//     227 KB of shared memory a CTA may have, and the 16-tap window grows to
+//     4 MB.  A cluster of 8 CTAs holds a tile of kJ spectra of one stream in
+//     its distributed shared memory, each CTA an eighth of every spectrum:
+//     it runs the FIR of its 8192 contiguous columns (K1's at fx64, so the
+//     window and frames cross L2 once a tile, 30.6 GB at the 32k cell's
+//     chunk against 30.5 at fx64's), the cluster a radix-16 pass over DSMEM
+//     that leaves each CTA two sub-sequences whose bins mirror each other
+//     (N - k), each CTA two 2048-point FFTs and the epilogue of its bins
+//     from its own shared memory, and the int8 bins go over DSMEM to the CTA
+//     that stores them as whole 16-byte words.  Its operand layout is the
+//     wire output transposed by fengine_wide_operand: at this width the
+//     cluster's shared memory holds one tile's spectra, with no room to
+//     gather several tiles' runs as the M <= 8192 operand layout does.  Its
+//     bound at the 32k cell's chunk (128 streams x 256 spectra) is 0.183
+//     TFLOP, 2.72 ms.
 //   * FMA and any summation order are allowed: the kernel is held to its
 //     plain version within 1-LSB boundary flips (int8) and >= 100 dB (float),
 //     not bitwise.  Both kernels sum each output's taps in the same order.
@@ -99,7 +116,11 @@
 // build the thread waits for all of them before its first multiply) apart
 // from its arithmetic and stores, the FFT and the epilogue (in the
 // cluster-gathered operand layout: its compute, the exchange through shared
-// memory and the gather and store, the deferred cluster wait included).
+// memory and the gather and store, the deferred cluster wait included).  At
+// M = 65536 the six counters are the FIR's wait, the FIR, the two 2048-point
+// FFTs, the epilogue with the phasor tables and the store, the exchanges across
+// the cluster over DSMEM (the radix-16 pass and the int8 bins), and the waits
+// at the cluster's barriers.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -795,6 +816,374 @@ fengine_kernel(const __grid_constant__ Params p) {
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// M = 65536: a spectrum's N = 32768 values (256 KB) exceed one CTA's shared
+// memory, so a cluster of kCluster CTAs holds a tile of kJ spectra of one
+// stream, each CTA an eighth of each spectrum.  With n = n2 + 2048 q and
+// k = k1 + 16 k2 (n2, k2 < 2048; q, k1 < 16):
+//
+//   X[k1 + 16 k2] = sum_n2 W_2048^(n2 k2) W_N^(n2 k1) sum_q W_16^(q k1) z[n2 + 2048 q]
+//
+// CTA r runs the FIR of the columns [8192 r, 8192 (r + 1)) of the tile's
+// frames (K1's at fx64: the window and the frames cross L2 once a tile), so
+// it holds z[4096 r ...], the sub-sequences q = 2r and 2r + 1, in its two
+// slots.  The cluster runs the radix-16 DFT over q with the twiddle
+// W_N^(n2 k1) over DSMEM: CTA r takes n2 in [256 r, 256 (r + 1)) and writes
+// the sixteen results back to the places it read, so no value is
+// overwritten before it is read.  Result k1 goes to CTA k1 (k1 < 8) or
+// 16 - k1 (mod 8), slot k1 >= 8: CTA r holds k1 = r and 16 - r (CTA 0: 0 and
+// 8), a bin's mirror N - k with it.  Each CTA runs K1's 2048-point FFT on
+// its two slots, which leaves X[k1 + 16 k2] at k2, and the epilogue of its
+// bins reads only its own shared memory.  Its int8 results go over DSMEM to
+// the CTA whose 4096 wire bins [4096 r', 4096 (r' + 1)) hold them, 2 bytes
+// a value, and each CTA stores its bins as 16-byte words.
+constexpr int kWideM = 65536;
+constexpr int kWideRadix = 16;                          // the pass across the cluster
+constexpr int kWideSlot = kWideM / 2 / kWideRadix;      // 2048 values of a sub-sequence
+constexpr int kWideSlotStride = kWideSlot + kWideSlot / 16;
+constexpr int kWideStride = 2 * kWideSlotStride;        // a spectrum's two slots, padded
+constexpr int kWideCols = kWideM / kCluster;            // 8192 FIR columns a CTA
+constexpr int kWideBins = kWideM / 2 / kCluster;        // 4096 wire bins a CTA stores
+constexpr int kWidePlanTw = 2032;  // the 2048-point plan's pass twiddles come first
+constexpr int kWideLo = 64;        // phasor tables: k2 = 64 kh + kl
+constexpr int kWideHi = kWideSlot / kWideLo;            // 32 values of kh
+constexpr int kWideTab = 2 * kWideHi + kWideLo;         // table values a spectrum a CTA
+
+// The sub-sequence k1 of slot `slot` of CTA `rank`, and back.
+__device__ __forceinline__ int wide_k1(int rank, int slot) {
+  return slot == 0 ? rank : rank == 0 ? 8 : kWideRadix - rank;
+}
+__device__ __forceinline__ int wide_owner(int k1) { return k1 < 8 ? k1 : (kWideRadix - k1) & 7; }
+
+// The phasor tables of a CTA's bins k = k1 + 16 k2 (k1 of its two slots,
+// k2 = 64 kh + kl) for its n_spec spectra: exp(i ((-(2 pi / M)) (k1 + 1024 kh)
+// d - p)) for each slot's 32 values of kh, then exp(i (-(2 pi / M)) 16 kl d)
+// for kl < 64.
+__device__ __noinline__ void wide_phasor_tables(const Params& p, float2* tab, int rank,
+                                                size_t row0, int n_spec) {
+  const double scale = -6.283185307179586476925286766559 / kWideM;
+  for (int e = threadIdx.x; e < n_spec * kWideTab; e += kThreads) {
+    const int q = e / kWideTab, i = e - q * kWideTab;
+    const double d = p.frac[row0 + q];
+    double a;
+    if (i < 2 * kWideHi) {
+      const int k1 = wide_k1(rank, i / kWideHi);
+      a = scale * (k1 + kWideRadix * kWideLo * (i % kWideHi)) * d - p.phase[row0 + q];
+    } else {
+      a = scale * kWideRadix * (i - 2 * kWideHi) * d;
+    }
+    double sn, cs;
+    sincos(a, &sn, &cs);
+    tab[e] = make_float2(static_cast<float>(cs), static_cast<float>(sn));
+  }
+}
+
+// kLayout: 0 wire int8, 2 wire float32.  CTAs are persistent, in clusters of
+// kCluster: cluster c of C takes the tiles (stream, kJ spectra) u = c, c + C,
+// ... (ops/fengine_fused.py:k1_tiles, m = 65536).  `split_tw` and `gains`
+// are in sub-sequence order, [k1][k2] (ops/fengine_fused.py:_tables).
+template <int kLayout>
+__global__ void __launch_bounds__(kThreads, 1)
+fengine_wide_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) float2 z[];  // kJ spectra of two slots (+ pad), the tables
+  constexpr int kN = kWideM / 2;
+  constexpr int kSlice = kCols * kThreads;  // FIR columns a slice
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  float2* const tab = z + kJ * kWideStride;
+#ifdef DCS_K1_PHASES
+  unsigned long long ticks[kPhases] = {};
+#endif
+#pragma unroll 1
+  for (int i = 0;; ++i) {
+    const int u = static_cast<int>(blockIdx.x) / kCluster + i * (gridDim.x / kCluster);
+    if (u >= p.n_streams * p.tiles) break;
+    const int s = u / p.tiles;
+    const int j = (u - s * p.tiles) * kJ;
+    const int n_spec = min(kJ, p.n_out - j);
+    const int f0 = j + p.pad0;
+    const int nf = n_spec + p.taps - 1;
+    const int8_t* hist =
+        fresh(p.hist) + (static_cast<long long>(s) * p.n_hist + f0) * kWideM + rank * kWideCols;
+    const int8_t* chunk = fresh(p.chunk) +
+                          (static_cast<long long>(s) * p.n_chunk + f0 - p.n_hist) * kWideM +
+                          rank * kWideCols;
+    const int split = p.n_hist - f0;  // the tile's rows [0, split) lie in hist
+
+    // 1. FIR of this CTA's columns, slice by slice, as the persistent kernel's.
+    DCS_CLOCK(c_fir);
+#ifdef DCS_K1_PHASES
+    unsigned long long fir_waits = 0;
+#endif
+#pragma unroll 1
+    for (int n0 = kCols * tid; n0 < kWideCols; n0 += kSlice) {
+#ifdef DCS_K1_PHASES
+      const long long c0 = clock64();
+#endif
+      float w[kMaxTaps][kCols];
+      const float* window = fresh(p.window) + rank * kWideCols + n0;
+#pragma unroll
+      for (int t = 0; t < kMaxTaps; ++t) {
+        const float4 v = t < p.taps ? __ldg(reinterpret_cast<const float4*>(window + t * kWideM))
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        w[t][0] = v.x; w[t][1] = v.y; w[t][2] = v.z; w[t][3] = v.w;
+      }
+      const int8_t* hist_n = fresh(hist) + n0;
+      const int8_t* chunk_n = fresh(chunk) + n0;
+      uint32_t raw[kFrames];
+#pragma unroll
+      for (int f = 0; f < kFrames; ++f)
+        raw[f] = f < nf ? __ldg(reinterpret_cast<const unsigned int*>(
+                              (f < split ? hist_n : chunk_n) + f * kWideM))
+                        : 0u;
+#ifdef DCS_K1_PHASES
+      {
+        uint32_t sink = 0;
+#pragma unroll
+        for (int f = 0; f < kFrames; ++f) sink ^= raw[f];
+#pragma unroll
+        for (int t = 0; t < kMaxTaps; ++t)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) sink ^= __float_as_uint(w[t][c]);
+        asm volatile("" ::"r"(sink));
+        const unsigned long long waited = clock64() - c0;
+        ticks[0] += waited;
+        fir_waits += waited;
+      }
+#endif
+      float acc[kJ][kCols];
+      fir_sums(raw, w, acc);
+      // column n of this CTA is value n / 2 of slot n / 4096
+      const int i0 = (n0 >> 1) & (kWideSlot - 1);
+      float2* zs = z + (n0 >> 12) * kWideSlotStride;
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        if (jj < n_spec) {
+          zs[jj * kWideStride + pad(i0)] = make_float2(acc[jj][0], acc[jj][1]);
+          zs[jj * kWideStride + pad(i0 + 1)] = make_float2(acc[jj][2], acc[jj][3]);
+        }
+      }
+    }
+    DCS_CLOCK(c2);
+    cluster.sync();  // every CTA's eighth of the tile's spectra is in place
+    DCS_CLOCK(c3);
+
+    // 2a. The radix-16 DFT over q across the cluster, with its twiddles.
+    {
+      const int n2 = rank * (kWideSlot / kCluster) + (tid & (kWideSlot / kCluster - 1));
+      const float2* cross = fresh(p.pass_tw) + kWidePlanTw + n2;
+      float2 tw[kWideRadix];
+      tw[0] = make_float2(1.0f, 0.0f);
+#pragma unroll
+      for (int r = 1; r < kWideRadix; ++r) tw[r] = __ldg(cross + (r - 1) * kWideSlot);
+      float2* peer[kCluster];
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) peer[q] = cluster.map_shared_rank(z, q) + pad(n2);
+      // 1536 butterflies: this thread's n2 in spectra jj = tid / 256, + 2, + 4
+#pragma unroll 1
+      for (int jj = tid / (kWideSlot / kCluster); jj < n_spec;
+           jj += kThreads / (kWideSlot / kCluster)) {
+        float2 x[kWideRadix];
+#pragma unroll
+        for (int q = 0; q < kWideRadix; ++q)
+          x[q] = peer[q >> 1][jj * kWideStride + (q & 1) * kWideSlotStride];
+        dft<kWideRadix>(x);
+#pragma unroll
+        for (int r = 1; r < kWideRadix; ++r) x[r] = cmul(x[r], tw[r]);
+#pragma unroll
+        for (int r = 0; r < kWideRadix; ++r)
+          peer[wide_owner(r)][jj * kWideStride + (r >= 8) * kWideSlotStride] = x[r];
+      }
+    }
+    DCS_CLOCK(c4);
+    cluster.sync();  // each CTA holds its two twiddled sub-sequences
+    DCS_CLOCK(c5);
+
+    // 2b. The 2048-point FFT of each slot: fft_plan(2048), the slots as
+    // 2 n_spec spectra of their own.
+    {
+      const float2* plan = fresh(p.pass_tw);
+      fft_pass<16>(z, kWideSlotStride, kWideSlot, 1, plan, 2 * n_spec);
+      fft_pass<16>(z, kWideSlotStride, kWideSlot, 16, plan, 2 * n_spec);
+      fft_pass<8>(z, kWideSlotStride, kWideSlot, 256, plan + 240, 2 * n_spec);
+    }
+    DCS_CLOCK(c6);
+    if (p.frac != nullptr) {
+      wide_phasor_tables(p, tab, rank, static_cast<size_t>(s) * p.n_out + j, n_spec);
+      __syncthreads();
+    }
+
+    // 3-5. Split, phasor, gain and rounding of the bins k = k1 + 16 k2 of this
+    // thread's slot, k2 = tid % 256 + 256 e: X[k] at k2 of the slot, X[N - k]
+    // at k2' of the slot of k1' (N - k = k1' + 16 k2'), both here.
+    const int slot = tid / (kWideSlot / kCluster);
+    const int k1 = wide_k1(rank, slot);
+    const int k1b = (kWideRadix - k1) & (kWideRadix - 1);
+    const int lane2 = tid & (kWideSlot / kCluster - 1);
+    uint32_t res[kCluster][kJ / 2];  // [e][jj / 2]: (re, im) of spectra jj, jj + 1
+    {
+      const size_t row0 = static_cast<size_t>(s) * p.n_out + j;
+      const float2* za = z + slot * kWideSlotStride;
+      const float2* zb = z + (k1b >= 8) * kWideSlotStride;
+      const float2* split_tw = fresh(p.split_tw) + k1 * kWideSlot;
+      const float2* gains = fresh(p.gains) + k1 * kWideSlot;
+      const float2* th = tab + slot * kWideHi;
+      const float2* tl = tab + 2 * kWideHi;
+#pragma unroll
+      for (int e = 0; e < kCluster; ++e) {
+        const int k2 = lane2 + e * (kWideSlot / kCluster);
+        const int k = k1 + kWideRadix * k2;
+        const int k2b = ((kN - k) & (kN - 1)) >> 4;
+        const float2 wk = __ldg(split_tw + k2);
+        const float2 gk = kLayout == 2 ? make_float2(0.0f, 0.0f) : __ldg(gains + k2);
+#pragma unroll
+        for (int q = 0; q < kJ / 2; ++q) res[e][q] = 0u;
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          if (jj < n_spec) {
+            const float2 a = za[jj * kWideStride + pad(k2)];
+            const float2 b = zb[jj * kWideStride + pad(k2b)];
+            const float2 ev = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+            const float2 od = make_float2(0.5f * (a.y + b.y), -0.5f * (a.x - b.x));
+            const float2 wo = cmul(wk, od);
+            float2 v = make_float2(ev.x + wo.x, ev.y + wo.y);
+            if (p.frac != nullptr)
+              v = cmul(v, cmul(th[jj * kWideTab + (k2 >> 6)], tl[jj * kWideTab + (k2 & 63)]));
+            if constexpr (kLayout == 2) {
+              reinterpret_cast<float2*>(p.out)[(row0 + jj) * kN + k] = v;
+            } else {
+              v = cmul(v, gk);
+              const uint32_t pair = static_cast<uint32_t>(static_cast<uint8_t>(quant(v.x))) |
+                                    static_cast<uint32_t>(static_cast<uint8_t>(quant(v.y))) << 8;
+              res[e][jj >> 1] |= pair << (16 * (jj & 1));
+            }
+          }
+        }
+      }
+    }
+    DCS_CLOCK(c7);
+    cluster.sync();  // no CTA reads its spectra any more: they take the staging
+    DCS_CLOCK(c8);
+    // 6. The int8 bins to the CTA whose wire bins hold them, staged as
+    // [jj][k1][k2 - 256 r'] (2 bytes each), then stored as 16-byte words.
+    if constexpr (kLayout == 0) {
+      constexpr int kStage = kWideBins * 2;  // bytes of a spectrum's staged bins
+#pragma unroll
+      for (int e = 0; e < kCluster; ++e) {
+        uint16_t* dst = reinterpret_cast<uint16_t*>(cluster.map_shared_rank(z, e)) +
+                        k1 * (kWideSlot / kCluster) + lane2;
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj)
+          if (jj < n_spec)
+            dst[jj * (kStage / 2)] = static_cast<uint16_t>(res[e][jj >> 1] >> (16 * (jj & 1)));
+      }
+    }
+    DCS_CLOCK(c9);
+    cluster.sync();  // this CTA's bins are staged
+    DCS_CLOCK(c10);
+    if constexpr (kLayout == 0) {
+      constexpr int kStage = kWideBins * 2;
+      const uint16_t* stage = reinterpret_cast<const uint16_t*>(z);
+      const size_t row0 = static_cast<size_t>(s) * p.n_out + j;
+      const int b0 = kCluster * tid;  // this thread's 8 bins of the CTA's 4096
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        if (jj < n_spec) {
+          uint32_t wd[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int b = b0 + 2 * q;
+            wd[q] = static_cast<uint32_t>(
+                        stage[jj * (kStage / 2) + (b & 15) * (kWideSlot / kCluster) + (b >> 4)]) |
+                    static_cast<uint32_t>(stage[jj * (kStage / 2) + ((b + 1) & 15) *
+                                                    (kWideSlot / kCluster) + ((b + 1) >> 4)])
+                        << 16;
+          }
+          *reinterpret_cast<uint4*>(static_cast<int8_t*>(p.out) +
+                                    ((row0 + jj) * kN + rank * kWideBins + b0) * 2) =
+              make_uint4(wd[0], wd[1], wd[2], wd[3]);
+        }
+      }
+    }
+    __syncthreads();  // the staged bins are read before the next tile's FIR stores
+#ifdef DCS_K1_PHASES
+    ticks[1] += c2 - c_fir - fir_waits;
+    ticks[4] += (c4 - c3) + (c9 - c8);
+    ticks[2] += c6 - c5;
+    ticks[3] += (c7 - c6) + (clock64() - c10);
+    ticks[5] += (c3 - c2) + (c5 - c4) + (c8 - c7) + (c10 - c9);
+#endif
+  }
+#ifdef DCS_K1_PHASES
+  if (tid == 0)
+    for (int q = 0; q < kPhases; ++q) atomicAdd(&g_phase_clocks[q], ticks[q]);
+#endif
+}
+
+// The operand layout of the wire output at M = 65536: (S, n_out, 2K) int8 ->
+// (2K, S, pitch), zeros in spectra [n_out, pitch).  A CTA transposes a tile of
+// kTileB spectra by kTileR rows (k, c) of one stream through shared memory:
+// 16-byte loads along the rows, a thread's 4 rows by 16 spectra transposed in
+// registers (4 x 4 byte blocks by __byte_perm) and stored as 16-byte words, 4
+// threads a row's 64 bytes.  It reads and writes the output's bytes once each
+// (4.3 GB at the 32k cell's chunk, 1.3 ms at the card's 3.35 TB/s).
+constexpr int kTileB = 64;
+constexpr int kTileR = 128;
+constexpr int kTileThreads = 128;
+constexpr int kTileWords = kTileR / 4 + 1;  // a spectrum's words in the tile, padded by one
+
+__global__ void __launch_bounds__(kTileThreads)
+fengine_wide_operand(const int8_t* __restrict__ wire, int8_t* __restrict__ out, int n_streams,
+                     int n_out, int rows, int pitch) {
+  __shared__ uint32_t tile[kTileB][kTileWords];
+  const int r0 = blockIdx.x * kTileR;
+  const int b0 = blockIdx.y * kTileB;
+  const int s = blockIdx.z;
+  constexpr int kVecs = kTileR / 16;  // 16-byte words of a spectrum's row of the tile
+  for (int e = threadIdx.x; e < kTileB * kVecs; e += kTileThreads) {
+    const int b = e / kVecs, q = e - b * kVecs;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (b0 + b < n_out)
+      v = __ldg(reinterpret_cast<const uint4*>(
+                    wire + (static_cast<size_t>(s) * n_out + b0 + b) * rows + r0) +
+                q);
+    tile[b][4 * q] = v.x;
+    tile[b][4 * q + 1] = v.y;
+    tile[b][4 * q + 2] = v.z;
+    tile[b][4 * q + 3] = v.w;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int bg = lane & 3;                             // spectra [16 bg, 16 bg + 16)
+  const int rg = (threadIdx.x >> 5) * 8 + (lane >> 2);  // rows [4 rg, 4 rg + 4)
+  uint32_t o[4][4];                                     // [row][4 spectra]
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int b = 16 * bg + 4 * q;
+    const uint32_t w0 = tile[b][rg], w1 = tile[b + 1][rg], w2 = tile[b + 2][rg],
+                   w3 = tile[b + 3][rg];
+    const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
+    const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
+    o[0][q] = __byte_perm(t0, t2, 0x5410);
+    o[1][q] = __byte_perm(t0, t2, 0x7632);
+    o[2][q] = __byte_perm(t1, t3, 0x5410);
+    o[3][q] = __byte_perm(t1, t3, 0x7632);
+  }
+  const int b = b0 + 16 * bg;
+  if (b >= pitch) return;
+  const int n = min(16, pitch - b);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int8_t* dst = out + (static_cast<size_t>(r0 + 4 * rg + c) * n_streams + s) * pitch + b;
+    if (n == 16 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(o[c][0], o[c][1], o[c][2], o[c][3]);
+    } else {
+      for (int i = 0; i < n; ++i) dst[i] = static_cast<int8_t>(o[c][i >> 2] >> (8 * (i & 3)));
+    }
+  }
+}
+
 // The CTAs of a kernel that the card holds at once at a shared-memory size
 // (clusters times kCluster for layout 3), found once per card, kernel and
 // size; the first call on a card also lets the kernel use the card's whole
@@ -882,26 +1271,21 @@ void (*persistent_kernel(int m))(Params) {
   return fengine_kernel<kLayout, 8192>;
 }
 
-// The grid of the persistent kernel of layout L (0, 2, 3) for a call: as
-// many CTAs as the card holds (whole clusters in layout 3), no more than the
-// call has units.
-template <int kLayout>
-cudaError_t persistent_grid(const Params& p, size_t smem, int* grid) {
-  const int cluster = kLayout == 3 ? kCluster : 1;
+// The grid of a persistent kernel for a call of `units` units of `cluster`
+// CTAs each: as many whole clusters as the card holds, no more than there
+// are units.
+cudaError_t fill_grid(void (*kernel)(Params), int cluster, size_t smem, long long units,
+                      int* grid) {
   int ctas = 0;
-  const cudaError_t err = resident_ctas(persistent_kernel<kLayout>(p.m), cluster, smem, &ctas);
+  const cudaError_t err = resident_ctas(kernel, cluster, smem, &ctas);
   if (err != cudaSuccess) return err;
-  const long long units =
-      static_cast<long long>(p.n_streams) * ((p.tiles + cluster - 1) / cluster);
   *grid = static_cast<int>(units < ctas / cluster ? units : ctas / cluster) * cluster;
   return cudaSuccess;
 }
 
-template <int kLayout>
-int launch_persistent(const Params& p, size_t smem, cudaStream_t st) {
-  int grid = 0;
-  cudaError_t err = persistent_grid<kLayout>(p, smem, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// Launch `kernel` on `grid` CTAs in clusters of `cluster` (1: no cluster).
+int launch_grid(void (*kernel)(Params), int grid, int cluster, size_t smem, const Params& p,
+                cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
@@ -909,14 +1293,34 @@ int launch_persistent(const Params& p, size_t smem, cudaStream_t st) {
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kLayout == 3 ? kCluster : 1;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = kLayout == 3 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, persistent_kernel<kLayout>(p.m), p);
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grid of the persistent kernel of layout L (0, 2, 3) for a call: as
+// many CTAs as the card holds (whole clusters in layout 3), no more than the
+// call has units.
+template <int kLayout>
+cudaError_t persistent_grid(const Params& p, size_t smem, int* grid) {
+  const int cluster = kLayout == 3 ? kCluster : 1;
+  return fill_grid(persistent_kernel<kLayout>(p.m), cluster, smem,
+                   static_cast<long long>(p.n_streams) * ((p.tiles + cluster - 1) / cluster),
+                   grid);
+}
+
+template <int kLayout>
+int launch_persistent(const Params& p, size_t smem, cudaStream_t st) {
+  int grid = 0;
+  const cudaError_t err = persistent_grid<kLayout>(p, smem, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid(persistent_kernel<kLayout>(p.m), grid, kLayout == 3 ? kCluster : 1, smem, p,
+                     st);
 }
 
 template <int kLayout>
@@ -926,6 +1330,28 @@ int launch_subtiles(const Params& p, size_t smem, cudaStream_t st) {
   if (err != cudaSuccess) return static_cast<int>(err);
   fengine_kernel_subtiles<kLayout><<<dim3(p.tiles, p.n_streams), kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory of the M = 65536 kernel: the tile's sub-sequences and
+// the phasor tables.
+size_t wide_smem(bool rotate) {
+  return static_cast<size_t>(kJ) * (kWideStride + (rotate ? kWideTab : 0)) * sizeof(float2);
+}
+
+// The grid of the M = 65536 kernel (layout 0 or 2): as many whole clusters
+// as the card holds, no more than the call has tiles.
+template <int kLayout>
+cudaError_t wide_grid(const Params& p, size_t smem, int* grid) {
+  return fill_grid(fengine_wide_kernel<kLayout>, kCluster, smem,
+                   static_cast<long long>(p.n_streams) * p.tiles, grid);
+}
+
+template <int kLayout>
+int launch_wide(const Params& p, size_t smem, cudaStream_t st) {
+  int grid = 0;
+  const cudaError_t err = wide_grid<kLayout>(p, smem, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid(fengine_wide_kernel<kLayout>, grid, kCluster, smem, p, st);
 }
 
 }  // namespace
@@ -939,17 +1365,22 @@ int launch_subtiles(const Params& p, size_t smem, cudaStream_t st) {
 // `layout` 0: `out` (S, n_out, K, 2), int8 with gains, float32 without;
 // layout 1 (gains needed): `out` (K, 2, S, pitch) int8, spectra [n_out,
 // pitch) of each row zeros (pitch >= n_out; the wire layout ignores it).  M
-// is a power of two in [32, 8192], taps 1..16, S 1..65535.  Returns
-// cudaGetLastError() after the launch.
+// is a power of two in [32, 8192] (a spectrum in one CTA's shared memory), or
+// 65536 (a spectrum across a cluster of 8 CTAs, wire layout only: its operand
+// layout is dcs_fengine_operand of the wire output, and `pass_tw` holds the
+// 4096-point plan's table, then the cluster's twiddles W_N^(n2 k1), k1 =
+// 1..7, n2 < 4096), taps 1..16, S 1..65535.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* window,
                            const void* split_tw, const void* pass_tw, const void* frac,
                            const void* phase, const void* gains, void* out,
                            int n_streams, int n_hist, int n_chunk, int n_out, int m,
                            int taps, int pad0, int layout, int pitch, void* stream) {
-  if (m < 32 || (m & (m - 1)) || m / 2 > kMaxHalf || n_streams < 1 ||
+  const bool wide = m == kWideM;
+  if (m < 32 || (m & (m - 1)) || (m / 2 > kMaxHalf && !wide) || n_streams < 1 ||
       n_streams > 65535 || n_out < 1 || taps < 1 || taps > kMaxTaps || pad0 < 0 ||
       n_out - 1 + pad0 + taps > n_hist + n_chunk || (layout != 0 && layout != 1) ||
-      (layout == 1 && (gains == nullptr || pitch < n_out)) ||
+      (layout == 1 && (gains == nullptr || pitch < n_out || wide)) ||
       (frac == nullptr) != (phase == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = {};
@@ -973,6 +1404,11 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
   p.groups = m / kCols < kThreads ? m / kCols : kThreads;
   p.subs = kThreads / p.groups;
   p.tiles = (n_out + p.subs * kJ - 1) / (p.subs * kJ);
+  if (wide) {
+    const size_t smem = wide_smem(frac != nullptr);
+    return gains == nullptr ? launch_wide<2>(p, smem, static_cast<cudaStream_t>(stream))
+                            : launch_wide<0>(p, smem, static_cast<cudaStream_t>(stream));
+  }
   // the plan of fft_plan: radix-16 passes, then one of 2^(log2 N mod 4);
   // pass q's table holds (R - 1) Ns values when Ns > 1
   const int n_half = m / 2;
@@ -1016,24 +1452,42 @@ extern "C" int dcs_fengine(const void* hist, const void* chunk, const void* wind
 
 // The grid the persistent kernel launches for a call of `dcs_fengine` (0
 // below M = 2048, where one-shot CTAs run): CTAs, a multiple of the
-// cluster's 8 in the operand layout.
+// cluster's 8 in the operand layout and at M = 65536 (both layouts).
 extern "C" int dcs_fengine_grid(int n_streams, int n_out, int m, int layout, int rotate,
                                 int float_out, int* grid) {
   *grid = 0;
   if (m < kPersistentM) return 0;
-  if (m & (m - 1) || m / 2 > kMaxHalf || n_streams < 1 || n_out < 1)
+  if (m & (m - 1) || (m / 2 > kMaxHalf && m != kWideM) || n_streams < 1 || n_out < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = {};
   p.n_streams = n_streams;
   p.n_out = n_out;
   p.m = m;
   p.tiles = (n_out + kJ - 1) / kJ;
+  if (m == kWideM)  // both layouts: the operand layout is the wire kernel's
+    return static_cast<int>(float_out ? wide_grid<2>(p, wide_smem(rotate != 0), grid)
+                                      : wide_grid<0>(p, wide_smem(rotate != 0), grid));
   const size_t smem = persistent_smem(m, rotate != 0);
   cudaError_t err;
   if (float_out) err = persistent_grid<2>(p, smem, grid);
   else if (layout == 0) err = persistent_grid<0>(p, smem, grid);
   else err = persistent_grid<3>(p, smem, grid);
   return static_cast<int>(err);
+}
+
+// The operand layout (K, 2, S, pitch) of the wire output `wire` (S, n_out, K,
+// 2) int8 at M = 65536 (K = 32768; any K a multiple of 64), zeros in spectra
+// [n_out, pitch).  Returns cudaGetLastError() after the launch.
+extern "C" int dcs_fengine_operand(const void* wire, void* out, int n_streams, int n_out,
+                                   int n_chans, int pitch, void* stream) {
+  const int rows = 2 * n_chans;
+  if (n_streams < 1 || n_streams > 65535 || n_out < 1 || pitch < n_out || n_chans < 1 ||
+      rows % kTileR || (pitch + kTileB - 1) / kTileB > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(rows / kTileR, (pitch + kTileB - 1) / kTileB, n_streams);
+  fengine_wide_operand<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(wire), static_cast<int8_t*>(out), n_streams, n_out, rows, pitch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #ifdef DCS_K1_PHASES

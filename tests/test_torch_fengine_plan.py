@@ -105,3 +105,57 @@ def test_l2_bytes_counts_each_tile(b, taps):
     assert k1_l2_bytes(streams, b, m, taps) == streams * want
     if b == 2048:
         assert abs(k1_l2_bytes(128, b, m, taps) / 1e9 - 30.48) < 0.01
+
+
+@pytest.mark.parametrize("operand", [False, True])
+@pytest.mark.parametrize("resident", [8, 15 * 8, 132])
+@pytest.mark.parametrize("streams,b", [(1, 1), (3, 13), (5, 36),
+                                       (128, 256)])
+def test_wide_walk_gives_each_tile_to_one_cluster(operand, resident,
+                                                   streams, b):
+    """At M = 65536 (either layout: the operand layout is the wire kernel's
+    output transposed) the grid is whole clusters of 8 that the card holds,
+    every CTA of a cluster walks the same tiles (each an eighth of their
+    spectra), and the clusters take every (stream, tile) once, their steps
+    balanced to one."""
+    grid = k1_grid(streams, b, resident, operand, m=65536)
+    assert grid % K1_CLUSTER == 0 and 0 < grid <= resident
+    walk = k1_tiles(streams, b, grid, operand, m=65536)
+    clusters = [walk[c:c + K1_CLUSTER] for c in range(0, grid, K1_CLUSTER)]
+    assert all(steps == cl[0] for cl in clusters for steps in cl)
+    seen = sorted(t for cl in clusters for t in cl[0])
+    assert seen == [(s, t * K1_TILE) for s in range(streams)
+                    for t in range(-(-b // K1_TILE))]
+    lens = [len(cl[0]) for cl in clusters]
+    assert max(lens) - min(lens) <= 1
+
+
+def test_l2_bytes_at_32k_channels():
+    """At M = 65536 a tile's 8 CTAs each read an eighth of the window's
+    columns and of its frames': a tile reads the whole window and its
+    frames, as at fx64, so the 32k cell's chunk reads 30.64 GB from L2
+    against fx64's 30.48."""
+    m, taps = 65536, 16
+    want = 128 * sum(taps * m * 4 + (min(K1_TILE, 256 - j) + taps - 1) * m
+                     for j in range(0, 256, K1_TILE))
+    assert k1_l2_bytes(128, 256, m, taps) == want
+    assert abs(want / 1e9 - 30.64) < 0.01
+
+
+def test_wide_tables_hold_the_plan_and_the_cluster_twiddles():
+    """At M = 65536 the split table is W_M^k for k < 32768 in the
+    sub-sequences' order (bin k1 + 16 k2 at 2048 k1 + k2); the pass table
+    is the 2048-point plan's (each CTA's FFTs) and then W_N^(n2 k1) for k1
+    = 1..15 and n2 < 2048 (the radix-16 pass across the cluster)."""
+    split, passes = _tables_np(65536)
+    k1, k2 = np.meshgrid(np.arange(16), np.arange(2048), indexing="ij")
+    np.testing.assert_allclose(
+        split, np.exp(-2j * np.pi * (k1 + 16 * k2) / 65536).ravel(),
+        atol=1e-7)
+    plan = _tables_np(4096)[1]
+    assert plan.size == 2032
+    np.testing.assert_array_equal(passes[:plan.size], plan)
+    cross = passes[plan.size:].reshape(15, 2048)
+    k1, n2 = np.meshgrid(np.arange(1, 16), np.arange(2048), indexing="ij")
+    np.testing.assert_allclose(cross, np.exp(-2j * np.pi * k1 * n2 / 32768),
+                               atol=1e-7)

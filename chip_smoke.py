@@ -220,10 +220,18 @@ single-process surface:
     before, the cluster kernel 2, its transpose 2, CMAC 2, gather 2, and 0
     for the others (the one-CTA K1 and K6 among them); autocorrelations
     real and >= 0.  ``python3 chip_smoke.py --phase 41`` runs it alone
-    after the build.  Phase 41 runs before 32-34.
+    after the build.  Phase 41 runs before 32-34;
+42. the delay-terms kernel (``csrc/delays.cu``) at the runner's 128
+    rows of fx64's chunk (2048 spectra) and beam64's (256), at t0 near
+    5e10 (the traffic's 29 s of stream), six delay models (a drift,
+    quadratic terms, coarse delays clipped at 0 and at the budget of 32,
+    exact halves, an ``update()``): bitwise ``DelayModel.evaluate_chunk``
+    and its plain version on the card, one launch a call; timed at
+    fx64's beside both.
 
 Every phase whose runner has a coarse delay on the host path counts one
-gather launch a chunk (the feed's shift).
+gather launch a chunk (the feed's shift), and every runner phase one
+delay-terms launch a chunk (the feed's, on the runner's card).
 
 Phases 32-34 drive the multi-process mode: the script runs itself again
 (``--rank``) as two ``torch.distributed`` ranks on the card
@@ -337,9 +345,10 @@ time the operand layout's call, both kernels), 20's probes target for P1 and P2,
 ``all_to_all_ipc`` and ``ring_ipc``, the same kernels across processes,
 both ranks' launches in phases 32 and 33, for ``all_to_all_staged`` the
 receivers' launches across nodes in phases 37 and 38, for
-``ring_staged`` those of phase 39's bench run, and 36's device-mode fx64
-and beam64 runs for the coarse gather), times from phases 2, 3, 7, 10,
-11, 14, 15, 19, 32, 33, 35, 39 and 41 (the probes with the L2 flushed; the
+``ring_staged`` those of phase 39's bench run, 36's device-mode fx64
+and beam64 runs for the coarse gather, and 6's and 9's runs for the delay
+terms), times from phases 2, 3, 7, 10, 11, 14, 15, 19, 32, 33, 35, 39,
+41 and 42 (the probes with the L2 flushed; the
 IPC and staged rows rank 0's; the gather's at fx64 with the lead-in);
 the last is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when no
 CUDA device is present.
@@ -384,6 +393,9 @@ NODES = 2                  # phases 37-39: 2 ranks on 2 nodes; 38: 4 on 2
 PHASE38_BEAM_CHUNKS = 2    # phase 38's beam64 runs (full width, fewer chunks)
 RAGGED_SPECTRA = (1, 8, 24, 2040)  # phase 26: B not a multiple of 16
 GATHER_MAX_DELAY = 32      # phase 35: the production model's lead-in
+DELAY_CASES = ("drift", "quadratic", "clip_low", "clip_high", "half_even",
+               "after_update")         # phase 42: the delay models
+DELAY_T0 = 49_876_543_210  # near the traffic's 29 s of stream (5e10 samples)
 
 
 def _events_ms(fn, n):
@@ -425,6 +437,7 @@ def _wrappers() -> dict:
     from dc_sand_tpu_torch.bench.probes import read_probe, write_probe
     from dc_sand_tpu_torch.ops.beamform import beamform
     from dc_sand_tpu_torch.ops.coarse import coarse_gather
+    from dc_sand_tpu_torch.ops.delay_terms import delay_terms
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
     from dc_sand_tpu_torch.ops.pfb import pfb_fir
     from dc_sand_tpu_torch.ops.xcorr import xcorr_accumulate_a2
@@ -442,7 +455,8 @@ def _wrappers() -> dict:
             "ring_staged": (ring_permute_right, "staged_launches"),
             "read_probe": (read_probe, "launches"),
             "write_probe": (write_probe, "launches"),
-            "coarse": (coarse_gather, "launches")}
+            "coarse": (coarse_gather, "launches"),
+            "delay_terms": (delay_terms, "launches")}
 
 
 def _zero_counts() -> None:
@@ -515,7 +529,8 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
                        all_to_all=n * a2a, all_to_all_staged=n * staged,
                        ring=n * len(mesh.ring_sends("time")) if n_t > 1
                        else 0,
-                       coarse=n if coarse_on_host else n * local)
+                       coarse=n if coarse_on_host else n * local,
+                       delay_terms=n)
     if len(dumps) != 1 or _digest(dumps[0].vis) != digest:
         raise RuntimeError(f"{label}: the dump's sha256 is not "
                            + ("phase 6's" if coarse_on_host else "phase 36's"))
@@ -898,7 +913,8 @@ def _phases_32_33(dev, digest6, digest36, tmp) -> None:
                    on_output=lambda i, o: got.append(o))
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t) / n * 1e3
-        launches = _counts(fengine=2 * n, beamform=2 * n, coarse=n)
+        launches = _counts(fengine=2 * n, beamform=2 * n, coarse=n,
+                           delay_terms=n)
         outs[ep] = got
         snr_b = min(_snr_db(r["beams"][share if ep else slice(None)],
                             o["beams"]) for r, o in zip(ref, got))
@@ -981,7 +997,7 @@ def _phase_34(dev, digest6, digest36, tmp) -> None:
         dumps, _ = resumed.run(lambda i: chunks[i][a0:a1], 2)
         torch.cuda.synchronize()
         launches = _counts(fengine=4, cmac=4, all_to_all=2,
-                           coarse=2 if on_host else 4)
+                           coarse=2 if on_host else 4, delay_terms=2)
         phase = 6 if on_host else 36
         if len(dumps) != 1 or _digest(dumps[0].vis) != digest:
             raise RuntimeError(f"34 ({name}): the resumed dump is not phase "
@@ -1168,7 +1184,8 @@ def _beam64_ranks(dev, mesh, label, phase) -> None:
                    on_output=lambda i, o: got.append(o))
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t) / n * 1e3
-        launches = _counts(fengine=n * local, beamform=n * local, coarse=n)
+        launches = _counts(fengine=n * local, beamform=n * local, coarse=n,
+                           delay_terms=n)
         outs[ep] = got
         share = (slice(fs[0] * nb_l, (fs[-1] + 1) * nb_l) if ep
                  else slice(None))
@@ -1587,7 +1604,7 @@ def _phase_41(dev, card) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     launches = _counts(fengine_wide=n, fengine_wide_operand=n, cmac=n,
-                       coarse=n)
+                       coarse=n, delay_terms=n)
     a, p = cfg.n_ants, cfg.n_pols
     if len(dumps) != 1 or dumps[0].vis.shape != (
             a * (a + 1) // 2, p, p, nch, 2):
@@ -1608,6 +1625,103 @@ def _phase_41(dev, card) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "err": err, "wire_ms": wire_ms,
             "operand_ms": operand_ms, "plain_ms": plain_ms, "bound": bound}
+
+
+def _delay_case(case, a, p, t0, seed=0):
+    """A delay model of ``case`` whose chunk at ``t0`` exercises it, at the
+    rates of the benchmark's traffic (2e-10 samples and 2e-9 rad a sample,
+    referenced to sample 0): a drift, quadratic terms, coarse delays
+    clipped at 0 and at the budget, exact halves (rounded to even), an
+    ``update()``.  ``tests/test_torch_delay_terms.py`` uses the same."""
+    import numpy as np
+    from dc_sand_tpu_torch.runtime import DelayModel
+    rng = np.random.default_rng(seed)
+    shape = (a, p)
+    dm = DelayModel(d0=rng.uniform(10, 21, shape),
+                    d1=rng.uniform(-1, 1, shape) * 2e-10,
+                    p0=rng.uniform(-np.pi, np.pi, shape),
+                    p1=rng.uniform(-1, 1, shape) * 2e-9,
+                    max_delay=GATHER_MAX_DELAY)
+    if case == "quadratic":
+        dm.d2 = rng.uniform(-1, 1, shape) * 1e-21
+        dm.p2 = rng.uniform(-1, 1, shape) * 1e-20
+    elif case in ("clip_low", "clip_high"):
+        dm.d0 = dm.d0 - 40 if case == "clip_low" else dm.d0 + 30
+        dm.t_ref = t0 - 1000
+    elif case == "half_even":
+        # exact halves at the chunk's start: 0.5, 1.5, ... round to even
+        dm.d0 = (np.arange(a * p).reshape(shape) % GATHER_MAX_DELAY) + 0.5
+        dm.d1 = np.zeros(shape)
+        dm.t_ref = t0
+    elif case == "after_update":
+        dm.d2 = rng.uniform(-1, 1, shape) * 1e-21
+        dm.update(t_ref=max(t0 - 4096, 0), d0=rng.uniform(10, 21, shape),
+                  p1=rng.uniform(-1, 1, shape) * 2e-9)
+    return dm
+
+
+def _phase_42(dev, card) -> tuple:
+    """The delay-terms kernel at the runner's 128 rows of fx64's and
+    beam64's chunks, every case of :data:`DELAY_CASES`: bitwise
+    ``DelayModel.evaluate_chunk`` and its plain version on the card; timed
+    at fx64's beside both.  Returns ``(ms, plain_ms, bound, None)`` for
+    the kernels line."""
+    import numpy as np
+    import torch
+    from dc_sand_tpu_torch.bench.harness import bound_ms
+    from dc_sand_tpu_torch.ops.delay_terms import (COEFFICIENTS, delay_terms,
+                                                   delay_terms_torch)
+    a, p, md = FX64_STREAMS // 2, 2, GATHER_MAX_DELAY
+
+    def case_args(case, b):
+        dm = _delay_case(case, a, p, DELAY_T0, seed=b)
+        coef = torch.from_numpy(np.stack([
+            np.asarray(getattr(dm, k), np.float64).reshape(-1)
+            for k in COEFFICIENTS])).to(dev)
+        return dm, (coef, float(DELAY_T0 - dm.t_ref), b, FX64_M, md)
+
+    _zero_counts()
+    for b in (FX64_SPECTRA, BEAM_SPECTRA):
+        for case in DELAY_CASES:
+            dm, args = case_args(case, b)
+            got = delay_terms(*args)
+            plain = tuple(torch.empty_like(x) for x in got)
+            delay_terms_torch(*args, plain)
+            want = dm.evaluate_chunk(DELAY_T0, b, FX64_M)
+            for g, q, w in zip(got, plain, want):
+                g_np = g.cpu().numpy()
+                w = np.ascontiguousarray(w).reshape(g_np.shape)
+                if not (g_np.dtype == w.dtype
+                        and torch.equal(g.view(torch.int32),
+                                        q.view(torch.int32))
+                        and np.array_equal(g_np.view(np.int32),
+                                           w.view(np.int32))):
+                    raise RuntimeError(f"42 {case} B {b}: the delay-terms "
+                                       "kernel != numpy or its plain "
+                                       "version")
+            coarse = want[0]
+            if not {"clip_low": (coarse == 0).any(),
+                    "clip_high": (coarse == md).any(),
+                    "half_even": (coarse % 2 == 0).all()}.get(case, True):
+                raise RuntimeError(f"42 {case}: the case does not reach its "
+                                   "edge")
+    _counts(delay_terms=2 * len(DELAY_CASES))
+    _, args = case_args("quadratic", FX64_SPECTRA)
+    got = delay_terms(*args)
+    plain = tuple(torch.empty_like(x) for x in got)
+    kernel_ms, plain_ms = _turns_ms(
+        [lambda: delay_terms(*args, out=got),
+         lambda: delay_terms_torch(*args, plain)], 50, 3)
+    bound = bound_ms(_nbytes(args[0], *got))
+    print(f"[42 delay terms] {FX64_STREAMS} rows at B {FX64_SPECTRA} and "
+          f"{BEAM_SPECTRA}, t0 {DELAY_T0}, {len(DELAY_CASES)} models "
+          f"({', '.join(DELAY_CASES)}): bitwise numpy's evaluate_chunk and "
+          f"the plain version on the card, one launch a call; at B "
+          f"{FX64_SPECTRA} kernel {kernel_ms:.4f} ms a call back to back "
+          f"(the launches' host rate bounds it), plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.5f} ms ({bound[1]}) ({card})", flush=True)
+    _zero_counts()
+    return kernel_ms, plain_ms, bound, None
 
 
 def _phase_41_alone() -> int:
@@ -1896,7 +2010,8 @@ def main() -> int:
     dumps, counters = runner.run(lambda i: chunks[i % n_chunks], n_chunks)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    launches = counts(fengine=n_chunks, cmac=n_chunks, coarse=n_chunks)
+    launches = counts(fengine=n_chunks, cmac=n_chunks, coarse=n_chunks,
+                      delay_terms=n_chunks)
     if len(dumps) != 1 or dumps[0].n_spectra != cfg.n_spectra_per_acc:
         raise RuntimeError(f"expected one {cfg.n_spectra_per_acc}-spectra "
                            f"dump, got {[d.n_spectra for d in dumps]}")
@@ -2040,7 +2155,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     beam_launches = counts(fengine=BEAM_CHUNKS, beamform=BEAM_CHUNKS,
-                           coarse=BEAM_CHUNKS)
+                           coarse=BEAM_CHUNKS, delay_terms=BEAM_CHUNKS)
     b = cfg.spectra_per_chunk
     for o in outs:
         beams, inc = o["beams"], o["incoherent"]
@@ -2186,6 +2301,7 @@ def main() -> int:
             n = counters.chunks_in
             want = ({"fengine_float" if name == "pfb1k" else "fengine": n}
                     if fused else {"pfb": n})
+            want["delay_terms"] = n     # the feed's, delay or none
             if get_config(name).apply_delay:     # the feed's coarse shift
                 want["coarse"] = n
             got_counts = counts(**want)
@@ -2212,7 +2328,8 @@ def main() -> int:
     dumps, _ = runner.run(lambda i: chunks[i % n_chunks], n_chunks)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    unfused_launches = counts(pfb=n_chunks, cmac=n_chunks, coarse=n_chunks)
+    unfused_launches = counts(pfb=n_chunks, cmac=n_chunks, coarse=n_chunks,
+                              delay_terms=n_chunks)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if len(dumps) != 1 or dumps[0].vis.shape != vis_fused.shape:
         raise RuntimeError("the unfused fx64 run made no dump of phase 6's "
@@ -2414,7 +2531,7 @@ def main() -> int:
         got_counts = counts(fengine=n_sh, cmac=n_sh,
                             all_to_all=n_chunks * n_cards,
                             ring=n_chunks * n_cards if time_shards > 1 else 0,
-                            coarse=n_chunks)
+                            coarse=n_chunks, delay_terms=n_chunks)
         mesh_launches[phase] = got_counts
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if len(dumps) != 1 or not np.array_equal(dumps[0].vis, vis_fused):
@@ -2461,7 +2578,8 @@ def main() -> int:
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t) / n_chunks * 1e3
         n_sh = n_chunks * SHARDS
-        got_counts = counts(fengine=n_sh, beamform=n_sh, coarse=n_chunks)
+        got_counts = counts(fengine=n_sh, beamform=n_sh, coarse=n_chunks,
+                            delay_terms=n_chunks)
         beam_outs[ep] = outs
         snr_b = min(_snr_db(r["beams"], o["beams"])
                     for r, o in zip(beam_ref, outs))
@@ -2574,7 +2692,7 @@ def main() -> int:
             n_sh = 2 * (mesh.size if mesh else 1)
             got_counts = counts(fengine=n_sh, cmac=n_sh,
                                 all_to_all=2 * n_cards if mesh else 0,
-                                coarse=2)
+                                coarse=2, delay_terms=2)
             if len(dumps) != 1 or _digest(dumps[0].vis) != digest6:
                 raise RuntimeError(f"phase 21 ({label}): the resumed dump is "
                                    "not phase 6's")
@@ -2599,7 +2717,8 @@ def main() -> int:
     first_s = time.perf_counter() - t
     # the wrappers count calls: one warm-up step, then the captured window
     batched_counts = counts(fengine=n_chunks + 1, cmac=n_chunks + 1,
-                            coarse=n_chunks)   # the feed's, not captured
+                            coarse=n_chunks,   # the feed's, not captured
+                            delay_terms=n_chunks)
     captured, replays = runner.graph_launches, runner.graph_replays
     if (captured != {"fengine": n_chunks, "pfb": 0, "cmac": n_chunks,
                      "coarse": 0} or replays != 1):
@@ -2637,7 +2756,7 @@ def main() -> int:
     if bench_main(["runner"]) != 0:
         raise RuntimeError("the bench entry's runner target failed")
     torch.cuda.synchronize()
-    runner_counts = ran("fengine", "cmac")
+    runner_counts = ran("fengine", "cmac", "delay_terms")
     print(f"[22 bench runner] launches {runner_counts} "
           f"({time.perf_counter() - t:.1f} s) ({card})", flush=True)
 
@@ -2660,7 +2779,7 @@ def main() -> int:
         zero_counts()
         lines = cli_lines(["run", "fx4", "--chunks", str(8 * g), "--batched",
                            "--checkpoint", os.path.join(tmp, "cli")])
-        cli_counts = ran("fengine", "cmac")
+        cli_counts = ran("fengine", "cmac", "delay_terms")
         path = lines[-1].removeprefix("state saved to ")
         window = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
         shape = (cfg.n_ants, cfg.n_pols, cfg.chunk_samples)
@@ -2715,7 +2834,7 @@ def main() -> int:
         torch.cuda.synchronize()
     finally:
         feeder.close()
-    ingest_counts = counts(fengine=2 * g, cmac=2 * g)
+    ingest_counts = counts(fengine=2 * g, cmac=2 * g, delay_terms=2 * g)
     ingest_stats = [ing.stats() for ing in ingests]
     for ing in ingests:
         ing.close()
@@ -2783,7 +2902,7 @@ def main() -> int:
     zero_counts()
     with contextlib.redirect_stdout(out):
         rc = udp_observation.main([])
-    wire_counts = ran("fengine", "cmac")
+    wire_counts = ran("fengine", "cmac", "delay_terms")
     for line in out.getvalue().splitlines():
         print(f"[25 udp wire leg] {line}", flush=True)
     if rc != 0:
@@ -2894,7 +3013,7 @@ def main() -> int:
     t = time.perf_counter()
     snrs, counters = verify_config("fx64", device=dev, spectra_per_chunk=24,
                                    n_spectra_per_acc=48)
-    verify_counts = ran("fengine", "cmac", "coarse")
+    verify_counts = ran("fengine", "cmac", "coarse", "delay_terms")
     snr = snrs["visibilities"]
     print(f"[28 verify fx64 ragged] 24-spectra chunks, 48-spectra dumps: "
           f"visibilities {snr:.2f} dB vs golden over {counters.dumps} dumps "
@@ -2918,7 +3037,7 @@ def main() -> int:
         if rc != 0 or "PASS" not in out.getvalue().split():
             raise RuntimeError(f"example {name} did not pass on the card")
         if name == "observe":
-            ran("fengine", "cmac", "coarse")
+            ran("fengine", "cmac", "coarse", "delay_terms")
             print(f"[29 observe] launches: K1 {ex_counts['fengine']}, CMAC "
                   f"{ex_counts['cmac']} (8-spectra chunks) ({card})",
                   flush=True)
@@ -3093,7 +3212,8 @@ def main() -> int:
     zero_counts()
     dumps, _ = runner.run(src, n_chunks)
     torch.cuda.synchronize()
-    dev_launches = counts(fengine=n_chunks, cmac=n_chunks, coarse=n_chunks)
+    dev_launches = counts(fengine=n_chunks, cmac=n_chunks, coarse=n_chunks,
+                          delay_terms=n_chunks)
     peak36_gb = torch.cuda.max_memory_allocated() / 1e9
     if len(dumps) != 1 or dumps[0].vis.shape != vis_fused.shape:
         raise RuntimeError("36: the device-mode fx64 run made no dump of "
@@ -3144,7 +3264,7 @@ def main() -> int:
     batched, _ = runner.run_batched(src, n_chunks)
     torch.cuda.synchronize()
     dev_batched_counts = counts(fengine=n_chunks + 1, cmac=n_chunks + 1,
-                                coarse=n_chunks + 1)
+                                coarse=n_chunks + 1, delay_terms=n_chunks)
     captured = runner.graph_launches
     if captured != {"fengine": n_chunks, "pfb": 0, "cmac": n_chunks,
                     "coarse": n_chunks} or runner.graph_replays != 1:
@@ -3169,7 +3289,7 @@ def main() -> int:
     runner.run(src, n_chunks, on_output=lambda i, o: outs.append(o))
     torch.cuda.synchronize()
     dev_beam_launches = counts(fengine=n_chunks, beamform=n_chunks,
-                               coarse=n_chunks)
+                               coarse=n_chunks, delay_terms=n_chunks)
     load_state(runner, start)
     with plain_gather():
         runner.run(src, n_chunks, on_output=lambda i, o: plain_outs.append(o))
@@ -3201,7 +3321,7 @@ def main() -> int:
     zero_counts()
     t = time.perf_counter()
     snrs, counters = verify_config("fx64", device=dev, coarse_on_host=False)
-    dev_verify_counts = ran("fengine", "cmac", "coarse")
+    dev_verify_counts = ran("fengine", "cmac", "coarse", "delay_terms")
     snr = snrs["visibilities"]
     print(f"[36 verify fx64 device coarse] visibilities {snr:.2f} dB vs "
           f"golden over {counters.dumps} dumps ({time.perf_counter() - t:.1f}"
@@ -3214,6 +3334,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     wide = _phase_41(dev, card)
+
+    # ---- 42. the delay-terms kernel vs numpy and its plain version -------
+    delay_times = _phase_42(dev, card)
 
     # ---- 32.-34. two processes on the card -------------------------------
     torch.cuda.synchronize()
@@ -3432,6 +3555,12 @@ def main() -> int:
         entry("coarse_gather", "coarse.cu",
               "dc_sand_tpu/models/fengine.py:21", gather_launches, 0,
               *gather_times[("fx64", True)]),
+        # the port's own kernel: the JAX package evaluates the delay
+        # polynomials in numpy on the host, outside any kernel
+        entry("delay_terms", "delays.cu",
+              "dc_sand_tpu/runtime/delays.py:82",
+              launches["delay_terms"] + beam_launches["delay_terms"], 0,
+              *delay_times),
         # K1 at M = 65536: the cluster kernel alone (the wire layout) and
         # the operand layout's call, the kernel and its transpose
         entry("fengine_wide", "fengine.cu",
@@ -3443,7 +3572,7 @@ def main() -> int:
               wide["launches"]["fengine_wide_operand"], 0,
               wide["operand_ms"], wide["plain_ms"], wide["bound"], None),
     ]
-    print(f"[total] phases 1-41 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[total] phases 1-42 in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 
 MAX_PEERS = 16   # csrc/remote_dma.cu: DCS_MAX_PEERS
 
@@ -91,6 +92,7 @@ _SIGNATURES = {
                "dcs_write_probe": [_P, _I, _I, _I, _I, _I, _P]},
     "coarse": {"dcs_coarse_gather": [_P, _L, _L, _P, _L, _L, _P, _I, _P, _L,
                                      _P, _L, _I, _P]},
+    "delays": {"dcs_delay_terms": [_P, _I, _D, _I, _I, _I, _P, _P, _P, _P]},
 }
 
 

@@ -2,12 +2,13 @@
 device or on a device mesh.
 
 PyTorch counterpart of :class:`dc_sand_tpu.runtime.runner.FXRunner`:
-feed a chunk to the device, advance the delay polynomials on the host,
-apply the coarse delay as a read-pointer offset on the device, and run
-the step — in fengine mode the F-engine alone, handing each chunk's
-spectra to ``on_output``; in fx mode F-engine + corner-turn + CMAC,
-dumping the integration at the accumulation cadence; in beam mode
-F-engine + beam kernel, handing each chunk's beams to ``on_output``.
+feed a chunk to the device, evaluate the delay polynomials on the device
+from coefficients held there, apply the coarse delay as a read-pointer
+offset on the device, and run the step — in fengine mode the F-engine
+alone, handing each chunk's spectra to ``on_output``; in fx mode
+F-engine + corner-turn + CMAC, dumping the integration at the
+accumulation cadence; in beam mode F-engine + beam kernel, handing each
+chunk's beams to ``on_output``.
 The FIR history and the packed accumulator live on the device and are
 updated in place.
 
@@ -32,6 +33,19 @@ At a dump the channel blocks are gathered and the SP partial accumulators
 summed, as the JAX runner's dump extraction does, and ``on_output`` gets
 the outputs in their global layout on the first shard's device (beam-
 parallel beams put back in beam order).
+
+The delay model stays the host's :class:`~dc_sand_tpu_torch.runtime.
+delays.DelayModel`, and its terms are the numbers of its
+``evaluate_chunk``, bitwise: the runner keeps the model's coefficients of
+its rows on the device, compares them with the model's at each chunk and
+uploads them again, through pinned memory and without a wait, only when
+they differ (``counters.delay_uploads``); each chunk's coarse delays,
+fractional delays and phases are then one launch
+(:func:`~dc_sand_tpu_torch.ops.delay_terms.delay_terms`).  So a chunk
+copies nothing from the host and waits for nothing on the card, and the
+host, left alone, would run ahead of the card without limit: before it
+feeds chunk i it waits for chunk i - 2's event, so that the card holds
+the previous chunk's work while the host feeds and launches this one.
 
 Fault semantics as in the JAX runner: a dropped chunk is replaced by
 zeros — stream timing advances, the FIR history stays continuous, and
@@ -68,6 +82,7 @@ one-process run's.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 from typing import Callable, Iterable, Optional
@@ -82,6 +97,7 @@ from dc_sand_tpu_torch.models.pipeline import (gather_acc, gather_outputs,
                                                uses_frames_io, zero_vis_acc)
 from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.coarse import carry_lead, coarse_gather
+from dc_sand_tpu_torch.ops.delay_terms import COEFFICIENTS, delay_terms
 from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
 from dc_sand_tpu_torch.ops.pfb import pfb_fir
 from dc_sand_tpu_torch.ops.xcorr import extract_vis, xcorr_accumulate_a2
@@ -98,6 +114,10 @@ __all__ = ["FXRunner", "RunnerCounters", "Dump", "MAX_SPECTRA_PER_ACC"]
 # int32 CMAC headroom: |V| <= 2 * 127**2 * n_spectra
 MAX_SPECTRA_PER_ACC = (2 ** 31 - 1) // (2 * 127 * 127)
 
+# chunks the card may hold queued when the host starts feeding the next:
+# chunk i is fed once chunk i - 2 has finished
+_IN_FLIGHT = 2
+
 
 @dataclasses.dataclass
 class RunnerCounters:
@@ -106,6 +126,11 @@ class RunnerCounters:
     samples_in: int = 0
     spectra_out: int = 0
     dumps: int = 0
+    # the delay coefficients copied to the device: this runner's own
+    # count, not the stream's, so it is neither kept by a checkpoint nor
+    # compared or printed with the JAX runner's counters
+    delay_uploads: int = dataclasses.field(default=0, compare=False,
+                                           repr=False)
 
 
 @dataclasses.dataclass
@@ -183,6 +208,16 @@ class FXRunner:
         self.weights = (weights if weights is not None
                         else np.zeros((max(cfg.n_beams, 1), a, k, 2),
                                       np.float32))
+        a_l = self._rows.stop - self._rows.start
+        # the delay polynomials of this rank's rows, (6, A_l*P) float64 on
+        # the device, and the host values last uploaded into them
+        self._coef = torch.zeros((len(COEFFICIENTS), a_l * p),
+                                 dtype=torch.float64, device=self.device)
+        self._coef_host = None
+        # each card's event of the chunks not yet waited for
+        self._cards = (list(dict.fromkeys(self._devices))
+                       if self.device.type == "cuda" else [])
+        self._in_flight = collections.deque()
         shape = history_shape(cfg, mesh, dev_md if self._lead else None)
         self.history = [torch.zeros(shape, dtype=torch.int8, device=dev)
                         for dev in self._devices]
@@ -198,7 +233,6 @@ class FXRunner:
         # integer-sample (coarse) delay is a read-pointer offset applied in
         # the feed; the tail carries the previous chunk's last max_delay
         # samples of this rank's antennas (zeros at stream start)
-        a_l = self._rows.stop - self._rows.start
         self._tail = (torch.zeros((a_l, p, self.max_delay),
                                   dtype=torch.int8, device=self.device)
                       if self.coarse_on_host and self.max_delay else None)
@@ -291,15 +325,14 @@ class FXRunner:
         with span("runner.run"):
             for _ in range(n_chunks):
                 with span("runner.chunk"):
+                    self._pace()
                     i = self.chunk_idx
                     chunk, coarse, frac, phase, dropped = self._feed_chunk(
                         i, drop, source)
                     reset = self._acc_spectra == 0
                     if reset:
                         self._acc_first_chunk = i
-                    args = self._step_args(chunk, torch.from_numpy(frac),
-                                           torch.from_numpy(phase),
-                                           torch.from_numpy(coarse))
+                    args = self._step_args(chunk, frac, phase, coarse)
                     with span("runner.launch"):
                         outputs = self._step(self.history, self.vis_acc,
                                              *args, reset)
@@ -307,6 +340,7 @@ class FXRunner:
                         with span("runner.output"):
                             on_output(i, gather_outputs(
                                 outputs, cfg, self.mesh, self.device))
+                    self._launched()
                 if self.mode != "fx":
                     continue
                 self._acc_spectra += b
@@ -338,18 +372,18 @@ class FXRunner:
         On one CUDA device the window's ``g`` steps are captured once in
         one CUDA graph, and each window is then the feed (outside the
         graph, into static device buffers: the chunks ``(g, A*P, B, M)``
-        int8, their delays ``(g, A*P, B)`` float32, in the device coarse
-        mode the raw chunks and their coarse delays ``(g, A*P)`` int32,
-        whose gather the graph holds, a copy of the gains), one replay,
-        and the dump.  The graph holds the addresses of the
-        carries ``history`` and ``vis_acc``: whatever replaces them
-        rather than copying into them (``load_state`` copies) has it
-        captured again.  Before the capture one step runs uncaptured on
-        copies of the carries, so that the kernels are built, loaded and
-        their tables cached.  A capture that fails raises.  Each wrapper
-        counts its launches when called, so the capture counts the
-        window's launches once (:attr:`graph_launches`) and the replays
-        count in :attr:`graph_replays`.
+        int8, their delays ``(g, A*P, B)`` float32 and coarse delays
+        ``(g, A*P)`` int32 written there by the delay kernel, in the
+        device coarse mode the raw chunks, whose gather the graph holds,
+        a copy of the gains), one replay, and the dump.  The graph holds
+        the addresses of the carries ``history`` and ``vis_acc``: whatever
+        replaces them rather than copying into them (``load_state``
+        copies) has it captured again.  Before the capture one step runs
+        uncaptured on copies of the carries, so that the kernels are
+        built, loaded and their tables cached.  A capture that fails
+        raises.  Each wrapper counts its launches when called, so the
+        capture counts the window's launches once (:attr:`graph_launches`)
+        and the replays count in :attr:`graph_replays`.
 
         On a mesh and on the CPU it runs the step once a chunk, in a
         loop, with no graph.
@@ -381,22 +415,22 @@ class FXRunner:
             first_chunk = self.chunk_idx
             integrated = 0
             for k in range(g):
-                out = self._graph.chunks[k] if graphed else None
+                out = delays = None
+                if graphed:
+                    gr = self._graph
+                    out, delays = gr.chunks[k], (gr.coarse[k], gr.frac[k],
+                                                 gr.phase[k])
+                else:
+                    self._pace()
                 chunk, coarse, frac, phase, dropped = self._feed_chunk(
-                    self.chunk_idx, drop, source, out=out)
+                    self.chunk_idx, drop, source, out=out, delays_out=delays)
                 if not dropped:
                     integrated += b
-                if graphed:
-                    self._graph.frac_host[k] = frac
-                    self._graph.phase_host[k] = phase
-                    self._graph.coarse_host[k] = coarse
-                else:
+                if not graphed:
                     self._step(self.history, self.vis_acc,
-                               *self._step_args(chunk,
-                                                torch.from_numpy(frac),
-                                                torch.from_numpy(phase),
-                                                torch.from_numpy(coarse)),
+                               *self._step_args(chunk, frac, phase, coarse),
                                k == 0)
+                    self._launched()
             if graphed:
                 self._graph.replay(self)
             dumps.append(self._dump(integrated, g * b, first_chunk,
@@ -431,15 +465,18 @@ class FXRunner:
             return d
 
     # ------------------------------------------------------------------
-    def _feed_chunk(self, i: int, drop: frozenset, source, out=None):
+    def _feed_chunk(self, i: int, drop: frozenset, source, out=None,
+                    delays_out=None):
         """Per-chunk feed: fault injection, the chunk's transfer to the
-        device, delay-model evaluation, the host mode's coarse delay, the
-        frame view, counter/clock bookkeeping.  Returns ``(chunk, coarse,
-        frac, phase, dropped)``: the chunk in frame form ``(A*P, B, M)``
-        on the device (written into ``out``, a tensor of that shape, when
-        given; in the device coarse mode unshifted), the coarse delays
-        ``(A*P,)`` int32 and the per-spectrum delays ``(A*P, B)`` float32,
-        numpy."""
+        device, the delay terms on the device, the host mode's coarse
+        delay, the frame view, counter/clock bookkeeping.  Returns
+        ``(chunk, coarse, frac, phase, dropped)``, all on the runner's
+        device: the chunk in frame form ``(A*P, B, M)`` (written into
+        ``out``, a tensor of that shape, when given; in the device coarse
+        mode unshifted), the coarse delays ``(A*P,)`` int32 and the
+        per-spectrum delays and phases ``(A*P, B)`` float32 (written into
+        ``delays_out``, a ``(coarse, frac, phase)`` of those shapes, when
+        given)."""
         with span("runner.feed"):
             cfg = self.cfg
             b = cfg.spectra_per_chunk
@@ -459,8 +496,7 @@ class FXRunner:
             if chunk.dtype != torch.int8:
                 raise ValueError(
                     f"source chunks must be int8, got {chunk.dtype}")
-            coarse, frac, phase = (v[rows] for v in self.delay_model.
-                                   evaluate_chunk(self.t0, b, cfg.fft_size))
+            coarse, frac, phase = self._delay_terms(delays_out)
             if self._tail is not None:
                 chunk = self._coarse_shift(chunk.to(self.device), coarse,
                                            out)
@@ -474,24 +510,68 @@ class FXRunner:
             self.counters.spectra_out += b
             self.t0 += cfg.chunk_samples
             self.chunk_idx += 1
-            return (chunk.contiguous(),
-                    np.ascontiguousarray(coarse, np.int32).reshape(a * p),
-                    np.ascontiguousarray(frac).reshape(a * p, b),
-                    np.ascontiguousarray(phase).reshape(a * p, b), dropped)
+            return chunk.contiguous(), coarse, frac, phase, dropped
+
+    def _delay_terms(self, out=None) -> tuple:
+        """The chunk's ``(coarse (A*P,) int32, frac (A*P, B) float32, phase
+        (A*P, B) float32)`` of this rank's rows at ``t0``, on the runner's
+        device (:func:`~dc_sand_tpu_torch.ops.delay_terms.delay_terms`,
+        into ``out`` when given): :meth:`DelayModel.evaluate_chunk`'s
+        numbers, bitwise.  The model's six coefficient arrays are compared
+        with those last uploaded, bit for bit, and uploaded again only when
+        they differ, so an ``update()`` or a replaced model takes effect
+        from this chunk; its epoch and budget are arguments of each
+        launch."""
+        cfg, dm = self.cfg, self.delay_model
+        host = np.stack([np.broadcast_to(
+            np.asarray(getattr(dm, k), np.float64),
+            (cfg.n_ants, cfg.n_pols))[self._rows].reshape(-1)
+            for k in COEFFICIENTS])
+        bits = host.view(np.int64)
+        if self._coef_host is None or not np.array_equal(bits,
+                                                         self._coef_host):
+            src = torch.from_numpy(host)
+            if self._coef.is_cuda:
+                src = src.pin_memory()
+            self._coef.copy_(src, non_blocking=True)
+            self._coef_host = bits
+            self.counters.delay_uploads += 1
+        return delay_terms(self._coef, float(self.t0 - dm.t_ref),
+                           cfg.spectra_per_chunk, cfg.fft_size,
+                           int(dm.max_delay), out=out)
+
+    def _pace(self) -> None:
+        """Block the host until chunk i - 2 has finished on every card
+        (its events), before chunk i is fed."""
+        while len(self._in_flight) >= _IN_FLIGHT:
+            for ev in self._in_flight.popleft():
+                ev.synchronize()
+
+    def _launched(self) -> None:
+        """Record the chunk's event on each card's current stream, after
+        its launches (nothing on the CPU)."""
+        if not self._cards:
+            return
+        events = []
+        for dev in self._cards:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        self._in_flight.append(events)
 
     def _step_args(self, chunk, frac, phase, coarse=None) -> tuple:
         """The step's arguments after the carries: ``(chunk, frac, phase,
         gains, weights)`` from the frame chunk ``(A*P, B, M)`` and the
         per-spectrum ``(A*P, B)`` delays, as lists cut to the shards; in
         the device coarse mode ``(chunk, coarse, frac, ...)``, with the
-        ``(A*P,)`` coarse delays as int32."""
+        ``(A*P,)`` coarse delays as int32.  On one device nothing is
+        copied; on a mesh each other card takes its rows card to card."""
         with span("runner.upload"):
             chunks, fracs, phases = shard_inputs(self.mesh, chunk, frac,
                                                  phase)
             lead = ()
             if self._lead:
-                lead = shard_inputs(self.mesh, torch.as_tensor(
-                    coarse, dtype=torch.int32).reshape(-1))
+                lead = shard_inputs(self.mesh, coarse)
             return (chunks, *lead, fracs, phases, self._gains_sh,
                     self._weights_sh)
 
@@ -501,18 +581,16 @@ class FXRunner:
         return gather_acc(self.vis_acc, self.mesh, self.device,
                           self._acc_bufs)
 
-    def _coarse_shift(self, chunk: torch.Tensor, coarse: np.ndarray,
+    def _coarse_shift(self, chunk: torch.Tensor, coarse: torch.Tensor,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Coarse delay: a read-pointer offset into ``[tail | chunk]``,
-        coarse frozen at the chunk start (host-side delay values), one
-        gather on the runner's device (one kernel launch on a card), into
-        ``out`` when given (any shape of the chunk's bytes); then the tail
-        becomes the chunk's last ``max_delay`` samples."""
+        coarse frozen at the chunk start (the ``(A*P,)`` int32 delays on
+        the runner's device), one gather there (one kernel launch on a
+        card), into ``out`` when given (any shape of the chunk's bytes);
+        then the tail becomes the chunk's last ``max_delay`` samples."""
         rows = chunk.reshape(self._tail.shape[0] * self.cfg.n_pols, -1)
         out = torch.empty_like(rows) if out is None else out
-        co = torch.as_tensor(np.ascontiguousarray(coarse, np.int32)
-                             .reshape(-1)).to(self.device)
-        coarse_gather(self._tail, rows, co, self.max_delay, out=out)
+        coarse_gather(self._tail, rows, coarse, self.max_delay, out=out)
         carry_lead(self._tail, rows)
         return out
 
@@ -527,20 +605,16 @@ def _launch_counts() -> dict:
 class _WindowGraph:
     """One dump window of a one-device fx runner's steps as a CUDA graph,
     with the static buffers it reads (:meth:`FXRunner.run_batched`): the
-    window's chunks in frame form, their delays (filled on the host,
-    copied up once a window; in the device coarse mode their coarse
-    delays too) and the gains."""
+    window's chunks in frame form, their delay terms (written by the
+    delay kernel in each chunk's feed) and the gains."""
 
     def __init__(self, runner: FXRunner, g: int):
         cfg, dev = runner.cfg, runner.device
         s, b = cfg.n_ants * cfg.n_pols, cfg.spectra_per_chunk
         self.chunks = torch.empty((g, s, b, cfg.fft_size), dtype=torch.int8,
                                   device=dev)
-        self.frac_host = np.zeros((g, s, b), np.float32)
-        self.phase_host = np.zeros((g, s, b), np.float32)
         self.frac = torch.zeros((g, s, b), device=dev)
         self.phase = torch.zeros((g, s, b), device=dev)
-        self.coarse_host = np.zeros((g, s), np.int32)
         self.coarse = torch.zeros((g, s), dtype=torch.int32, device=dev)
         self.gains = torch.empty_like(runner.gains)
         self.graph = None
@@ -573,11 +647,8 @@ class _WindowGraph:
         self._carry_ptrs = (history.data_ptr(), acc.data_ptr())
 
     def replay(self, runner: FXRunner) -> None:
-        """Copy the window's delays and the gains up, capture if the
-        graph is missing or the carries moved, and replay."""
-        self.frac.copy_(torch.from_numpy(self.frac_host))
-        self.phase.copy_(torch.from_numpy(self.phase_host))
-        self.coarse.copy_(torch.from_numpy(self.coarse_host))
+        """Copy the gains, capture if the graph is missing or the carries
+        moved, and replay."""
         self.gains.copy_(runner.gains)
         ptrs = (runner.history[0].data_ptr(), runner.vis_acc[0].data_ptr())
         if self.graph is None or ptrs != self._carry_ptrs:

@@ -15,12 +15,16 @@ events carry no arguments, so the k-th ``runner.chunk`` of a ``run``
 call is chunk ``chunk_idx + k`` of the runner as the call began)::
 
     runner.run            FXRunner.run, the whole call
-      runner.chunk        one a chunk: the feed through the output handoff
+      runner.chunk        one a chunk: the wait for chunk i - 2's event
+                          (cudaEventSynchronize), then the feed through
+                          the output handoff
         runner.feed       _feed_chunk: source(i), the chunk's transfer,
-                          the delay model, the host coarse shift, counters
-        runner.upload     _step_args: the chunk and its delay tables cut
-                          to the shards and copied to their cards, with
-                          whatever synchronise the copies bring
+                          the delay terms' launch on the device (with the
+                          pinned upload of the coefficients when the
+                          model changed), the host coarse shift, counters
+        runner.upload     _step_args: the chunk and its delay terms cut
+                          to the shards; nothing copied on one card, each
+                          other card's rows card to card on a mesh
         runner.launch     the step's Python and its kernel launches
         runner.output     gather_outputs and on_output (beam and
                           F-engine modes)

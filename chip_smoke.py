@@ -32,8 +32,7 @@ the run (non-zero exit) when it fails:
    one 8192-spectra dump; the launch counters, zeroed just before, must
    read 4 for K1 and the CMAC and 0 for the others.  The ``run()`` rate
    it prints is with the chunks already on the card (no host-to-device
-   copy); ``python -m dc_sand_tpu_torch.profile_step`` measures the
-   numpy feed;
+   copy);
 7. beam kernel (K4/K4p/K5, on the tensor cores) vs its plain version at
    the beam64 shape (64 ants x 2 pols, 256 spectra, 4096 channels, 16
    beams): float beams >= 100 dB apart, the incoherent beam bitwise
@@ -505,7 +504,7 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
     from dc_sand_tpu_torch.parallel import (SharedBuffers, StagedRoute,
                                             local_antenna_range,
                                             ring_permute_right)
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.bench.fixtures import production_runner
     n_t = mesh.shape["time"]
     cfg = get_config("fx64").replace(time_shards=n_t)
     a0, a1 = local_antenna_range(cfg.n_ants)
@@ -576,9 +575,9 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
           + (f"; device step {out['device_step_ms']:.3f} ms" if step
              else ""), flush=True)
     if trace is not None:
-        from dc_sand_tpu_torch.profile_step import (DEVICE_CATS,
-                                                    card_spans_us,
-                                                    chrome_trace)
+        from dc_sand_tpu_torch.bench.fixtures import (DEVICE_CATS,
+                                                      card_spans_us,
+                                                      chrome_trace)
         with chrome_trace(trace):
             torch.cuda.synchronize()
             t0 = time.time()
@@ -601,11 +600,11 @@ def _fx64_mesh_run(dev, mesh, digest, label, trace=None,
 
 def _idle_share(runs) -> tuple:
     """``(idle share, busy ms, wall ms)`` over every card of the ranks'
-    traced runs (``profile_step.idle_share``): one minus each card's union
+    traced runs (``bench.fixtures.idle_share``): one minus each card's union
     of every rank's device intervals, summed over the cards, over the
     cards times the span of the ranks' host windows; the share is None
     when the traces' clocks do not line up with the host's."""
-    from dc_sand_tpu_torch.profile_step import idle_share
+    from dc_sand_tpu_torch.bench.fixtures import idle_share
     return idle_share(runs)[:3]
 
 
@@ -850,7 +849,7 @@ def _k7a_case(dev) -> tuple:
     shards of int8 ``(64, 16, 8192)`` from seed 33."""
     import torch
     from dc_sand_tpu_torch.ops.pfb import taps_pad_for
-    from dc_sand_tpu_torch.profile_step import noise_int8
+    from dc_sand_tpu_torch.bench.fixtures import noise_int8
     shape = (FX64_STREAMS // 2, taps_pad_for(TAPS), FX64_M)
     gen = torch.Generator(device=dev)
 
@@ -869,7 +868,7 @@ def _phases_32_33(dev, digest6, digest36, tmp) -> None:
                                             build_global_mesh,
                                             local_antenna_range,
                                             ring_permute_right)
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.bench.fixtures import production_runner
     from dc_sand_tpu_torch.runtime import save_state
     mesh = build_global_mesh([dev] * 2)
     rank = mesh.rank
@@ -973,7 +972,7 @@ def _phase_34(dev, digest6, digest36, tmp) -> None:
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.parallel import (build_global_mesh,
                                             local_antenna_range)
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.bench.fixtures import production_runner
     from dc_sand_tpu_torch.runtime import DelayModel, FXRunner, load_state
     from dc_sand_tpu_torch.windows import pfb_window
     mesh = build_global_mesh([dev] * 2)
@@ -1047,7 +1046,7 @@ def _phases_37_39(dev, digest6, digest36, tmp) -> None:
                                             build_global_mesh,
                                             local_antenna_range,
                                             ring_permute_right)
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.bench.fixtures import production_runner
     from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
                                            save_state)
     from dc_sand_tpu_torch.windows import pfb_window
@@ -1152,7 +1151,7 @@ def _beam64_ranks(dev, mesh, label, phase) -> None:
     import torch
     from dc_sand_tpu_torch.config import get_config
     from dc_sand_tpu_torch.parallel import build_mesh, local_antenna_range
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.bench.fixtures import production_runner
     base = get_config("beam64")
     a0, a1 = local_antenna_range(base.n_ants)
     n = PHASE38_BEAM_CHUNKS
@@ -1231,7 +1230,7 @@ def _phase_40(cards, digest6, digest36, tmp) -> None:
                                             local_antenna_range,
                                             ring_permute_right)
     from dc_sand_tpu_torch.parallel.distributed import process_count
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.bench.fixtures import production_runner
     from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
                                            save_state)
     from dc_sand_tpu_torch.windows import pfb_window
@@ -1533,7 +1532,7 @@ def _phase_41(dev, card) -> dict:
     from dc_sand_tpu_torch.ops.fengine_fused import fengine_fused
     from dc_sand_tpu_torch.ops.pfb import taps_pad_for
     from dc_sand_tpu_torch.ops.xcorr import cmac_pitch, wire_to_operand
-    from dc_sand_tpu_torch.profile_step import noise_int8, production_runner
+    from dc_sand_tpu_torch.bench.fixtures import noise_int8, production_runner
     from dc_sand_tpu_torch.windows import pfb_window
 
     s, b, m, nch = FX64_STREAMS, WIDE_SPECTRA, WIDE_M, WIDE_M // 2
@@ -1753,7 +1752,7 @@ def _phase_40_alone() -> int:
     from dc_sand_tpu_torch import _build
     from dc_sand_tpu_torch.bench.harness import card
     from dc_sand_tpu_torch.config import get_config
-    from dc_sand_tpu_torch.profile_step import production_runner
+    from dc_sand_tpu_torch.bench.fixtures import production_runner
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.library()
@@ -1839,11 +1838,12 @@ def main() -> int:
     from dc_sand_tpu_torch.examples import (beam_pointing, fx_observation,
                                             observe, udp_observation)
     from dc_sand_tpu_torch.examples import beams as ex_beams
-    from dc_sand_tpu_torch.profile_step import (BEAM_CHUNKS, INGEST_SEED,
-                                                chrome_trace, device_busy_us,
-                                                ingest_setup, noise_int8,
-                                                production_delay_model,
-                                                production_runner)
+    from dc_sand_tpu_torch.bench.fixtures import (BEAM_CHUNKS, INGEST_SEED,
+                                                  card_spans_us, chrome_trace,
+                                                  idle_share, ingest_setup,
+                                                  noise_int8,
+                                                  production_delay_model,
+                                                  production_runner)
     from dc_sand_tpu_torch.runtime import (DelayModel, FXRunner, load_state,
                                            save_state)
     from dc_sand_tpu_torch.utils.snr import snr_db
@@ -3187,17 +3187,23 @@ def main() -> int:
         return int(sum((cs[i] != cs[i - 1]).sum() for i in range(1, n)))
 
     def traced(fn, name):
-        """(wall ms, busy ms, idle share) of ``fn`` under the profiler."""
+        """(wall ms, busy ms, idle share) of ``fn`` under the profiler:
+        the card's union of device intervals over the host's window, the
+        share "not measured" where the trace's clock does not line up with
+        the host's."""
         trace = os.path.join(tmp36, f"{name}.json")
         with chrome_trace(trace):
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            t = time.time()
             fn()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        busy = device_busy_us(json.loads(Path(trace).read_text())
-                              ["traceEvents"]) / 1e3
-        return wall, busy, 1 - busy / wall
+            window = (t * 1e6, time.time() * 1e6)
+        doc = json.loads(Path(trace).read_text())
+        share, busy, wall, _ = idle_share([{"window_us": window, "spans_us":
+            card_spans_us(doc["traceEvents"],
+                          doc.get("baseTimeNanoseconds", 0) / 1e3)}])
+        return wall, busy, ("not measured" if share is None
+                            else f"{share:.4f}")
 
     tmp36_dir = tempfile.TemporaryDirectory()
     tmp36 = tmp36_dir.name
@@ -3310,9 +3316,9 @@ def main() -> int:
           f"({steps_in(cfg, n_chunks)} streams step); launches "
           f"{dev_beam_launches}; run() per chunk (traced window) device mode "
           f"{beam_idle['device'][0] / n_chunks:.3f} ms, idle share "
-          f"{beam_idle['device'][2]:.4f}, beside the host shift "
+          f"{beam_idle['device'][2]}, beside the host shift "
           f"{beam_idle['host'][0] / n_chunks:.3f} ms, idle share "
-          f"{beam_idle['host'][2]:.4f} (phase 9: {beam_run_ms:.3f} ms "
+          f"{beam_idle['host'][2]} (phase 9: {beam_run_ms:.3f} ms "
           f"untraced) ({card})", flush=True)
     del runner, host, chunks, outs, plain_outs
     tmp36_dir.cleanup()

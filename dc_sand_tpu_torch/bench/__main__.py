@@ -227,7 +227,7 @@ def main(argv=None) -> int:
             dev = local_cards()[0]
     ctx = contextlib.nullcontext()
     if args.profile:
-        from dc_sand_tpu_torch.profile_step import chrome_trace
+        from dc_sand_tpu_torch.bench.fixtures import chrome_trace
         trace = os.path.join(args.profile,
                              f"{args.target or 'headline'}_trace.json")
         ctx = chrome_trace(trace, cuda=dev.type == "cuda")

@@ -22,7 +22,7 @@ from dc_sand_tpu_torch.ops.fft_mxu import channelize_mxu
 from dc_sand_tpu_torch.ops.xcorr import (acc_shape, extract_baselines,
                                          xcorr_accumulate,
                                          xcorr_accumulate_a2, xcorr_full)
-from dc_sand_tpu_torch.profile_step import noise_int8
+from dc_sand_tpu_torch.bench.fixtures import noise_int8
 
 __all__ = ["bench_xcorr", "bench_beamform", "bench_fft"]
 

@@ -32,7 +32,7 @@ from dc_sand_tpu_torch.models.fengine import f_engine
 from dc_sand_tpu_torch.models.pipeline import (chunk_shape, history_shape,
                                                make_step, zero_vis_acc)
 from dc_sand_tpu_torch.ops._dispatch import default_device
-from dc_sand_tpu_torch.profile_step import noise_int8
+from dc_sand_tpu_torch.bench.fixtures import noise_int8
 from dc_sand_tpu_torch.runtime.runner import FXRunner
 from dc_sand_tpu_torch.windows import pfb_window
 

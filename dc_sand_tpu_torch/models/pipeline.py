@@ -64,8 +64,11 @@ carries, the chunk, delays, gains and weights cut to the shard by
 :func:`shard_inputs`: antennas ``f*A/n_fx ...`` of fx shard f and, in SP
 mode, spectra ``t*B/n_t ...`` of time shard t), and each output a list of
 per-shard tensors (:func:`gather_outputs` and :func:`gather_acc` put them
-back in the global layout).  A mesh of one shard runs the one-device step
-behind that signature.  On more shards:
+back in the global layout).  One function builds the step for every
+mesh; the step on one device is that of a one-shard mesh with its lists
+unwrapped.  A mesh
+of one shard calls no collective and allocates no shared buffer.  On more
+shards:
 
 * the F-engine runs on each shard's antennas and spectra;
 * fx: the corner-turn over fx (the all-to-all kernel K7b in its pitched
@@ -117,8 +120,9 @@ from dc_sand_tpu_torch.ops.stokes import stokes
 from dc_sand_tpu_torch.ops.xcorr import (acc_shape, cmac_pitch,
                                          xcorr_accumulate_a2)
 from dc_sand_tpu_torch.parallel import (FX_AXIS, TIME_AXIS, SharedBuffers,
-                                        all_shards, corner_turn_all_to_all,
-                                        psum, psum_scatter, ring_tails,
+                                        all_shards, build_mesh,
+                                        corner_turn_all_to_all, psum,
+                                        psum_scatter, ring_tails,
                                         uses_shared_buffers)
 
 __all__ = ["make_step", "mode_for", "check_mode", "zero_vis_acc",
@@ -367,24 +371,20 @@ def make_step(cfg: ChainConfig, window, *, device=None, mesh=None,
     ``coarse_on_host=False`` with ``cfg.apply_delay`` runs the coarse
     delay in the step from a lead-in of ``max_delay`` samples; as in the
     JAX package, ``max_delay > 0`` without that mode raises, and so does
-    SP mode with ``max_delay > 0``."""
+    SP mode with ``max_delay > 0``.  On ``device`` the step is the mesh
+    step of a one-shard mesh, taking and returning plain tensors."""
     check_mode(cfg, mesh, max_delay, coarse_on_host)
     md = None if uses_frames_io(cfg, coarse_on_host) else max_delay
-    if mesh is None:
-        return _make_one_step(cfg, window, default_device(device), fused, md)
-    if mesh.size == 1:
-        return _listed(_make_one_step(cfg, window, mesh.flat_devices[0],
-                                      fused, md))
-    return _make_sharded_step(cfg, window, mesh, fused, md)
+    if mesh is not None:
+        return _make_step(cfg, window, mesh, fused, md)
+    step = _make_step(cfg, window, build_mesh([default_device(device)]),
+                      fused, md)
 
+    def one(*args) -> dict:
+        out = step(*([a] for a in args[:-1]), args[-1])
+        return {k: v[0] for k, v in out.items()}
 
-def _listed(step):
-    """The one-device ``step`` with the mesh step's signature: every
-    argument but ``reset``, and every output, a one-element list."""
-    def listed(*args) -> dict:
-        out = step(*(a[0] for a in args[:-1]), args[-1])
-        return {k: [v] for k, v in out.items()}
-    return listed
+    return one
 
 
 class _LeadFrames:
@@ -414,58 +414,6 @@ class _LeadFrames:
                       hist=hist_f)
         carry_lead(history, rows)
         return hist_f, chunk_f
-
-
-def _make_one_step(cfg: ChainConfig, window, device: torch.device,
-                   fused: bool, max_delay=None):
-    """The one-device step; ``max_delay`` not None: the device coarse
-    mode's (module docstring)."""
-    mode = mode_for(cfg)
-    w = _window(window, cfg, device)
-    # the beam kernel quantises in its epilogue unless the float beams
-    # feed Stokes first
-    kq = cfg.beam_quant_scale if not cfg.beam_stokes else 0.0
-
-    def outputs(q, acc, b_l, weights, reset) -> dict:
-        if mode == "fengine":
-            return {"spectra": q.reshape(cfg.n_ants, cfg.n_pols, b_l,
-                                         cfg.n_chans, 2)}
-        if mode == "fx":
-            xcorr_accumulate_a2(acc, q.reshape(cfg.n_chans, -1,
-                                               q.shape[-1]),
-                                keep=0 if reset else 1)
-            return {}
-        beams, inc = beamform(
-            q.reshape(cfg.n_ants, cfg.n_pols, b_l, cfg.n_chans, 2), weights,
-            quant_scale=kq, incoherent=cfg.incoherent_beam)
-        out = {}
-        if cfg.beam_stokes:
-            out["stokes"] = stokes(beams)
-            if cfg.beam_quant_scale:
-                beams = quantize_beams(beams, cfg.beam_quant_scale)
-        out["beams"] = beams
-        if inc is not None:
-            out["incoherent"] = inc
-        return out
-
-    if max_delay is not None:
-        lead = _LeadFrames(cfg, max_delay)
-
-        def step(history, acc, chunk, coarse, frac, phase, gains, weights,
-                 reset) -> dict:
-            hist_f, chunk_f = lead(history, chunk, coarse)
-            q = _fengine(cfg, w, chunk_f, hist_f, frac, phase, gains, fused)
-            return outputs(q, acc, chunk_f.shape[1], weights, reset)
-
-        return step
-
-    def step(history, acc, chunk, frac, phase, gains, weights,
-             reset) -> dict:
-        q = _fengine(cfg, w, chunk, history, frac, phase, gains, fused)
-        _carry(history, chunk)
-        return outputs(q, acc, chunk.shape[1], weights, reset)
-
-    return step
 
 
 def _each(fn, xs) -> list:
@@ -505,17 +453,22 @@ def _shared_buffers(cfg: ChainConfig, mesh) -> dict:
     return bufs
 
 
-def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool,
-                       max_delay=None):
+def _make_step(cfg: ChainConfig, window, mesh, fused: bool,
+               max_delay=None):
+    """The step over ``mesh`` (module docstring); ``max_delay`` not None:
+    the device coarse mode's."""
     mode = mode_for(cfg)
     n_t, n_f = _split(mesh)
     a_l, p, k = cfg.n_ants // n_f, cfg.n_pols, cfg.n_chans
+    one = mesh.size == 1
     devices = mesh.local_devices
     heads = [mesh.coords(d)[0] == 0 for d in mesh.local_shards]
     windows = {dev: _window(window, cfg, dev) for dev in set(devices)}
     bufs = _shared_buffers(cfg, mesh)
-
     lead = _LeadFrames(cfg, max_delay) if max_delay is not None else None
+    # on one shard the beam kernel quantises in its epilogue unless the
+    # float beams feed Stokes first; on more, the beams after their sum
+    kq = cfg.beam_quant_scale if one and not cfg.beam_stokes else 0.0
 
     def fengine(histories, chunks, fracs, phases, gains) -> tuple:
         """Each shard's F-engine output and spectra count; the carries
@@ -556,26 +509,30 @@ def _make_sharded_step(cfg: ChainConfig, window, mesh, fused: bool,
         if mode == "fengine":
             return {"spectra": [q.reshape(a_l, p, b_l, k, 2) for q in qs]}
         if mode == "fx":
-            a2 = corner_turn_all_to_all(qs, mesh, out=bufs.get("operand"))
+            # one shard's operand is its CMAC's, viewed (K, 2*A*P, Bp)
+            a2 = ([q.reshape(k, -1, q.shape[-1]) for q in qs] if one else
+                  corner_turn_all_to_all(qs, mesh, out=bufs.get("operand")))
             for acc, x in zip(accs, a2):
                 xcorr_accumulate_a2(acc, x, keep=0 if reset else 1)
             return {}
-        parts = [beamform(q.reshape(a_l, p, b_l, k, 2), w,
+        parts = [beamform(q.reshape(a_l, p, b_l, k, 2), w, quant_scale=kq,
                           incoherent=cfg.incoherent_beam)
                  for q, w in zip(qs, weights)]
         coh = [c for c, _ in parts]
-        coh = (psum_scatter if cfg.beam_parallel else psum)(
-            coh, mesh, FX_AXIS, buffers=bufs.get("beams"))
+        if not one:
+            coh = (psum_scatter if cfg.beam_parallel else psum)(
+                coh, mesh, FX_AXIS, buffers=bufs.get("beams"))
         out = {}
         if cfg.beam_stokes:
             out["stokes"] = _each(stokes, coh)
-        if cfg.beam_quant_scale:
+        if cfg.beam_quant_scale and not kq:
             coh = _each(lambda y: quantize_beams(y, cfg.beam_quant_scale),
                         coh)
         out["beams"] = coh
         if cfg.incoherent_beam:
-            out["incoherent"] = psum([i for _, i in parts], mesh, FX_AXIS,
-                                     buffers=bufs.get("incoherent"))
+            inc = [i for _, i in parts]
+            out["incoherent"] = inc if one else psum(
+                inc, mesh, FX_AXIS, buffers=bufs.get("incoherent"))
         return out
 
     return step

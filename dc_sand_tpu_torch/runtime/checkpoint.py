@@ -66,7 +66,7 @@ def _global_carry(runner) -> tuple:
     for d in range(mesh.size):
         t, f = mesh.coords(d)
         rows[t][f] = d
-    if runner._lead:
+    if runner._lead is not None:
         hist = np.concatenate([_host(runner.history[d]) for d in rows[0]])
     else:
         hist = np.concatenate(
@@ -91,7 +91,7 @@ def _process_carry(runner) -> dict:
                                      np.int64)}
     counts = {}
     for k, d in enumerate(mesh.local_shards):
-        hist = (_host(runner.history[k]) if runner._lead else
+        hist = (_host(runner.history[k]) if runner._lead is not None else
                 _host(runner.history[k][:, pad0:]).reshape(
                     -1, p, (taps - 1) * m))
         values = {"history": hist,

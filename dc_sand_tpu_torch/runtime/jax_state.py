@@ -52,7 +52,7 @@ def shard_boxes(runner, d: int) -> dict:
     n_t, n_f = mesh.shape[TIME_AXIS], mesh.shape[FX_AXIS]
     t, f = mesh.coords(d)
     a_l, p, k = cfg.n_ants // n_f, cfg.n_pols, cfg.n_chans
-    span = (runner.history[0].shape[-1] if runner._lead
+    span = (runner.history[0].shape[-1] if runner._lead is not None
             else (cfg.n_taps - 1) * cfg.fft_size)
     boxes = {"history": ((f * a_l, (f + 1) * a_l), (0, p),
                          (t * span, (t + 1) * span)),
@@ -109,7 +109,7 @@ def _history_want(runner, n_ants: int) -> tuple:
     * P, taps_pad, M)``, or in the device coarse mode the lead-in ``(n_ants,
     P, L)``."""
     cfg = runner.cfg
-    if runner._lead:
+    if runner._lead is not None:
         return (n_ants, cfg.n_pols, runner.history[0].shape[-1])
     return (n_ants * cfg.n_pols, taps_pad_for(cfg.n_taps), cfg.fft_size)
 
@@ -179,7 +179,7 @@ def _restore_global(runner, z, channel_perm) -> None:
     n_t = cfg.time_shards
     want = _history_want(runner, cfg.n_ants)
     # one history block per time shard (only shard 0's is live)
-    hists = [_frames_history(h, cfg, want, runner._lead)
+    hists = [_frames_history(h, cfg, want, runner._lead is not None)
              for h in np.split(z["history"], n_t, axis=-1)]
     acc = z["vis_acc"]
     acc_want = (1,)
@@ -238,7 +238,8 @@ def _restore_process_shards(runner, z) -> None:
     for k, d in enumerate(mesh.local_shards):
         boxes = shard_boxes(runner, d)
         put(runner.history[k], _frames_history(
-            take("history", boxes["history"]), cfg, want, runner._lead))
+            take("history", boxes["history"]), cfg, want,
+            runner._lead is not None))
         w = take("weights", boxes["weights"])
         put(runner._weights_sh[k], w)
         f0 = boxes["weights"][1][0]

@@ -94,7 +94,7 @@ from dc_sand_tpu_torch.config import ChainConfig
 from dc_sand_tpu_torch.models.pipeline import (gather_acc, gather_outputs,
                                                history_shape, make_step,
                                                mode_for, shard_inputs,
-                                               uses_frames_io, zero_vis_acc)
+                                               zero_vis_acc)
 from dc_sand_tpu_torch.ops._dispatch import default_device
 from dc_sand_tpu_torch.ops.coarse import carry_lead, coarse_gather
 from dc_sand_tpu_torch.ops.delay_terms import COEFFICIENTS, delay_terms
@@ -192,13 +192,14 @@ class FXRunner:
                 f"n_spectra_per_acc={cfg.n_spectra_per_acc} overflows the "
                 f"int32 visibility accumulator (max {MAX_SPECTRA_PER_ACC})")
         self.coarse_on_host = coarse_on_host and cfg.apply_delay
-        # device coarse mode: the lead-in history rides the device (SP
-        # refuses a lead-in, as the JAX step does)
-        self._lead = not uses_frames_io(cfg, coarse_on_host)
-        dev_md = (self.max_delay if cfg.apply_delay and not coarse_on_host
-                  else 0)
+        # the device coarse mode's lead-in: the step gathers from a carried
+        # raw stream of max_delay samples (0 included) before the FIR
+        # overlap; None where it takes frames.  SP takes frames, and the
+        # step refuses it a lead-in of more than 0, as the JAX step does
+        self._lead = (self.max_delay if cfg.apply_delay and not coarse_on_host
+                      and (cfg.time_shards == 1 or self.max_delay) else None)
         self._step = make_step(cfg, window, mesh=mesh, fused=fused,
-                               max_delay=dev_md,
+                               max_delay=self._lead or 0,
                                coarse_on_host=coarse_on_host)
         a, p, k = cfg.n_ants, cfg.n_pols, cfg.n_chans
         self.gains = (gains if gains is not None
@@ -218,7 +219,7 @@ class FXRunner:
         self._cards = (list(dict.fromkeys(self._devices))
                        if self.device.type == "cuda" else [])
         self._in_flight = collections.deque()
-        shape = history_shape(cfg, mesh, dev_md if self._lead else None)
+        shape = history_shape(cfg, mesh, self._lead)
         self.history = [torch.zeros(shape, dtype=torch.int8, device=dev)
                         for dev in self._devices]
         # the accumulators that the other ranks read at a dump
@@ -570,7 +571,7 @@ class FXRunner:
             chunks, fracs, phases = shard_inputs(self.mesh, chunk, frac,
                                                  phase)
             lead = ()
-            if self._lead:
+            if self._lead is not None:
                 lead = shard_inputs(self.mesh, coarse)
             return (chunks, *lead, fracs, phases, self._gains_sh,
                     self._weights_sh)
@@ -624,7 +625,7 @@ class _WindowGraph:
         """The window's first ``n`` steps on the static buffers, the first
         one resetting the accumulator."""
         for k in range(n):
-            lead = ([self.coarse[k]],) if runner._lead else ()
+            lead = ([self.coarse[k]],) if runner._lead is not None else ()
             runner._step([history], [acc], [self.chunks[k]], *lead,
                          [self.frac[k]], [self.phase[k]], [self.gains],
                          runner._weights_sh, k == 0)

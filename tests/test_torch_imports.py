@@ -48,7 +48,7 @@ BENCH_MODULES = ("bench", "bench.__main__", "bench.harness", "bench.probes",
                  "bench.ingest_bench", "examples", "examples.spead_loopback",
                  "examples.udp_observation", "examples.fx_observation",
                  "examples.observe", "examples.beams",
-                 "examples.beam_pointing", "dryrun", "profile_step",
+                 "examples.beam_pointing", "dryrun", "bench.fixtures",
                  "parallel.distributed", "parallel.ipc", "parallel.launch")
 
 

@@ -24,7 +24,7 @@ from dc_sand_tpu.windows import pfb_window
 from dc_sand_tpu_torch import _build
 from dc_sand_tpu_torch.bench import ingest_bench
 from dc_sand_tpu_torch.config import ChainConfig, get_config
-from dc_sand_tpu_torch.profile_step import ingest_setup
+from dc_sand_tpu_torch.bench.fixtures import ingest_setup
 from dc_sand_tpu_torch.runtime import DelayModel, FXRunner
 from dc_sand_tpu_torch.runtime import ingest as port_ingest
 from dc_sand_tpu_torch.runtime.ingest import (Feeder, NativeIngest,

@@ -210,6 +210,73 @@ def test_sharded_beam_runner_matches_one_device(time_shards, ep):
         assert int(d.max()) <= 1
 
 
+@pytest.mark.parametrize("on_host", [True, False], ids=["host", "device"])
+@pytest.mark.parametrize("mode,stokes", [("fengine", False), ("fx", False),
+                                         ("beam", False), ("beam", True)],
+                         ids=["fengine", "fx", "beam_int8",
+                              "beam_stokes_int8"])
+def test_one_device_step_is_the_one_shard_mesh_step(monkeypatch, mode, stokes,
+                                                    on_host):
+    """``make_step(device="cpu")`` against the mesh step on
+    ``build_mesh(["cpu"])``, in both coarse modes over three chunks:
+    outputs, history and accumulator bitwise after every chunk.  On one
+    shard no collective runs and no shared buffer is made, and the beam
+    kernel quantises in its epilogue exactly when no Stokes come first."""
+    from dc_sand_tpu_torch.models import pipeline
+
+    def refuse(*args, **kw):
+        raise AssertionError("a collective ran on a mesh of one shard")
+
+    for name in ("corner_turn_all_to_all", "psum", "psum_scatter",
+                 "SharedBuffers"):
+        monkeypatch.setattr(pipeline, name, refuse)
+    scales = []
+
+    def beamform_spy(*args, quant_scale=0.0, **kw):
+        scales.append(quant_scale)
+        return beamform(*args, quant_scale=quant_scale, **kw)
+
+    monkeypatch.setattr(pipeline, "beamform", beamform_spy)
+    beam = mode == "beam"
+    cfg = _cfg(run_xengine=mode == "fx", n_beams=3 if beam else 0,
+               incoherent_beam=beam, beam_stokes=stokes,
+               beam_quant_scale=0.02 if beam else 0.0)
+    a, p, b = cfg.n_ants, cfg.n_pols, cfg.spectra_per_chunk
+    _, src = _stream(cfg, 3, seed=31)
+    dm = _dm(cfg, 32)
+    gains = torch.tensor([[0.05, 0.01]]).expand(N_CHANS, 2).contiguous()
+    weights = torch.from_numpy(np.random.default_rng(33).normal(
+        size=(max(cfg.n_beams, 1), a, N_CHANS, 2)).astype(np.float32))
+    kw = dict(max_delay=0 if on_host else dm.max_delay,
+              coarse_on_host=on_host)
+    w = pfb_window(TAPS, M)
+    one = make_step(cfg, w, device="cpu", **kw)
+    listed = make_step(cfg, w, mesh=build_mesh(["cpu"]), **kw)
+    shape = history_shape(cfg, max_delay=None if on_host else dm.max_delay)
+    h1, h2 = torch.zeros(shape, dtype=torch.int8), [torch.zeros(
+        shape, dtype=torch.int8)]
+    acc1, acc2 = zero_vis_acc(cfg, "cpu"), [zero_vis_acc(cfg, "cpu")]
+    for i in range(3):
+        coarse, frac, phase = (torch.from_numpy(x) for x in dm.evaluate_chunk(
+            i * cfg.chunk_samples, b, M))
+        chunk = torch.from_numpy(src(i).copy())
+        lead = (coarse.reshape(-1),)
+        if on_host:
+            chunk, lead = chunk.reshape(chunk_shape(cfg)), ()
+        args = (chunk, *lead, frac.reshape(a * p, b),
+                phase.reshape(a * p, b), gains, weights)
+        got = one(h1, acc1, *args, i == 0)
+        want = listed(h2, acc2, *([x] for x in args), i == 0)
+        assert list(got) == list(want)
+        for key, x in got.items():
+            assert len(want[key]) == 1 and torch.equal(x, want[key][0])
+        assert torch.equal(h1, h2[0]) and torch.equal(acc1, acc2[0])
+    assert h1.any() and (acc1.any() or mode != "fx")
+    if beam:
+        assert got["beams"].dtype == torch.int8 and got["beams"].any()
+    assert scales == [0.0 if stokes else 0.02] * 6 * beam
+
+
 # ---- against the JAX package ----------------------------------------------
 
 def test_sharded_fx_runner_matches_jax_and_golden():
